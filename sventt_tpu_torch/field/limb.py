@@ -1,0 +1,224 @@
+"""64-bit modular arithmetic on ``torch.int64`` tensors holding u64 bit patterns.
+
+The PyTorch counterpart of ``sventt_tpu/field/limb.py``.  The TPU has no
+64-bit multiply, so the JAX package carries every element as a (hi, lo) pair
+of uint32 limbs; the GPU multiplies 64-bit words natively, so here an element
+is ONE ``int64`` tensor holding the u64 bit pattern.  PyTorch's ``uint64``
+has no add, sub, shift or compare, so the plain versions below work on
+``int64`` with these rules:
+
+* add, sub and the low 64 bits of a multiply wrap, exactly as u64 does;
+* ``>>`` is arithmetic, so a logical shift masks after shifting (``_shr``);
+* an unsigned compare flips the sign bit of both sides first (``u64_lt``);
+* ``hi64(a*b)`` is assembled from 32-bit halves (``u64_mulhi``), as
+  ``sventt_tpu.field.limb`` assembles it from 16-bit halves.
+
+The same functions exist as CUDA device code in ``csrc/field.cuh``, where
+``__umul64hi`` gives ``hi64`` in one instruction.  The (hi, lo) limb pair
+exists only at the test boundary (``from_limbs`` / ``to_limbs``).
+
+Only the Montgomery engine the matrix-NTT path uses is ported here.  Its
+``hi64(q*N)`` is the generic product: the sparse-modulus chains of the JAX
+package compute the same value with fewer 32-bit multiplies, which a GPU
+does not need.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .modulus import MASK32, MASK64, Modulus
+
+#: The sign bit as an int64: XOR with it maps unsigned order onto signed.
+SIGN = -(1 << 63)
+
+
+def s64(value: int) -> int:
+    """A Python int in [0, 2^64) as the int64 with the same bit pattern."""
+    value &= MASK64
+    return value - (1 << 64) if value >> 63 else value
+
+
+def u64(value: int) -> int:
+    """The unsigned value of an int64 bit pattern (inverse of ``s64``)."""
+    return value & MASK64
+
+
+# ---------------------------------------------------------------------------
+# conversions at the test and host boundary
+# ---------------------------------------------------------------------------
+
+
+def from_numpy(arr, device=None) -> torch.Tensor:
+    """numpy uint64 (or int-like) array -> int64 tensor of the same bits."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
+    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> numpy uint64 array of the same bits."""
+    return x.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def from_limbs(hi, lo, device=None) -> torch.Tensor:
+    """(hi, lo) uint32 limb arrays (numpy) -> int64 tensor."""
+    hi = np.asarray(hi, dtype=np.uint64)
+    lo = np.asarray(lo, dtype=np.uint64)
+    return from_numpy((hi << np.uint64(32)) | lo, device)
+
+
+def to_limbs(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """int64 tensor -> (hi, lo) uint32 numpy limb arrays."""
+    a = to_numpy(x)
+    return (a >> np.uint64(32)).astype(np.uint32), a.astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# u64 primitives on int64 tensors
+# ---------------------------------------------------------------------------
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of a u64 bit pattern by k in [0, 64)."""
+    return x if k == 0 else (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def u64_lt(a, b) -> torch.Tensor:
+    """Unsigned a < b."""
+    return (a ^ SIGN) < (b ^ SIGN)
+
+
+def u64_add(a, b) -> torch.Tensor:
+    """(a + b) mod 2^64."""
+    return a + b
+
+
+def u64_add_carry(a, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a + b) mod 2^64 and the carry-out bit (int64 0/1)."""
+    s = a + b
+    return s, u64_lt(s, a).to(torch.int64)
+
+
+def u64_sub(a, b) -> torch.Tensor:
+    """(a - b) mod 2^64."""
+    return a - b
+
+
+def u64_select(pred, a, b) -> torch.Tensor:
+    """pred ? a : b, elementwise."""
+    return torch.where(pred, a, b)
+
+
+def u64_mullo(a, b) -> torch.Tensor:
+    """Low 64 bits of a*b (the wrapping int64 multiply)."""
+    return a * b
+
+
+def u64_mulhi(a, b) -> torch.Tensor:
+    """High 64 bits of the unsigned 128-bit product a*b, from 32-bit halves."""
+    a_lo, a_hi = a & MASK32, _shr(a, 32)
+    b_lo, b_hi = b & MASK32, _shr(b, 32)
+    ll = a_lo * b_lo  # each partial product is an exact u64 bit pattern
+    lh = a_lo * b_hi
+    hl = a_hi * b_lo
+    hh = a_hi * b_hi
+    mid = _shr(ll, 32) + (lh & MASK32) + (hl & MASK32)  # < 3 * 2^32
+    return hh + _shr(lh, 32) + _shr(hl, 32) + _shr(mid, 32)
+
+
+# ---------------------------------------------------------------------------
+# sparse-modulus detection (kept for FieldConsts parity with the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def detect_sparse_modulus(N: int, max_c_bits: int = 20):
+    """(form, c, s) with form 'low' (N = c*2^s + 1), 'high'
+    (N = 2^64 - c*2^s + 1) or 'generic'."""
+    candidates = []
+    M = N - 1
+    s = (M & -M).bit_length() - 1
+    c = M >> s
+    if c.bit_length() <= max_c_bits:
+        candidates.append(("low", c, s))
+    M = ((1 << 64) - N + 1) & MASK64
+    if M:
+        s = (M & -M).bit_length() - 1
+        c = M >> s
+        if c.bit_length() <= max_c_bits:
+            candidates.append(("high", c, s))
+    if not candidates:
+        return ("generic", 0, 0)
+    return min(candidates, key=lambda t: t[1])
+
+
+# ---------------------------------------------------------------------------
+# Modulus-bound engine
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FieldConsts:
+    """The constants of one modulus, as Python ints (the kernels take them
+    as arguments).  Same fields as ``sventt_tpu.field.limb.FieldConsts``."""
+
+    modulus: int
+    montgomery_inverse: int  # N^-1 mod 2^64
+    lazy: bool  # values in [0, 2N) vs canonical [0, N)
+    modmul: str = "montgomery"
+    n_form: str = "generic"
+    n_c: int = 0
+    n_s: int = 0
+
+    @classmethod
+    def from_modulus(
+        cls, mod: Modulus, lazy: bool | None = None, modmul: str = "montgomery"
+    ) -> "FieldConsts":
+        if lazy is None:
+            lazy = mod.bit_width <= 62
+        if lazy and mod.bit_width > 62:
+            raise ValueError(
+                "lazy [0,2N) arithmetic requires bit_width(N) <= 62; "
+                f"modulus has {mod.bit_width} bits"
+            )
+        if modmul == "auto":
+            modmul = "montgomery"
+        if modmul in ("shoup", "solinas"):
+            raise NotImplementedError(
+                f"modmul={modmul!r} is not ported yet (ROADMAP Queue 1 item 8)"
+            )
+        if modmul != "montgomery":
+            raise ValueError(f"unknown modmul engine {modmul!r}")
+        form, c, s = detect_sparse_modulus(mod.modulus)
+        return cls(mod.modulus, mod.montgomery_inverse, lazy, modmul, form, c, s)
+
+    def normalize(self, a: torch.Tensor) -> torch.Tensor:
+        """Map [0, 2N) -> canonical [0, N) (identity in canonical mode)."""
+        if not self.lazy:
+            return a
+        b = a - s64(self.modulus)
+        return u64_select(u64_lt(a, b), a, b)
+
+    def mont_mul(self, a, w, wp) -> torch.Tensor:
+        """Montgomery multiply with a precomputed companion
+        ``wp = w * N^-1 mod 2^64``: ``hi64(a*w) - hi64(lo64(a*wp) * N)``,
+        plus N as ``_redc_finish`` decides."""
+        return self._redc_finish(u64_mulhi(a, w), a * wp)
+
+    def _redc_finish(self, ab1, q) -> torch.Tensor:
+        """ab1 - hi64(q*N), +N always (lazy, (0, 2N)) or on borrow
+        (canonical, [0, N))."""
+        n = s64(self.modulus)
+        qn1 = u64_mulhi(q, torch.full_like(q, n))
+        d = ab1 - qn1
+        if self.lazy:
+            return d + n
+        return u64_select(u64_lt(ab1, qn1), d + n, d)
+
+    def mont_mul_full(self, a, b) -> torch.Tensor:
+        """Montgomery multiply computing the companion in flight:
+        ``q = lo64(a*b) * N^-1``."""
+        q = (a * b) * s64(self.montgomery_inverse)
+        return self._redc_finish(u64_mulhi(a, b), q)

@@ -1,0 +1,274 @@
+"""Recursive transform planner: matrix-NTT leaves composed by six-step splits.
+
+The counterpart of ``sventt_tpu/plan/planner.py`` for the matrix engine
+("mxu").  A plan is a static tree:
+
+* ``Leaf(m)`` -- a length-m NTT along the leading axis (``ops.ntt_mxu``).
+* ``Split(m, m0, m1)`` -- the six-step decomposition m = m0*m1: column
+  NTTs (the ``col`` subtree, length m0), then the row step (a length-m1 mxu
+  leaf) with the inter-step twiddle multiply fused into the kernel.  The
+  output is bit-reversed like a Leaf of the same length, so nodes compose.
+
+The row step runs mid-axis when the node has batch axes (inner levels: no
+transposes) and lead-axis between two transposes at the unbatched root,
+with the root's twiddle table stored transposed (``split_tw_t``), as in the
+JAX package.  Plans with other leaf engines are built (``build_plan_spec``
+validates them as the JAX package does) but running them raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..field.limb import FieldConsts
+from ..field.modulus import Modulus
+from ..ops import ntt_mxu
+from ..ops.transpose import transpose01
+from ..ops.twiddle import (
+    MontPair,
+    montpair_map,
+    sixstep_row_twiddles,
+    sixstep_row_twiddles_device,
+    sixstep_row_twiddles_inverse,
+)
+
+#: Above this element count inter-step twiddle matrices are generated on the
+#: device instead of with host Python ints.
+DEVICE_TWIDDLE_THRESHOLD = 1 << 16
+
+#: At and above this element count the Montgomery companion array is
+#: dropped (the multiply computes it in flight), halving twiddle memory.
+W_ONLY_THRESHOLD = 1 << 26
+
+#: Largest leaf of the unported engines, for plan_spec validation only
+#: (sventt_tpu/ops/ntt_pallas.py MAX_FUSED; the jnp cap of build_plan_spec).
+_PALLAS_MAX_FUSED = 256
+_JNP_SPEC_CAP = 1 << 22
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def row_twiddles(
+    mod: Modulus, n0: int, n1: int, *, inverse: bool,
+    w_only: bool | None = None, modmul: str = "montgomery",
+    transposed: bool = False, device=None,
+) -> MontPair:
+    """Inter-step twiddle matrix for one Split level (Montgomery form).
+
+    ``w_only`` drops the companion; None applies W_ONLY_THRESHOLD.
+    ``transposed`` returns the (n1, n0) layout of the lead-axis root step.
+    """
+    if modmul == "solinas":
+        raise _not_ported("modmul='solinas'", "Queue 1 item 8")
+    if w_only is None:
+        w_only = n0 * n1 >= W_ONLY_THRESHOLD
+    if n0 * n1 > DEVICE_TWIDDLE_THRESHOLD:
+        return sixstep_row_twiddles_device(
+            mod, n0, n1, inverse=inverse, with_companion=not w_only,
+            transposed=transposed, device=device,
+        )
+    build = sixstep_row_twiddles_inverse if inverse else sixstep_row_twiddles
+    tw = build(mod, n0, n1, device)
+    if w_only:
+        tw = MontPair(tw.w, None)
+    if transposed:
+        tw = _transpose_pair(tw)
+    return tw
+
+
+def _transpose_pair(tw: MontPair) -> MontPair:
+    return montpair_map(lambda a: a.t().contiguous(), tw)
+
+
+@dataclass(frozen=True)
+class Leaf:
+    m: int
+    engine: str  # "mxu" runs; "jnp" | "pallas" are not ported
+
+
+@dataclass(frozen=True)
+class Split:
+    m: int
+    m0: int
+    m1: int
+    col: "Leaf | Split"
+    row: "Leaf | Split"
+
+
+def build_plan(n: int, engine: str, max_fused: int | None = None) -> "Leaf | Split":
+    """Static plan tree for a length-n transform (mxu engine).
+
+    log2(n) is cut into the fewest near-equal factors, each <= max_fused
+    (512 by default), left-deep: the row side is a leaf, the column side
+    recurses.  2^17 -> 256 x 512; 2^24 -> (256 x 256) x 256.
+    """
+    if engine != "mxu":
+        raise _not_ported(f"engine={engine!r}", "Queue 1 items 7-8")
+    if max_fused is None:
+        max_fused = 512
+    if n <= max_fused:
+        return Leaf(n, engine)
+    log2n = n.bit_length() - 1
+    log2f = max_fused.bit_length() - 1
+    k = -(-log2n // log2f)
+    n1 = 1 << -(-log2n // k)
+    n0 = n // n1
+    return Split(n, n0, n1, build_plan(n0, engine, max_fused), Leaf(n1, engine))
+
+
+def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
+    """Explicit plan tree from a spec string, top-down: ``engine:m1`` per
+    Split level (its row leaf), then a bare engine for the column leaf.
+    Validates exactly as ``sventt_tpu.plan.planner.build_plan_spec``."""
+    caps = {"jnp": _JNP_SPEC_CAP, "pallas": _PALLAS_MAX_FUSED, "mxu": ntt_mxu.MAX_MXU}
+
+    def leaf(m: int, engine: str) -> Leaf:
+        if engine not in caps:
+            raise ValueError(f"plan_spec: unknown engine {engine!r}")
+        if m > caps[engine]:
+            raise ValueError(
+                f"plan_spec: leaf m={m} exceeds the {engine} cap {caps[engine]}"
+            )
+        return Leaf(m, engine)
+
+    def rec(n: int, parts: list[str]):
+        head, rest = parts[0], parts[1:]
+        if not rest:
+            if ":" in head:
+                raise ValueError(
+                    "plan_spec: the last element is the column LEAF -- a "
+                    f"bare engine name, got {head!r}"
+                )
+            return leaf(n, head)
+        if ":" not in head:
+            raise ValueError(f"plan_spec: split levels need 'engine:m1', got {head!r}")
+        engine, m1s = head.split(":", 1)
+        m1 = int(m1s)
+        if m1 < 2 or m1 & (m1 - 1) or n % m1 or m1 >= n:
+            raise ValueError(f"plan_spec: m1={m1} must be a power of two dividing n={n}")
+        return Split(n, n // m1, m1, rec(n // m1, rest), leaf(m1, engine))
+
+    parts = [p.strip() for p in spec.split(",") if p.strip()]
+    if not parts:
+        raise ValueError("plan_spec: empty spec")
+    return rec(n, parts)
+
+
+def check_ported(node) -> None:
+    """Raise NotImplementedError unless every node runs on the mxu path."""
+    if isinstance(node, Leaf):
+        if node.engine != "mxu":
+            raise _not_ported(f"engine={node.engine!r} leaves", "Queue 1 items 7-8")
+        return
+    if not _mxu_row(node):
+        raise _not_ported("split levels without an mxu row leaf", "Queue 1 item 5")
+    check_ported(node.col)
+
+
+def _mxu_row(node) -> bool:
+    """Split nodes whose row child is an mxu leaf (the only row step ported)."""
+    return isinstance(node, Split) and isinstance(node.row, Leaf) and node.row.engine == "mxu"
+
+
+class PlanTables:
+    """Twiddle and matrix tables for every node of a plan, one direction,
+    on one device.
+
+    ``leaf[(m, "mxu")]``: MxuDirection; ``split_tw[(m0, m1)]``: (m0, m1)
+    MontPair of an inner level; ``split_tw_t[(m0, m1)]``: the (m1, m0)
+    transposed table of the unbatched root's lead-axis row step.
+    """
+
+    def __init__(
+        self, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
+        device=None, split_w_only: bool | None = None,
+    ):
+        check_ported(plan)
+        self.plan = plan
+        self.mod = mod
+        self.fc = fc
+        self.inverse = inverse
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.split_w_only = split_w_only
+        self.leaf: dict = {}
+        self.split_tw: dict = {}
+        self.split_tw_t: dict = {}
+        self._prepare(plan, root=True)
+
+    @classmethod
+    def from_parts(
+        cls, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
+        leaf: dict, split_tw: dict, split_tw_t: dict,
+    ) -> "PlanTables":
+        """Tables assembled from prepared parts (see ``interop``)."""
+        check_ported(plan)
+        obj = object.__new__(cls)
+        obj.plan, obj.mod, obj.fc, obj.inverse = plan, mod, fc, inverse
+        first = next(iter(leaf.values()))
+        obj.device = first.planes.device
+        obj.split_w_only = None
+        obj.leaf, obj.split_tw, obj.split_tw_t = leaf, split_tw, split_tw_t
+        return obj
+
+    def _prepare(self, node, root: bool = False):
+        if isinstance(node, Leaf):
+            if (node.m, node.engine) not in self.leaf:
+                self.leaf[(node.m, node.engine)] = ntt_mxu.make_mxu_tables(
+                    self.mod, node.m, inverse=self.inverse, device=self.device
+                )
+            return
+        key = (node.m0, node.m1)
+        store = self.split_tw_t if root else self.split_tw
+        if key not in store:
+            store[key] = row_twiddles(
+                self.mod, node.m0, node.m1, inverse=self.inverse,
+                w_only=self.split_w_only, modmul=self.fc.modmul,
+                transposed=root, device=self.device,
+            )
+        self._prepare(node.col)
+        self._prepare(node.row)
+
+
+def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torch.Tensor:
+    """The mxu row step of a Split on (m0, m1, batch...) data, with the
+    inter-step twiddle fused (prologue forward, epilogue inverse)."""
+    fc = tables.fc
+    t = tables.leaf[(node.m1, "mxu")]
+    key = (node.m0, node.m1)
+    if batch:
+        tw = tables.split_tw.get(key)
+        if tw is None:  # root table stored transposed only
+            tw = _transpose_pair(tables.split_tw_t[key])
+        return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=tw)
+    twt = tables.split_tw_t.get(key)
+    if twt is None:
+        twt = _transpose_pair(tables.split_tw[key])
+    mat = ntt_mxu.mxu_ntt(transpose01(mat), t, fc, tw=twt)
+    return transpose01(mat)
+
+
+def run_forward(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
+    """Length-m DIF NTT along the leading axis (bit-reversed output)."""
+    if isinstance(node, Leaf):
+        return ntt_mxu.mxu_ntt(x, tables.leaf[(node.m, node.engine)], tables.fc)
+    batch = tuple(x.shape[1:])
+    mat = x.reshape((node.m0, node.m1) + batch)
+    mat = run_forward(mat, node.col, tables)  # column NTTs, leading axis m0
+    mat = _row_step(mat, node, tables, batch)
+    return mat.reshape((node.m,) + batch)
+
+
+def run_inverse(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
+    """Mirror of run_forward: undo the row step, then the column NTTs."""
+    if isinstance(node, Leaf):
+        return ntt_mxu.mxu_ntt(x, tables.leaf[(node.m, node.engine)], tables.fc)
+    batch = tuple(x.shape[1:])
+    mat = x.reshape((node.m0, node.m1) + batch)
+    mat = _row_step(mat, node, tables, batch)
+    mat = run_inverse(mat, node.col, tables)
+    return mat.reshape((node.m,) + batch)

@@ -1,0 +1,158 @@
+"""The public NTT wrapper: owns the tables of one config on one device.
+
+The counterpart of ``sventt_tpu/plan/wrapper.py::NTT``, with the same
+numerical contract:
+
+* ``compute_forward`` output is in bit-reversed order, residues mod N equal
+  to GoldenNTT.forward;
+* ``compute_inverse`` consumes bit-reversed order, returns natural order;
+* values may be lazy representatives in [0, 2N) -- ``normalize`` makes
+  them canonical;
+* inputs must already be reduced ([0, N), or [0, 2N) in lazy mode).
+
+Data is an int64 tensor of u64 bit patterns, shape ``(n,)`` or
+``(n, batch...)``, on the NTT's device.
+
+Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
+engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
+engine off the TPU; here the matrix engine is the only one ported, and on
+CPU tensors it runs its plain PyTorch version, on CUDA tensors its kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..field.limb import FieldConsts, from_numpy, to_numpy
+from . import planner
+from .config import NttConfig
+
+
+def _resolve_engine(engine: str) -> str:
+    """'auto' -> 'mxu' on every device (see the module docstring)."""
+    if engine == "auto":
+        return "mxu"
+    if engine != "mxu":
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported yet (ROADMAP Queue 1 items 7-8)"
+        )
+    return engine
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class NTT:
+    """Forward/inverse NTT for one NttConfig on one device."""
+
+    def __init__(
+        self,
+        config: NttConfig,
+        enable_forward: bool = True,
+        enable_inverse: bool = True,
+        *,
+        device=None,
+    ):
+        if config.tune:
+            raise NotImplementedError(
+                "tune=True is not ported yet (ROADMAP Queue 1 item 10)"
+            )
+        self.config = config
+        self.device = _resolve_device(device)
+        self.mod = config.mod
+        # 'auto' and 'montgomery' are the same on the matrix engine: its
+        # inter-step tables are Montgomery-form for every engine but solinas
+        self.fc = FieldConsts.from_modulus(
+            self.mod, lazy=config.lazy,
+            modmul="montgomery" if config.modmul == "auto" else config.modmul,
+        )
+        self.engine = _resolve_engine(config.engine)
+        self.plan = self._build_plan()
+        tables = dict(device=self.device, split_w_only=config.split_w_only)
+        self._fwd_tables = self._inv_tables = None
+        if enable_forward:
+            self._fwd_tables = planner.PlanTables(
+                self.plan, self.mod, self.fc, inverse=False, **tables
+            )
+        if enable_inverse:
+            self._inv_tables = planner.PlanTables(
+                self.plan, self.mod, self.fc, inverse=True, **tables
+            )
+
+    def _build_plan(self):
+        cfg = self.config
+        if cfg.plan_spec is not None:
+            return planner.build_plan_spec(cfg.n, cfg.plan_spec)
+        if cfg.strategy != "auto":
+            raise NotImplementedError(
+                f"strategy={cfg.strategy!r} is not ported yet "
+                "(ROADMAP Queue 1 item 5); strategy='auto' is"
+            )
+        return planner.build_plan(cfg.n, self.engine, cfg.max_fused)
+
+    # -- public API -----------------------------------------------------------
+
+    def get_m(self) -> int:
+        """Transform length."""
+        return self.config.n
+
+    def describe(self, batched: bool = False) -> str:
+        """Human-readable execution strategy per plan node: which path each
+        Split's row step takes.  ``batched`` describes the schedule for
+        inputs with trailing batch dims."""
+        lines = []
+
+        def walk(node, depth, batch):
+            pad = "  " * depth
+            if isinstance(node, planner.Leaf):
+                lines.append(f"{pad}leaf m={node.m} engine={node.engine}")
+                return
+            if batch:
+                row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
+            else:
+                row = f"lead-axis mxu m1={node.m1} (fused twiddle, between transposes)"
+            lines.append(f"{pad}split {node.m} = {node.m0} x {node.m1}: {row}")
+            walk(node.col, depth + 1, True)
+
+        walk(self.plan, 0, batched)
+        return "\n".join(lines)
+
+    def compute_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fwd_tables is None:
+            raise RuntimeError("forward transform was not enabled")
+        return planner.run_forward(self._check(x), self.plan, self._fwd_tables)
+
+    def compute_inverse(self, x: torch.Tensor) -> torch.Tensor:
+        if self._inv_tables is None:
+            raise RuntimeError("inverse transform was not enabled")
+        return planner.run_inverse(self._check(x), self.plan, self._inv_tables)
+
+    def _check(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.int64:
+            raise TypeError(f"expected an int64 tensor of u64 bit patterns, got {x.dtype}")
+        if x.device != self.device:
+            raise ValueError(f"data on {x.device}, NTT on {self.device}")
+        if x.shape[0] != self.config.n:
+            raise ValueError(f"leading axis {x.shape[0]} != n = {self.config.n}")
+        return x
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc.normalize(x)
+
+    # numpy convenience (host <-> device)
+    def forward_numpy(self, x: np.ndarray) -> np.ndarray:
+        out = self.compute_forward(from_numpy(x, self.device))
+        return to_numpy(self.fc.normalize(out))
+
+    def inverse_numpy(self, x: np.ndarray) -> np.ndarray:
+        out = self.compute_inverse(from_numpy(x, self.device))
+        return to_numpy(self.fc.normalize(out))

@@ -1,0 +1,163 @@
+"""PyTorch port, the slice as a whole: NTT against sventt_tpu's NTT(engine="mxu").
+
+Inputs are made with numpy from a seed; the JAX side runs its Pallas
+kernels in interpret mode.  Outputs are compared bit for bit (tolerance
+zero), and the roundtrip must return the input exactly.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from sventt_tpu.plan import NTT as JNTT
+from sventt_tpu.plan import NttConfig as JNttConfig
+from sventt_tpu.utils import fill as jfill
+from sventt_tpu_torch import native
+from sventt_tpu_torch.field.golden import GoldenNTT
+from sventt_tpu_torch.field.limb import to_numpy
+from sventt_tpu_torch.field.modulus import (
+    FLAGSHIP_GENERATOR,
+    FLAGSHIP_MODULUS,
+    TEST_GENERATOR,
+    TEST_MODULUS,
+)
+from sventt_tpu_torch.ops import ntt_mxu
+from sventt_tpu_torch.plan import NTT, NttConfig
+from sventt_tpu_torch.plan import planner
+from sventt_tpu_torch.utils import fill
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize(
+    "N,g,log2n,max_fused",
+    [
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 10, None, id="flagship-2^10"),
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 12, None, id="flagship-2^12"),
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 14, 32, id="flagship-2^14-3level"),
+        pytest.param(TEST_MODULUS, TEST_GENERATOR, 10, 16, id="test62-2^10-3level"),
+    ],
+)
+def test_ntt_matches_jax_mxu(rng, N, g, log2n, max_fused):
+    n = 1 << log2n
+    kw = dict(max_fused=max_fused)
+    ref = JNTT(JNttConfig(N, g, n, engine="mxu", **kw))
+    ntt = NTT(NttConfig(N, g, n, **kw))
+    assert ntt.engine == "mxu"
+    assert repr(ntt.plan) == repr(ref.plan)
+    x = rng.integers(0, N, n, dtype=np.uint64)
+    fwd = ntt.forward_numpy(x)
+    np.testing.assert_array_equal(fwd, ref.forward_numpy(x))
+    np.testing.assert_array_equal(ntt.inverse_numpy(x), ref.inverse_numpy(x))
+    np.testing.assert_array_equal(ntt.inverse_numpy(fwd), x)
+
+
+def test_three_level_plan_reaches_mid_kernel(rng):
+    """The 2^24-shaped composition at reduced size: both orientations run."""
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, max_fused=16)
+    ntt = NTT(cfg)
+    assert isinstance(ntt.plan.col, planner.Split)
+    x = rng.integers(0, cfg.modulus, cfg.n, dtype=np.uint64)
+    ntt_mxu.reset_counts()
+    out = ntt.forward_numpy(x)
+    assert ntt_mxu.PLAIN_CALLS["lead"] > 0 and ntt_mxu.PLAIN_CALLS["mid"] > 0
+    assert ntt_mxu.LAUNCHES == {"lead": 0, "mid": 0}
+    np.testing.assert_array_equal(out, native.golden_forward(x, cfg.modulus, cfg.generator))
+
+
+def test_batched_input_matches_columns(rng):
+    """(n, batch) input: each column equals the unbatched transform."""
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 8, max_fused=16)
+    ntt = NTT(cfg)
+    x = rng.integers(0, cfg.modulus, (cfg.n, 3), dtype=np.uint64)
+    from sventt_tpu_torch.field.limb import from_numpy
+
+    got = to_numpy(ntt.compute_forward(from_numpy(x)))
+    for c in range(3):
+        np.testing.assert_array_equal(got[:, c], ntt.forward_numpy(x[:, c].copy()))
+
+
+def test_oracle_and_fill_match():
+    n = 1 << 10
+    x = fill.host_fill(n, FLAGSHIP_MODULUS)
+    np.testing.assert_array_equal(x, jfill.host_fill(n, FLAGSHIP_MODULUS))
+    np.testing.assert_array_equal(to_numpy(fill.device_fill(n, FLAGSHIP_MODULUS)), x)
+    mod = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, n).mod
+    want = GoldenNTT(n, mod).forward([int(v) for v in x])
+    assert [int(v) for v in native.golden_forward(x, mod.modulus, mod.generator)] == want
+    back = native.golden_inverse(np.array(want, dtype=np.uint64), mod.modulus, mod.generator)
+    np.testing.assert_array_equal(back, x)
+
+
+def test_describe_and_get_m():
+    ntt = NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 14, max_fused=32),
+              enable_inverse=False)
+    assert ntt.get_m() == 1 << 14
+    assert ntt.describe().splitlines() == [
+        "split 16384 = 512 x 32: lead-axis mxu m1=32 (fused twiddle, between transposes)",
+        "  split 512 = 16 x 32: mid-axis mxu m1=32 (fused twiddle, no transposes)",
+        "    leaf m=16 engine=mxu",
+    ]
+    assert ntt.describe(batched=True).splitlines()[0].startswith(
+        "split 16384 = 512 x 32: mid-axis mxu"
+    )
+    with pytest.raises(RuntimeError):
+        ntt.compute_inverse(torch.zeros(1 << 14, dtype=torch.int64))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(engine="jnp"),
+        dict(engine="pallas"),
+        dict(tune=True),
+        dict(strategy="six_step"),
+        dict(modmul="shoup"),
+        dict(modmul="solinas"),
+        dict(plan_spec="jnp:64,mxu"),
+    ],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
+)
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw))
+
+
+def test_config_validation_matches_jax():
+    for bad in (dict(n=3), dict(engine="gpu"), dict(plan_spec="mxu:64"), dict(max_fused=3)):
+        args = dict(modulus=FLAGSHIP_MODULUS, generator=FLAGSHIP_GENERATOR, n=1 << 12)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            JNttConfig(**args)
+        with pytest.raises(ValueError):
+            NttConfig(**args)
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 10), device="cuda")
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_port_imports_no_jax():
+    """No module of the port, nor chip_smoke.py, imports jax or sventt_tpu."""
+    files = sorted((REPO / "sventt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_modules(path):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "sventt_tpu"), f"{path}: imports {name}"
