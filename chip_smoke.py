@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,16 +7,25 @@ Phases, each printing its own lines:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the CUDA kernels and the native golden oracle, from this checkout;
-3. kernel vs plain: the s8 matrix-NTT kernel (lead and mid orientations)
-   against its plain PyTorch version on the same card tensors, bitwise, at
-   the main path's shapes, with every twiddle mode, both directions, both
-   moduli, a ragged batch and the m = 1024 crafted plane-minimizer input;
-4. slice: the flagship NTT at n = 2^17, 2^24 and 2^26, forward and inverse,
-   elementwise against the native oracle, with an exact roundtrip; the
-   kernel launch counts of that run must be > 0 for both orientations and
-   the plain-version counts 0;
-5. times: CUDA-event medians of the transforms and of the kernels alone
-   beside their plain versions.
+3. kernel vs plain: every kernel against its plain PyTorch version on the
+   same card tensors, bitwise, at the main paths' shapes --
+   the s8 matrix NTT (K1 lead, K2 mid, K3 lane) with every twiddle mode,
+   both directions, both moduli, a ragged batch and the m = 1024 crafted
+   plane-minimizer input; the radix-2 butterfly kernel (K4 leaf, K5 mid,
+   K6 lane) with every twiddle mode, both directions, the flagship and the
+   lazy test modulus under Montgomery and Shoup, a ragged batch and m = 2;
+4. paths: the matrix engine (the default, ``engine="auto"``) and the
+   butterfly engine (``engine="pallas"``) at n = 2^17, 2^24 and 2^26 on the
+   flagship modulus, plus the butterfly engine on the lazy test modulus at
+   2^24 (``modmul="auto"`` resolves to Shoup there), forward and inverse,
+   elementwise against the native oracle, with an exact roundtrip; then
+   ``mxu_ntt_lane`` (K3, which no plan calls) on the 2^24 root-row shape
+   against the lead orientation between transposes.  Each path runs with
+   the launch counts set to 0 just before and read just after: every
+   kernel of the path must have launched, and no plain version may have
+   run;
+5. times: CUDA-event medians of the transforms and of each kernel alone
+   beside its plain version, and the least time the card could take.
 
 The tolerance of every comparison is zero: the arithmetic is exact.  Any
 failed check raises, so the script exits non-zero.  The line before the
@@ -34,6 +43,17 @@ import sys
 import time
 
 TOL = 0  # exact integer arithmetic: outputs must agree bit for bit
+
+#: H100 SXM peaks used for the least time a kernel could take: HBM bytes/s;
+#: int8 tensor-core ops/s (a multiply-add is two); 32-bit integer
+#: multiply-adds/s -- half the 33.5e12 float32 FMA/s behind the published
+#: 67 TFLOP/s (64 int32 against 128 float32 lanes per SM).
+HBM_BPS = 3.35e12
+INT8_OPS = 1.979e15
+IMAD_PER_S = 16.75e12
+#: 32-bit multiply-adds a 64-bit product needs at least: its four (high
+#: word) or three (low word) 32 x 32 partial products.
+IMAD_HI, IMAD_LO = 4, 3
 
 
 def log(msg: str) -> None:
@@ -127,20 +147,31 @@ def crafted_1024(mod, t):
     return x
 
 
-def kernel_cases(device, rng):
-    """Kernel vs plain at the main path's shapes; returns the largest
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def moduli():
+    from sventt_tpu_torch.field.modulus import (
+        FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS, Modulus,
+    )
+
+    return Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR), Modulus(TEST_MODULUS, TEST_GENERATOR)
+
+
+def mxu_kernel_cases(device, rng):
+    """K1/K2/K3 vs plain at the main path's shapes; returns the largest
     mismatch per orientation."""
     import numpy as np
 
     from sventt_tpu_torch.field.golden import GoldenNTT
     from sventt_tpu_torch.field.limb import FieldConsts, from_numpy, to_numpy
-    from sventt_tpu_torch.field.modulus import (
-        FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS, Modulus,
-    )
     from sventt_tpu_torch.ops import ntt_mxu
 
-    flag = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
-    test = Modulus(TEST_MODULUS, TEST_GENERATOR)
+    flag, test = moduli()
     # (name, modulus, inverse, orientation, data shape, twiddle mode)
     cases = [
         ("K1 lead 256x512 none fwd", flag, False, "lead", (256, 512), None),
@@ -154,24 +185,32 @@ def kernel_cases(device, rng):
         ("K1 lead 256x300 pair inv TEST (lazy)", test, True, "lead", (256, 300), "pair"),
         ("K2 mid 64x256x300 w inv TEST (lazy)", test, True, "mid", (64, 256, 300), "w"),
         ("K2 mid 64x256x256 none inv TEST", test, True, "mid", (64, 256, 256), None),
+        # K3: the lane orientation, no twiddle
+        ("K3 lane 65536x256 fwd", flag, False, "lane", (65536, 256), None),
+        ("K3 lane 65536x256 inv", flag, True, "lane", (65536, 256), None),
+        ("K3 lane 300x64 fwd TEST (ragged)", test, False, "lane", (300, 64), None),
+        ("K3 lane 300x64 inv TEST (ragged)", test, True, "lane", (300, 64), None),
         # off the main path: the m < 4 digit loads and a tiny ragged grid
         ("K1 lead 2x5 none fwd", flag, False, "lead", (2, 5), None),
         ("K2 mid 3x8x7 pair inv TEST (lazy)", test, True, "mid", (3, 8, 7), "pair"),
     ]
-    worst = {"lead": 0, "mid": 0}
+    worst = {"lead": 0, "mid": 0, "lane": 0}
+    calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid}
     for name, mod, inverse, orient, shape, mode in cases:
         fc = FieldConsts.from_modulus(mod)
-        mid = orient == "mid"
-        m = shape[1] if mid else shape[0]
+        m = {"lead": shape[0], "mid": shape[1], "lane": shape[-1]}[orient]
         t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device=device)
         x = rand_u64(rng, shape, device)
-        tw = None
-        if mode is not None:
-            tw_shape = (shape[0], m) if mid else shape
-            tw = rand_twiddle(rng, tw_shape, mod, mode, device)
-        call = ntt_mxu.mxu_ntt_mid if mid else ntt_mxu.mxu_ntt
-        got = call(x, t, fc, tw)
-        want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=mid)
+        if orient == "lane":
+            got = ntt_mxu.mxu_ntt_lane(x, t, fc)
+            want = ntt_mxu.mxu_plain(x, t, fc, lane=True)
+        else:
+            tw = None
+            if mode is not None:
+                tw_shape = (shape[0], m) if orient == "mid" else shape
+                tw = rand_twiddle(rng, tw_shape, mod, mode, device)
+            got = calls[orient](x, t, fc, tw)
+            want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid")
         sync(device)
         err = mismatch(got, want)
         worst[orient] = max(worst[orient], err)
@@ -194,37 +233,110 @@ def kernel_cases(device, rng):
     return worst
 
 
-def sync(device) -> None:
-    import torch
+def pallas_kernel_cases(device, rng):
+    """K4/K5/K6 vs plain at the main path's shapes and the edge cases;
+    returns the largest mismatch per orientation."""
+    from sventt_tpu_torch.field.limb import FieldConsts
+    from sventt_tpu_torch.ops import ntt_pallas as P
 
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    flag, test = moduli()
+    # (name, modulus, modmul, inverse, orientation, data shape, twiddle, knobs)
+    cases = [
+        ("K4 leaf 256x65536 fwd", flag, "montgomery", False, "leaf", (256, 65536), None, {}),
+        ("K4 leaf 256x65536 inv", flag, "montgomery", True, "leaf", (256, 65536), None, {}),
+        ("K4 leaf 32x4096 fwd", flag, "montgomery", False, "leaf", (32, 4096), None, {}),
+        ("K4 leaf 32x4096 inv", flag, "montgomery", True, "leaf", (32, 4096), None, {}),
+        ("K5 mid 256x256x256 pair fwd", flag, "montgomery", False, "mid", (256, 256, 256), "pair", {}),
+        ("K5 mid 256x256x256 pair inv", flag, "montgomery", True, "mid", (256, 256, 256), "pair", {}),
+        ("K6 lane 65536x256 pair fwd", flag, "montgomery", False, "lane", (65536, 256), "pair", {}),
+        ("K6 lane 65536x256 pair inv", flag, "montgomery", True, "lane", (65536, 256), "pair", {}),
+        ("K6 lane 4096x128 w fwd", flag, "montgomery", False, "lane", (4096, 128), "w", {}),
+        ("K6 lane 4096x128 w inv", flag, "montgomery", True, "lane", (4096, 128), "w", {}),
+        # the lazy test modulus, Montgomery and Shoup stage multiplies
+        ("K4 leaf 256x4096 fwd TEST mont", test, "montgomery", False, "leaf", (256, 4096), None, {}),
+        ("K4 leaf 256x4096 inv TEST shoup", test, "shoup", True, "leaf", (256, 4096), None, {}),
+        ("K4 leaf 256x4096 fwd TEST shoup", test, "shoup", False, "leaf", (256, 4096), None, {}),
+        ("K5 mid 64x256x256 pair fwd TEST shoup", test, "shoup", False, "mid", (64, 256, 256), "pair", {}),
+        ("K5 mid 64x256x256 w inv TEST mont", test, "montgomery", True, "mid", (64, 256, 256), "w", {}),
+        ("K6 lane 4096x256 pair fwd TEST shoup", test, "shoup", False, "lane", (4096, 256), "pair", {}),
+        ("K6 lane 4096x256 pair inv TEST mont", test, "montgomery", True, "lane", (4096, 256), "pair", {}),
+        ("K6 lane 4096x256 w fwd TEST mont", test, "montgomery", False, "lane", (4096, 256), "w", {}),
+        # ragged batches, m = 2, a split leaf and other tiles
+        ("K4 leaf 64x300 inv (ragged)", flag, "montgomery", True, "leaf", (64, 300), None, {}),
+        ("K5 mid 3x64x300 pair fwd TEST shoup (ragged)", test, "shoup", False, "mid", (3, 64, 300), "pair", {}),
+        ("K6 lane 300x64 w inv TEST shoup (ragged)", test, "shoup", True, "lane", (300, 64), "w", {}),
+        ("K4 leaf 2x5 fwd", flag, "montgomery", False, "leaf", (2, 5), None, {}),
+        ("K6 lane 5x2 pair inv TEST", test, "montgomery", True, "lane", (5, 2), "pair", {}),
+        ("K4 leaf 256x1000 inv spc=3 block_b=64", flag, "montgomery", True, "leaf", (256, 1000), None,
+         dict(spc=3, block_b=64)),
+        ("K6 lane 1000x256 pair fwd rows=64", flag, "montgomery", False, "lane", (1000, 256), "pair",
+         dict(rows=64)),
+    ]
+    worst = {"leaf": 0, "mid": 0, "lane": 0}
+    for name, mod, modmul, inverse, orient, shape, mode, knobs in cases:
+        fc = FieldConsts.from_modulus(mod, modmul=modmul)
+        m = shape[-1] if orient == "lane" else shape[1] if orient == "mid" else shape[0]
+        x = rand_u64(rng, shape, device, below=mod.modulus)
+        tw = None
+        if mode is not None:
+            tw = rand_twiddle(rng, shape[:2] if orient == "mid" else shape, mod, mode, device)
+        if orient == "lane":
+            t = P.make_lane_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
+            got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
+        else:
+            t = P.make_leaf_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
+            if orient == "mid":
+                got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
+            else:
+                got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
+        sync(device)
+        err = mismatch(got, want)
+        worst[orient] = max(worst[orient], err)
+        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy})")
+        check(err <= TOL, f"{name}: kernel != plain")
+    return worst
 
 
-def slice_run(device, sizes):
-    """The flagship NTT at each size against the native oracle.  Returns
-    the kernel-launch and plain-call counts of the whole run."""
+def counts():
+    from sventt_tpu_torch.ops import ntt_mxu, ntt_pallas
+
+    return {
+        "launches": {"mxu": dict(ntt_mxu.LAUNCHES), "pallas": dict(ntt_pallas.LAUNCHES)},
+        "plain": {"mxu": dict(ntt_mxu.PLAIN_CALLS), "pallas": dict(ntt_pallas.PLAIN_CALLS)},
+    }
+
+
+def reset_counts() -> None:
+    from sventt_tpu_torch.ops import ntt_mxu, ntt_pallas
+
+    ntt_mxu.reset_counts()
+    ntt_pallas.reset_counts()
+
+
+def slice_run(device, configs, oracles: dict):
+    """Each (label, modulus, generator, n, engine) against the native
+    oracle, whose outputs are cached in ``oracles`` per (modulus, n).
+    Returns the NTTs and the launch and plain-call counts of the run."""
     import numpy as np
 
     from sventt_tpu_torch import native
     from sventt_tpu_torch.field.limb import from_numpy, to_numpy
-    from sventt_tpu_torch.field.modulus import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS
-    from sventt_tpu_torch.ops import ntt_mxu
     from sventt_tpu_torch.plan import NTT, NttConfig
     from sventt_tpu_torch.utils.fill import host_fill
 
     ntts = {}
-    for n in sizes:
+    for label, N, g, n, engine in configs:
         t0 = time.perf_counter()
-        ntts[n] = NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, n), device=device)
+        ntts[label] = NTT(NttConfig(N, g, n, engine=engine), device=device)
         sync(device)
-        log(f"  n=2^{n.bit_length() - 1}: tables built in {time.perf_counter() - t0:.2f} s; plan:")
-        for line in ntts[n].describe().splitlines():
+        log(f"  {label}: modmul {ntts[label].fc.modmul}; tables built in "
+            f"{time.perf_counter() - t0:.2f} s; plan:")
+        for line in ntts[label].describe().splitlines():
             log(f"    {line}")
-    ntt_mxu.reset_counts()
-    for n in sizes:
-        ntt = ntts[n]
-        x = host_fill(n, FLAGSHIP_MODULUS)
+    reset_counts()
+    for label, N, g, n, engine in configs:
+        ntt = ntts[label]
+        x = host_fill(n, N)
         xd = from_numpy(x, device)
         t0 = time.perf_counter()
         fwd = ntt.compute_forward(xd)
@@ -237,56 +349,146 @@ def slice_run(device, sizes):
         back_h = to_numpy(ntt.normalize(back))
         del fwd, inv, back, xd
         t0 = time.perf_counter()
-        want_f = native.golden_forward(x, FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
-        want_i = native.golden_inverse(x, FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
+        if (N, n) not in oracles:
+            oracles[(N, n)] = (native.golden_forward(x, N, g), native.golden_inverse(x, N, g))
+        want_f, want_i = oracles[(N, n)]
         osecs = time.perf_counter() - t0
         bad_f = int(np.count_nonzero(fwd_h != want_f))
         bad_i = int(np.count_nonzero(inv_h != want_i))
         bad_r = int(np.count_nonzero(back_h != x))
         log(
-            f"  n=2^{n.bit_length() - 1}: forward {bad_f} / inverse {bad_i} elements "
-            f"differ from the oracle, roundtrip {bad_r} differ "
-            f"(3 transforms {secs * 1e3:.1f} ms incl. first-call set-up; oracle {osecs:.1f} s)"
+            f"  {label}: forward {bad_f} / inverse {bad_i} elements differ from the "
+            f"oracle, roundtrip {bad_r} differ (3 transforms {secs * 1e3:.1f} ms incl. "
+            f"first-call set-up; oracle {osecs:.1f} s)"
         )
-        check(bad_f == 0 and bad_i == 0 and bad_r == 0, f"n={n}: mismatch")
-    counts = {"launches": dict(ntt_mxu.LAUNCHES), "plain": dict(ntt_mxu.PLAIN_CALLS)}
-    return ntts, counts
+        check(bad_f == 0 and bad_i == 0 and bad_r == 0, f"{label}: mismatch")
+    return ntts, counts()
+
+
+def lane_path(device, rng):
+    """``mxu_ntt_lane``, the JAX package's row step on the natural layout
+    that no plan calls: the (65536, 256) rows of the 2^24 root step, both
+    directions, must equal the lead orientation between two transposes.
+    Returns the launch and plain-call counts of those two calls."""
+    from sventt_tpu_torch.field.limb import FieldConsts
+    from sventt_tpu_torch.ops import ntt_mxu
+    from sventt_tpu_torch.ops.transpose import transpose01
+
+    flag, _ = moduli()
+    fc = FieldConsts.from_modulus(flag)
+    tables = [ntt_mxu.make_mxu_tables(flag, 256, inverse=inv, device=device) for inv in (False, True)]
+    x = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
+    reset_counts()
+    got = [ntt_mxu.mxu_ntt_lane(x, t, fc) for t in tables]
+    c = counts()
+    for t, g in zip(tables, got):
+        want = transpose01(ntt_mxu.mxu_ntt(transpose01(x), t, fc))
+        sync(device)
+        err = mismatch(g, want)
+        log(f"  inverse={t.inverse}: max_abs_err {err} against the lead orientation")
+        check(err <= TOL, "mxu_ntt_lane != transpose + mxu_ntt + transpose")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take
+# ---------------------------------------------------------------------------
+
+
+def bound(bytes_moved: float, ops_time_s: float) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
+    and the operations' time at their peak."""
+    t_bytes = bytes_moved / HBM_BPS
+    if t_bytes >= ops_time_s:
+        return t_bytes * 1e3, "bytes"
+    return ops_time_s * 1e3, "operations"
+
+
+def mxu_bound(points: int, m: int, tw_bytes: int) -> tuple[float, str]:
+    """K1/K2/K3: 64*m int8 multiply-adds a point on the tensor cores;
+    8 bytes a point in, 8 out, plus the twiddle table read once."""
+    return bound(16 * points + tw_bytes, 2 * 64 * m * points / INT8_OPS)
+
+
+def butterfly_bound(points: int, m: int, inverse: bool, modmul: str, tw: str | None,
+                    tw_points: int) -> tuple[float, str]:
+    """K4/K5/K6: per stage, one stage multiply per butterfly (two on the
+    last inverse stage); Montgomery is two high and one low 64-bit
+    products, Shoup one high and two low; the inter-step multiply is
+    Montgomery (mode "w" adds one low product).  Bytes: 8 a point in and 8
+    out, the (tw_points,) inter-step table (8 or 16 bytes an entry) and the
+    two (m-1,) stage tables read once."""
+    stages = m.bit_length() - 1
+    mul = 2 * IMAD_HI + IMAD_LO if modmul == "montgomery" else IMAD_HI + 2 * IMAD_LO
+    muls = stages * points // 2 + (points // 2 if inverse else 0)
+    imads = muls * mul
+    tw_bytes = 0
+    if tw is not None:
+        imads += points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
+        tw_bytes = tw_points * (16 if tw == "pair" else 8)
+    return bound(16 * points + tw_bytes + 16 * (m - 1), imads / IMAD_PER_S)
 
 
 def times(device, ntts, rng):
-    """CUDA-event medians: transforms, and each kernel vs its plain version."""
+    """CUDA-event medians: transforms, and each kernel vs its plain
+    version at the 2^24 plans' shapes; with each kernel's bound."""
     from sventt_tpu_torch.field.limb import FieldConsts
-    from sventt_tpu_torch.field.modulus import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, Modulus
     from sventt_tpu_torch.ops import ntt_mxu
+    from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.ops.transpose import transpose01
     from sventt_tpu_torch.utils.fill import device_fill
 
-    out = {}
-    for n in sorted(ntts):
-        if n > 1 << 24:
-            continue
-        ntt = ntts[n]
-        x = device_fill(n, FLAGSHIP_MODULUS, device)
+    out, bounds = {}, {}
+    for label, ntt in ntts.items():
+        n = ntt.get_m()
+        x = device_fill(n, ntt.config.modulus, device)
         f = ntt.compute_forward(x)
-        out[f"fwd_2^{n.bit_length() - 1}"] = timed(lambda: ntt.compute_forward(x), 3, 10)
-        out[f"inv_2^{n.bit_length() - 1}"] = timed(lambda: ntt.compute_inverse(f), 3, 10)
-    mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
-    fc = FieldConsts.from_modulus(mod)
-    # the 2^24 plan's root row step (lead, transposed twiddle) and inner row
-    # step (mid, (256, 256) twiddle rows over 256 columns)
-    t = ntt_mxu.make_mxu_tables(mod, 256, inverse=False, device=device)
-    xl = rand_u64(rng, (256, 1 << 16), device, below=mod.modulus)
-    twl = rand_twiddle(rng, (256, 1 << 16), mod, "pair", device)
-    xm = rand_u64(rng, (256, 256, 256), device, below=mod.modulus)
-    twm = rand_twiddle(rng, (256, 256), mod, "pair", device)
-    out["K1_lead_256x65536_pair"] = timed(lambda: ntt_mxu.mxu_ntt(xl, t, fc, twl), 3, 10)
-    out["K1_lead_256x65536_pair_plain"] = timed(
-        lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), 1, 3
+        out[f"{label} fwd"] = timed(lambda: ntt.compute_forward(x), 3, 10)
+        out[f"{label} inv"] = timed(lambda: ntt.compute_inverse(f), 3, 10)
+        del x, f
+    flag, _ = moduli()
+    fc = FieldConsts.from_modulus(flag)
+    n24 = 1 << 24
+
+    def kernel(key, fn, plain, bnd):
+        out[key] = timed(fn, 3, 10)
+        out[key + " plain"] = timed(plain, 1, 3)
+        bounds[key] = bnd
+
+    # matrix engine: the 2^24 plan's root row step (lead, transposed
+    # twiddle), inner row step (mid, (256, 256) twiddle rows) and the lane
+    # orientation that could replace the root's transpose sandwich
+    t = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
+    xl = rand_u64(rng, (256, 1 << 16), device, below=flag.modulus)
+    twl = rand_twiddle(rng, (256, 1 << 16), flag, "pair", device)
+    kernel("K1 lead 256x65536 pair", lambda: ntt_mxu.mxu_ntt(xl, t, fc, twl),
+           lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), mxu_bound(n24, 256, 16 * n24))
+    xm = rand_u64(rng, (256, 256, 256), device, below=flag.modulus)
+    twm = rand_twiddle(rng, (256, 256), flag, "pair", device)
+    kernel("K2 mid 256x256x256 pair", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twm),
+           lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), mxu_bound(n24, 256, 16 * 65536))
+    xr = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
+    kernel("K3 lane 65536x256", lambda: ntt_mxu.mxu_ntt_lane(xr, t, fc),
+           lambda: ntt_mxu.mxu_plain(xr, t, fc, lane=True), mxu_bound(n24, 256, 0))
+    out["K1 lead 65536x256 between transposes"] = timed(
+        lambda: transpose01(ntt_mxu.mxu_ntt(transpose01(xr), t, fc)), 3, 10
     )
-    out["K2_mid_256x256x256_pair"] = timed(lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twm), 3, 10)
-    out["K2_mid_256x256x256_pair_plain"] = timed(
-        lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), 1, 3
-    )
-    return out
+    del xl, twl, xr
+    # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root
+    lt = P.make_leaf_tables(flag, 256, inverse=False, device=device)
+    kernel("K4 leaf 256x65536", lambda: P.fused_ntt(xm.view(256, 65536), lt, fc),
+           lambda: P.leaf_plain(xm.view(256, 65536), lt, fc),
+           butterfly_bound(n24, 256, False, "montgomery", None, 0))
+    kernel("K5 mid 256x256x256 pair", lambda: P.fused_ntt_mid(xm, lt, fc, twm),
+           lambda: P.mid_plain(xm, lt, fc, twm),
+           butterfly_bound(n24, 256, False, "montgomery", "pair", 65536))
+    rt = P.make_lane_tables(flag, 256, inverse=False, device=device)
+    xr = xm.view(1 << 16, 256)
+    twr = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
+    kernel("K6 lane 65536x256 pair", lambda: P.fused_ntt_lane(xr, rt, fc, twr),
+           lambda: P.lane_plain(xr, rt, fc, twr),
+           butterfly_bound(n24, 256, False, "montgomery", "pair", n24))
+    return out, bounds
 
 
 def main() -> int:
@@ -299,6 +501,9 @@ def main() -> int:
         import numpy as np
 
         from sventt_tpu_torch import _build, native
+        from sventt_tpu_torch.field.modulus import (
+            FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS,
+        )
     except ImportError as e:
         print(f"chip_smoke: the sventt_tpu_torch package is missing ({e})", file=sys.stderr)
         return 1
@@ -320,44 +525,82 @@ def main() -> int:
     kernel_build = dict(_build.LAST_BUILD)
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {kernel_build['seconds']:.1f} s)")
+        f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
     for line in kernel_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
     log("[kernel vs plain] bitwise, tolerance 0")
-    worst = kernel_cases(device, rng)
+    worst = {"mxu": mxu_kernel_cases(device, rng), "pallas": pallas_kernel_cases(device, rng)}
     torch.cuda.empty_cache()
 
-    # 4. the slice
-    log("[slice] flagship NTT vs the native oracle, elementwise")
-    ntts, counts = slice_run(device, [1 << 17, 1 << 24, 1 << 26])
-    log(f"  kernel launches {counts['launches']}, plain calls {counts['plain']}")
-    check(all(v > 0 for v in counts["launches"].values()), "a kernel orientation never ran")
-    check(all(v == 0 for v in counts["plain"].values()), "the plain version ran on the card")
-    del ntts[1 << 26]
+    # 4. the slices, each with its own counts
+    F, G = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR
+    oracles: dict = {}
+    log("[slice mxu] NTT(engine='auto' -> mxu) vs the native oracle, elementwise")
+    ntts_mxu, c_mxu = slice_run(
+        device, [(f"mxu 2^{k}", F, G, 1 << k, "auto") for k in (17, 24, 26)], oracles
+    )
+    log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
+    check(c_mxu["launches"]["mxu"]["lead"] > 0 and c_mxu["launches"]["mxu"]["mid"] > 0,
+          "an mxu orientation of the path never ran")
+    del ntts_mxu["mxu 2^26"]
     torch.cuda.empty_cache()
+    log("[slice pallas] NTT(engine='pallas') vs the native oracle, elementwise")
+    ntts_pal, c_pal = slice_run(
+        device,
+        [(f"pallas 2^{k}", F, G, 1 << k, "pallas") for k in (17, 24, 26)]
+        + [("pallas TEST 2^24", TEST_MODULUS, TEST_GENERATOR, 1 << 24, "pallas")],
+        oracles,
+    )
+    log(f"  launches {c_pal['launches']}, plain calls {c_pal['plain']}")
+    check(ntts_pal["pallas TEST 2^24"].fc.modmul == "shoup", "TEST 2^24 auto != shoup")
+    check(all(v > 0 for v in c_pal["launches"]["pallas"].values()),
+          "a butterfly orientation of the path never ran")
+    for c in (c_mxu, c_pal):
+        check(all(v == 0 for d in c["plain"].values() for v in d.values()),
+              "a plain version ran on the card")
+    del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"], oracles
+    torch.cuda.empty_cache()
+    log("[path mxu_ntt_lane] K3 on the 2^24 root-row shape vs transpose + K1 + transpose")
+    c_lane = lane_path(device, rng)
+    log(f"  launches {c_lane['launches']}, plain calls {c_lane['plain']}")
+    check(c_lane["launches"]["mxu"]["lane"] > 0, "mxu_ntt_lane never launched")
+    check(all(v == 0 for v in c_lane["plain"]["mxu"].values()), "a plain version ran on the card")
 
     # 5. times
-    ms = times(device, ntts, rng)
+    ms, bounds = times(device, {**ntts_mxu, **ntts_pal}, rng)
     log(f"[times] median ms by CUDA events on {smi}:")
     for k, v in ms.items():
-        log(f"  {k}: {v:.4f}")
+        extra = f"   (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})" if k in bounds else ""
+        log(f"  {k}: {v:.4f}{extra}")
 
+    def entry(name, key, src, replaces, launches, err):
+        return {
+            "name": name, "route": "cuda", "source": f"sventt_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms[key], "plain_ms": ms[key + " plain"], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": None,
+        }
+
+    lm, lp = dict(c_mxu["launches"]["mxu"]), c_pal["launches"]["pallas"]
+    lm["lane"] = c_lane["launches"]["mxu"]["lane"]
+    wm, wp = worst["mxu"], worst["pallas"]
     record = {"kernels": [
-        {"name": "K1 s8 matrix NTT, lead orientation (mxu_ntt)", "route": "cuda",
-         "source": "sventt_tpu_torch/csrc/ntt_mxu.cu",
-         "replaces": "sventt_tpu/ops/ntt_mxu.py:574",
-         "launches": counts["launches"]["lead"], "max_abs_err": worst["lead"],
-         "ms": ms["K1_lead_256x65536_pair"], "plain_ms": ms["K1_lead_256x65536_pair_plain"]},
-        {"name": "K2 s8 matrix NTT, mid orientation (mxu_ntt_mid)", "route": "cuda",
-         "source": "sventt_tpu_torch/csrc/ntt_mxu.cu",
-         "replaces": "sventt_tpu/ops/ntt_mxu.py:634",
-         "launches": counts["launches"]["mid"], "max_abs_err": worst["mid"],
-         "ms": ms["K2_mid_256x256x256_pair"],
-         "plain_ms": ms["K2_mid_256x256x256_pair_plain"]},
+        entry("K1 s8 matrix NTT, lead (mxu_ntt)", "K1 lead 256x65536 pair", "ntt_mxu.cu",
+              "sventt_tpu/ops/ntt_mxu.py:574", lm["lead"], wm["lead"]),
+        entry("K2 s8 matrix NTT, mid (mxu_ntt_mid)", "K2 mid 256x256x256 pair", "ntt_mxu.cu",
+              "sventt_tpu/ops/ntt_mxu.py:634", lm["mid"], wm["mid"]),
+        entry("K3 s8 matrix NTT, lane (mxu_ntt_lane)", "K3 lane 65536x256", "ntt_mxu.cu",
+              "sventt_tpu/ops/ntt_mxu.py:487", lm["lane"], wm["lane"]),
+        entry("K4 radix-2 stages, leaf (fused_ntt)", "K4 leaf 256x65536", "ntt_pallas.cu",
+              "sventt_tpu/ops/ntt_pallas.py:1136", lp["leaf"], wp["leaf"]),
+        entry("K5 radix-2 stages, mid (fused_ntt_mid)", "K5 mid 256x256x256 pair",
+              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:1167", lp["mid"], wp["mid"]),
+        entry("K6 radix-2 stages, lane (fused_ntt_lane)", "K6 lane 65536x256 pair",
+              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:891", lp["lane"], wp["lane"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,8 +1,10 @@
 """sventt_tpu_torch: the PyTorch + CUDA port of sventt_tpu.
 
-Field elements are int64 tensors holding u64 bit patterns.  The matrix NTT
-engine runs its hand-written CUDA kernel (``csrc/``, built with nvcc at
-first use) on CUDA tensors and its plain PyTorch version on CPU tensors.
+Field elements are int64 tensors holding u64 bit patterns.  The matrix
+engine ("mxu") and the radix-2 butterfly engine ("pallas") run their
+hand-written CUDA kernels (``csrc/``, built with nvcc at first use) on CUDA
+tensors and their plain PyTorch versions on CPU tensors; entry points run
+on the CUDA card unless given ``device="cpu"``.
 This package imports no JAX; ``sventt_tpu`` stays the reference it is
 tested against.
 """

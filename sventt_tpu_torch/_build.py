@@ -2,10 +2,12 @@
 
 ``load()`` compiles ``csrc/*.cu`` with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, at first use, and loads it with
-``ctypes``.  The library is named by a hash of its sources and flags, so an
-edited source builds anew; it is written to a temporary name and renamed,
-so concurrent first uses do not see a half-written file.  A build that
-fails raises with the compiler's output.
+``ctypes``.  Each source compiles to an object in its own ``nvcc`` process,
+all started together, and the objects are linked into one library.  The
+library is named by a hash of its sources and flags, so an edited source
+builds anew; it is written to a temporary name and renamed, so concurrent
+first uses do not see a half-written file.  A build that fails raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-#: What the last build in this process did: seconds and the compiler's
+#: What the last build in this process did: seconds and the compilers'
 #: output (``-Xptxas -v`` prints each kernel's registers and spills).
 LAST_BUILD: dict = {}
 
@@ -48,11 +50,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def compile_shared(cmd_prefix: list[str], sources: list[str], deps: list[str],
-                   name: str) -> str:
-    """Compile ``sources`` with ``cmd_prefix`` into BUILD_DIR/lib<name>_<hash>.so
-    unless it exists; return its path.  ``deps`` also enter the hash."""
-    h = hashlib.sha256(" ".join(cmd_prefix).encode())
+def _run(cmds: list[list[str]], name: str) -> str:
+    """Run ``cmds`` all at once; return their joined output, raise on failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs, failed = [], []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate(timeout=600)
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {p.returncode}\n{out}")
+    if failed:
+        raise RuntimeError(f"build of {name} failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+def compile_shared(compile_cmd: list[str], link_cmd: list[str], sources: list[str],
+                   deps: list[str], name: str) -> str:
+    """Build ``sources`` into BUILD_DIR/lib<name>_<hash>.so unless it exists;
+    return its path.  Each source is compiled with ``compile_cmd ... -c`` in
+    its own process (all at once), then ``link_cmd`` links the objects.
+    ``deps`` (headers) also enter the hash."""
+    h = hashlib.sha256(" ".join(compile_cmd + ["|"] + link_cmd).encode())
     for path in sorted(set(sources) | set(deps)):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -61,20 +82,21 @@ def compile_shared(cmd_prefix: list[str], sources: list[str], deps: list[str],
         LAST_BUILD.update(seconds=0.0, log="(cached)", path=out)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources
+    ]
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [*cmd_prefix, *sources, "-o", tmp], capture_output=True, text=True,
-        timeout=600,
-    )
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"build of {name} failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
-        )
+    try:
+        log = _run([[*compile_cmd, "-c", s, "-o", o] for s, o in zip(sources, objs)], name)
+        log += _run([[*link_cmd, *objs, "-o", tmp]], name)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)
-    LAST_BUILD.update(
-        seconds=time.perf_counter() - t0, log=r.stdout + r.stderr, path=out
-    )
+    LAST_BUILD.update(seconds=time.perf_counter() - t0, log=log, path=out)
     return out
 
 
@@ -83,13 +105,20 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from .ops import ntt_mxu
+            from .ops import ntt_mxu, ntt_pallas
 
             sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
             deps = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-            path = compile_shared([nvcc(), *NVCC_FLAGS], sources, deps, "sventt_kernels")
+            path = compile_shared(
+                [nvcc(), *NVCC_FLAGS], [nvcc(), *NVCC_FLAGS[:2], "-shared"], sources, deps,
+                "sventt_kernels",
+            )
             lib = ctypes.CDLL(path)
-            lib.sventt_mxu_ntt.restype = ctypes.c_int
-            lib.sventt_mxu_ntt.argtypes = ntt_mxu._ARGTYPES
+            for fn, argtypes in (
+                (lib.sventt_mxu_ntt, ntt_mxu._ARGTYPES),
+                (lib.sventt_butterfly_ntt, ntt_pallas._ARGTYPES),
+            ):
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _lib = lib
         return _lib

@@ -40,3 +40,44 @@ __device__ __forceinline__ u64 mont_mul_full(u64 a, u64 b, u64 N, u64 ninv,
 __device__ __forceinline__ u64 normalize(u64 a, u64 N) {
   return a < N ? a : a - N;
 }
+
+__device__ __forceinline__ u64 u64_min(u64 a, u64 b) { return a < b ? a : b; }
+
+// a + b in range: lazy [0, 2N) by the min-trick (4N < 2^64), canonical
+// [0, N) with a carry-aware wrap -- FieldConsts.add.
+__device__ __forceinline__ u64 add_mod(u64 a, u64 b, u64 N, bool lazy) {
+  if (lazy) {
+    const u64 s = a + b;
+    return u64_min(s, s - 2 * N);
+  }
+  u64 carry;
+  const u64 s = add_carry(a, b, carry);
+  return (carry || s >= N) ? s - N : s;
+}
+
+// a - b in range: lazy a - b + 2N then the min-trick, canonical +N on
+// borrow -- FieldConsts.sub.
+__device__ __forceinline__ u64 sub_mod(u64 a, u64 b, u64 N, bool lazy) {
+  if (lazy) {
+    const u64 d = a - b + 2 * N;
+    return u64_min(d, d - 2 * N);
+  }
+  const u64 d = a - b;
+  return a < b ? d + N : d;
+}
+
+// Shoup multiply a*w - hi64(a*wp)*N in [0, 2N), w plain, wp =
+// floor(w * 2^64 / N); canonical mode subtracts N once more --
+// FieldConsts.shoup_mul.
+__device__ __forceinline__ u64 shoup_mul(u64 a, u64 w, u64 wp, u64 N, bool lazy) {
+  const u64 c = a * w - __umul64hi(a, wp) * N;
+  return lazy ? c : u64_min(c, c - N);
+}
+
+// Stage-twiddle multiply by the configured engine (MM 0 Montgomery, 1
+// Shoup) -- FieldConsts.twiddle_mul.
+template <int MM>
+__device__ __forceinline__ u64 twiddle_mul(u64 a, u64 w, u64 wp, u64 N, bool lazy) {
+  if constexpr (MM == 1) return shoup_mul(a, w, wp, N, lazy);
+  return mont_mul(a, w, wp, N, lazy);
+}

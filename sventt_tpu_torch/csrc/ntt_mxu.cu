@@ -1,9 +1,11 @@
 // The s8 matrix NTT for Hopper (sm_90a): one kernel for both orientations.
 //
 // Replaces the Pallas kernel sventt_tpu/ops/ntt_mxu.py::_mxu_call (body
-// _mxu_body, scheme "s8") in its lead (mid=False) and mid (mid=True) forms.
+// _mxu_body, scheme "s8") in its lead (mid=False) and mid (mid=True) forms,
+// and _mxu_lane_call (the transform along the last axis of (B, m) rows).
 // The data is an (A, m, B) view with element strides (sa, sm, sb); the
-// transform runs along the m axis.  Lead is A = 1; mid is A slices.  The
+// transform runs along the m axis.  Lead is A = 1; mid is A slices; lane is
+// A = 1 with transform stride 1 and batch stride m, read in place.  The
 // plain PyTorch version is sventt_tpu_torch/ops/ntt_mxu.py::_mxu_plain and
 // the two agree bit for bit.
 //

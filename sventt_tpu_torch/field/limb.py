@@ -17,10 +17,11 @@ The same functions exist as CUDA device code in ``csrc/field.cuh``, where
 ``__umul64hi`` gives ``hi64`` in one instruction.  The (hi, lo) limb pair
 exists only at the test boundary (``from_limbs`` / ``to_limbs``).
 
-Only the Montgomery engine the matrix-NTT path uses is ported here.  Its
-``hi64(q*N)`` is the generic product: the sparse-modulus chains of the JAX
-package compute the same value with fewer 32-bit multiplies, which a GPU
-does not need.
+The Montgomery and Shoup engines, the lazy and canonical add/sub and the
+radix-2 butterflies are ported; the Solinas engine is not (ROADMAP Queue 1
+item 1).  ``hi64(q*N)`` is the generic product: the sparse-modulus chains
+of the JAX package compute the same value with fewer 32-bit multiplies,
+which a GPU does not need.
 """
 
 from __future__ import annotations
@@ -112,6 +113,11 @@ def u64_select(pred, a, b) -> torch.Tensor:
     return torch.where(pred, a, b)
 
 
+def u64_min(a, b) -> torch.Tensor:
+    """Unsigned 64-bit minimum (the lazy-reduction min-trick)."""
+    return u64_select(u64_lt(a, b), a, b)
+
+
 def u64_mullo(a, b) -> torch.Tensor:
     """Low 64 bits of a*b (the wrapping int64 multiply)."""
     return a * b
@@ -185,21 +191,45 @@ class FieldConsts:
             )
         if modmul == "auto":
             modmul = "montgomery"
-        if modmul in ("shoup", "solinas"):
-            raise NotImplementedError(
-                f"modmul={modmul!r} is not ported yet (ROADMAP Queue 1 item 8)"
-            )
-        if modmul != "montgomery":
+        if modmul not in ("montgomery", "shoup", "solinas"):
             raise ValueError(f"unknown modmul engine {modmul!r}")
+        if modmul == "solinas":
+            raise NotImplementedError(
+                "modmul='solinas' is not ported yet (ROADMAP Queue 1 item 1)"
+            )
+        if modmul == "shoup" and not lazy:
+            raise ValueError("shoup engine requires lazy mode (bit_width <= 62)")
         form, c, s = detect_sparse_modulus(mod.modulus)
         return cls(mod.modulus, mod.montgomery_inverse, lazy, modmul, form, c, s)
+
+    # -- addition/subtraction ------------------------------------------------
+
+    def add(self, a, b) -> torch.Tensor:
+        """a + b staying in range: lazy [0, 2N) by the min-trick (needs
+        4N < 2^64), canonical [0, N) with a carry-aware wrap."""
+        n = s64(self.modulus)
+        if self.lazy:
+            s = a + b
+            return u64_min(s, s - 2 * n)
+        s, carry = u64_add_carry(a, b)
+        take_wrapped = (carry != 0) | ~u64_lt(s, torch.full_like(s, n))
+        return u64_select(take_wrapped, s - n, s)
+
+    def sub(self, a, b) -> torch.Tensor:
+        """a - b staying in range: lazy a - b + 2N then the min-trick,
+        canonical +N on borrow."""
+        n = s64(self.modulus)
+        if self.lazy:
+            d = a - b + 2 * n
+            return u64_min(d, d - 2 * n)
+        d = a - b
+        return u64_select(u64_lt(a, b), d + n, d)
 
     def normalize(self, a: torch.Tensor) -> torch.Tensor:
         """Map [0, 2N) -> canonical [0, N) (identity in canonical mode)."""
         if not self.lazy:
             return a
-        b = a - s64(self.modulus)
-        return u64_select(u64_lt(a, b), a, b)
+        return u64_min(a, a - s64(self.modulus))
 
     def mont_mul(self, a, w, wp) -> torch.Tensor:
         """Montgomery multiply with a precomputed companion
@@ -222,3 +252,45 @@ class FieldConsts:
         ``q = lo64(a*b) * N^-1``."""
         q = (a * b) * s64(self.montgomery_inverse)
         return self._redc_finish(u64_mulhi(a, b), q)
+
+    def shoup_mul(self, a, w, wp) -> torch.Tensor:
+        """Shoup multiply: ``a*w - hi64(a*wp)*N`` in [0, 2N), with ``w``
+        plain-domain and ``wp = floor(w * 2^64 / N)``."""
+        if self.modulus.bit_length() > 63:
+            raise ValueError("Shoup multiply requires bit_width(N) <= 63")
+        n = s64(self.modulus)
+        c = a * w - u64_mulhi(a, wp) * n
+        if self.lazy:
+            return c
+        return u64_min(c, c - n)
+
+    # -- butterflies ---------------------------------------------------------
+
+    def twiddle_mul(self, a, w, wp) -> torch.Tensor:
+        """Multiply by a prepared stage-twiddle pair via the configured
+        engine: Montgomery ``(w*R, w*R*N^-1)`` or Shoup ``(w, floor(w*2^64/N))``."""
+        if self.modmul == "shoup":
+            return self.shoup_mul(a, w, wp)
+        return self.mont_mul(a, w, wp)
+
+    def butterfly_forward(self, x0, x1, w, wp):
+        """DIF butterfly ``(x0 + x1, (x0 - x1) * w)``.  In lazy mode the
+        difference is biased by +2N and left unreduced in (0, 4N)."""
+        y0 = self.add(x0, x1)
+        if self.lazy:
+            d = x0 - x1 + 2 * s64(self.modulus)
+        else:
+            d = self.sub(x0, x1)
+        return y0, self.twiddle_mul(d, w, wp)
+
+    def butterfly_inverse(self, x0, x1, w, wp):
+        """DIT butterfly: ``t = x1 * w``; ``(x0 + t, x0 - t)``."""
+        t = self.twiddle_mul(x1, w, wp)
+        return self.add(x0, t), self.sub(x0, t)
+
+    def butterfly_inverse_scaled(self, x0, x1, s, sp, sw, swp):
+        """Last DIT butterfly with 1/m folded in: ``a = x0*s``,
+        ``b = x1*sw`` (``sw = s*w``); ``(a + b, a - b)``."""
+        a = self.twiddle_mul(x0, s, sp)
+        b = self.twiddle_mul(x1, sw, swp)
+        return self.add(a, b), self.sub(a, b)

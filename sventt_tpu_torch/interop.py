@@ -6,11 +6,21 @@ caller does the ``np.asarray`` on the JAX side), into the port's tensors:
 
 * a limb pair ``(hi, lo)`` of uint32 arrays -> an int64 tensor;
 * ``MxuDirection.planes`` / ``corr`` -> ``ops.ntt_mxu.MxuDirection``;
+* ``FusedDirection`` (``stage_ls``, ``tw``: per stage the four (rows,
+  block_b) arrays w_hi, w_lo, wp_hi, wp_lo; ``scale``: four arrays of the
+  broadcast (s, sp) pair, or none) -> ``ops.ntt_pallas.FusedDirection``;
+* ``LaneDirection`` (``stage_ls``, ``tw``: (stages, 4, rows, m),
+  ``scale_scalar``: (s, sp) ints or None) -> ``ops.ntt_pallas.LaneDirection``;
 * a ``MontPair`` as ``{"w": (hi, lo), "wp": (hi, lo) or None}``;
 * a whole ``PlanTables`` as ``{"leaf": {(m, "mxu"): {"planes": ..., "corr":
-  (hi, lo)}}, "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``.
+  (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}},
+  "lane": {m1: {"stage_ls": ..., "tw": ..., "scale_scalar": ...}},
+  "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``.
 
-No JAX is imported here.
+The JAX package broadcasts each stage's l twiddles to its vreg tiles (a
+row or lane index i holds ``w_stage[i mod l]``); the port's compact tables
+take column or row 0 of each and keep its first l entries.  Every
+``device`` None is the CUDA card.  No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -21,12 +31,15 @@ import torch
 from .field.limb import FieldConsts, from_limbs
 from .field.modulus import Modulus
 from .ops.ntt_mxu import MxuDirection
+from .ops.ntt_pallas import FusedDirection, LaneDirection, _compact
 from .ops.twiddle import MontPair
 from .plan.planner import PlanTables
+from .utils.device import resolve_device
 
 
 def montpair_from_numpy(pair: dict, device=None) -> MontPair:
     """``{"w": (hi, lo), "wp": (hi, lo) | None}`` -> MontPair."""
+    device = resolve_device(device)
     wp = pair.get("wp")
     return MontPair(
         from_limbs(*pair["w"], device),
@@ -39,6 +52,7 @@ def mxu_direction_from_numpy(
 ) -> MxuDirection:
     """The JAX ``MxuDirection`` (s8 scheme) as the port's: ``planes`` the
     (8m, m) int8 array, ``corr`` its (hi, lo) limb pair of shape (1, m)."""
+    device = resolve_device(device)
     planes = np.asarray(planes)
     if planes.dtype != np.int8 or planes.shape != (8 * m, m):
         raise ValueError(f"expected (8m, m) int8 planes, got {planes.dtype} {planes.shape}")
@@ -51,16 +65,67 @@ def mxu_direction_from_numpy(
     )
 
 
+def _stage_pairs(stage_ls, arrays, device) -> list[MontPair]:
+    """Per stage the compact pair from its four (hi, lo) limb vectors."""
+    pairs = []
+    for l, (wh, wl, ph, pl) in zip(stage_ls, arrays):
+        pairs.append(MontPair(from_limbs(wh[:l], wl[:l], device), from_limbs(ph[:l], pl[:l], device)))
+    return pairs
+
+
+def fused_direction_from_numpy(
+    m: int, inverse: bool, modmul: str, stage_ls, tw, scale, device=None
+) -> FusedDirection:
+    """The JAX ``FusedDirection`` (radix-2, companioned engine) as the
+    port's: column 0 of each pre-broadcast stage array, first l rows."""
+    device = resolve_device(device)
+    cols = [[np.asarray(a)[:, 0] for a in stage] for stage in tw]
+    if any(len(stage) != 4 for stage in cols):
+        raise ValueError("expected four arrays per stage (w_hi, w_lo, wp_hi, wp_lo)")
+    w, wp = _compact(_stage_pairs(stage_ls, cols, device), stage_ls, m, device)
+    sc = None
+    if inverse:
+        sh, sl, ph, pl = (int(np.asarray(a).flat[0]) for a in scale)
+        sc = ((sh << 32) | sl, (ph << 32) | pl)
+    return FusedDirection(m, inverse, modmul, tuple(stage_ls), w, wp, sc)
+
+
+def lane_direction_from_numpy(
+    m: int, inverse: bool, modmul: str, stage_ls, tw, scale_scalar, device=None
+) -> LaneDirection:
+    """The JAX ``LaneDirection`` as the port's: row 0 of each stage's four
+    lane vectors, first l lanes."""
+    device = resolve_device(device)
+    tw = np.asarray(tw)
+    if tw.ndim != 4 or tw.shape[1] != 4 or tw.shape[3] != m:
+        raise ValueError(f"expected (stages, 4, rows, {m}) lane tables, got {tw.shape}")
+    rows = [[tw[s, c, 0] for c in range(4)] for s in range(tw.shape[0])]
+    w, wp = _compact(_stage_pairs(stage_ls, rows, device), stage_ls, m, device)
+    sc = None if scale_scalar is None else tuple(int(v) for v in scale_scalar)
+    return LaneDirection(m, inverse, modmul, tuple(stage_ls), w, wp, sc)
+
+
 def tables_from_numpy(
     plan, mod: Modulus, fc: FieldConsts, inverse: bool, arrays: dict, device=None
 ) -> PlanTables:
     """A whole JAX ``PlanTables`` (as numpy arrays, layout above) as the
     port's PlanTables for the same plan."""
-    leaf = {
-        key: mxu_direction_from_numpy(
-            mod, key[0], inverse, v["planes"], v["corr"], device
+    device = resolve_device(device)
+    leaf = {}
+    for key, v in arrays["leaf"].items():
+        if key[1] == "mxu":
+            leaf[key] = mxu_direction_from_numpy(
+                mod, key[0], inverse, v["planes"], v["corr"], device
+            )
+        else:
+            leaf[key] = fused_direction_from_numpy(
+                key[0], inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale"], device
+            )
+    lane = {
+        m1: lane_direction_from_numpy(
+            m1, inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale_scalar"], device
         )
-        for key, v in arrays["leaf"].items()
+        for m1, v in arrays.get("lane", {}).items()
     }
     conv = {
         name: {k: montpair_from_numpy(v, device) for k, v in arrays[name].items()}
@@ -68,5 +133,5 @@ def tables_from_numpy(
     }
     return PlanTables.from_parts(
         plan, mod, fc, inverse, leaf=leaf, split_tw=conv["split_tw"],
-        split_tw_t=conv["split_tw_t"],
+        split_tw_t=conv["split_tw_t"], lane=lane,
     )

@@ -1,10 +1,10 @@
-"""The native C++ golden oracle, built from the JAX package's source.
+"""The native C++ golden oracle.
 
-``sventt_tpu/native/host_golden.cc`` (an exact radix-2 NTT over
-``unsigned __int128``) is compiled with ``c++`` at first use into the port's
-build directory and loaded with ``ctypes``.  The source file is read, never
-imported.  Unlike the JAX package's loader, a failed build raises: a check
-against the oracle never passes for want of one.
+``native_src/host_golden.cc`` (an exact radix-2 NTT over ``unsigned
+__int128``; the port's own copy of the JAX package's oracle source) is
+compiled with ``c++`` at first use into the port's build directory and
+loaded with ``ctypes``.  Unlike the JAX package's loader, a failed build
+raises: a check against the oracle never passes for want of one.
 """
 
 from __future__ import annotations
@@ -18,9 +18,7 @@ import numpy as np
 from . import _build
 from .field.modulus import Modulus
 
-SOURCE = os.path.join(
-    os.path.dirname(_build._HERE), "sventt_tpu", "native", "host_golden.cc"
-)
+SOURCE = os.path.join(_build._HERE, "native_src", "host_golden.cc")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -34,7 +32,8 @@ def load() -> ctypes.CDLL:
             if not os.path.exists(SOURCE):
                 raise RuntimeError(f"oracle source missing: {SOURCE}")
             path = _build.compile_shared(
-                ["c++", "-O3", "-shared", "-fPIC"], [SOURCE], [], "sventt_golden"
+                ["c++", "-O3", "-fPIC"], ["c++", "-shared"], [SOURCE], [],
+                "sventt_golden",
             )
             lib = ctypes.CDLL(path)
             p64 = ctypes.POINTER(ctypes.c_uint64)

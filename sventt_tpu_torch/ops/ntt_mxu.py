@@ -17,16 +17,19 @@ Barrett step or conditional subtracts bring the high word below N, and a
 Montgomery REDC (whose R^-1 cancels R64) lands in canonical [0, N).  The
 per-row constant ``corr`` absorbs every byte offset and plane bias.
 
-The kernel (``csrc/ntt_mxu.cu``) replaces the Pallas kernel
-``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` with body ``_mxu_body`` in both of
-its orientations:
+The kernel (``csrc/ntt_mxu.cu``) replaces the Pallas kernels
+``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` (body ``_mxu_body``) in both of
+its orientations and ``_mxu_lane_call``:
 
-* lead (``mxu_ntt``): the transform runs along axis 0 of (m, B);
-* mid (``mxu_ntt_mid``): along axis 1 of (A, m, B).
+* lead (``mxu_ntt``, K1): the transform runs along axis 0 of (m, B);
+* mid (``mxu_ntt_mid``, K2): along axis 1 of (A, m, B);
+* lane (``mxu_ntt_lane``, K3): along the last axis of (B, m), no twiddle.
 
-Both are one kernel over an (A, m, B) view with strides.  An optional
-inter-step twiddle multiply is fused in: before the byte split on the
-forward, after the REDC on the inverse.
+All three are one kernel over an (A, m, B) view with strides: the lane
+orientation is the view (1, m, B) of the (B, m) rows with transform stride
+1 and batch stride m, read in place.  An optional inter-step twiddle
+multiply is fused in: before the byte split on the forward, after the
+REDC on the inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
@@ -55,7 +58,8 @@ from ..field.limb import (
     u64_select,
 )
 from ..field.modulus import MASK32, Modulus
-from .twiddle import MontPair, montpair_map
+from ..utils.device import resolve_device
+from .twiddle import MontPair, inter_step_mul, montpair_map
 
 #: Balanced-digit planes: 8 signed base-256 matrix digits x 8 data bytes.
 NL_S8 = 8
@@ -69,9 +73,9 @@ _K8 = (1 << 64) // 255  # 0x0101010101010101
 C8_PLUS = 127 * _K8
 
 #: Kernel launches per orientation (added to where the kernel launches).
-LAUNCHES = {"lead": 0, "mid": 0}
+LAUNCHES = {"lead": 0, "mid": 0, "lane": 0}
 #: Plain-version calls per orientation.
-PLAIN_CALLS = {"lead": 0, "mid": 0}
+PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
 
 
 def _balanced8(r: int) -> list[int]:
@@ -158,8 +162,10 @@ def make_mxu_tables(
     """The digit-plane matrix and row corrections for one direction.
 
     The host build is cached per (modulus, m, inverse, scale_extra); it
-    loops over m^2 Python ints, seconds at m = 1024.
+    loops over m^2 Python ints, seconds at m = 1024.  ``device`` None is
+    the CUDA card.
     """
+    device = resolve_device(device)
     if m < 2 or m & (m - 1) or m > MAX_MXU:
         raise ValueError(f"mxu engine supports power-of-two m in [2, {MAX_MXU}]")
     N = mod.modulus
@@ -170,14 +176,6 @@ def make_mxu_tables(
         from_numpy(corr, device),
         N, pow(2, 128, N), pow(N, -1, 1 << 64),
     )
-
-
-def _tw_mul(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tensor:
-    """The fused inter-step twiddle multiply: mode "pair" (companion given)
-    or "w" (companion computed in flight)."""
-    if tw.wp is None:
-        return fc.mont_mul_full(x, tw.w)
-    return fc.mont_mul(x, tw.w, tw.wp)
 
 
 def _reduce_consts(N: int) -> tuple[int, bool]:
@@ -201,7 +199,7 @@ def _mxu_plain(
     """
     A, m, B = x.shape
     if tw is not None and not t.inverse:
-        x = _tw_mul(fc, x, tw)
+        x = inter_step_mul(fc, x, tw)
     D = t.planes.to(torch.float64)  # (8m, m)
     planes = [None] * 15
     for b in range(NL_S8):
@@ -250,7 +248,7 @@ def _mxu_plain(
     res = u64_select(u64_lt(T_hi, qn1), d + n, d)
     res = u64_select(u64_lt(res, nn), res, res - n)
     if tw is not None and t.inverse:
-        res = _tw_mul(fc, res, tw)
+        res = inter_step_mul(fc, res, tw)
     return res
 
 
@@ -270,14 +268,14 @@ def _check_cuda(t: MxuDirection, x: torch.Tensor, tw: MontPair | None):
 def _launch(
     x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on an (A, m, B) tensor; raise on any error."""
+    """Launch the CUDA kernel on a dense (A, m, B) view (any strides; the
+    output takes the same layout); raise on any error."""
     from .. import _build
 
     _check_cuda(t, x, tw)
     lib = _build.load()
-    x = x.contiguous()
     A, m, B = x.shape
-    out = torch.empty_like(x)
+    out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
     mode = 0 if tw is None else (2 if tw.wp is None else 1)
     if tw is None:
         w_ptr = wp_ptr = None
@@ -307,10 +305,19 @@ def _launch(
     return out
 
 
-def _as3(x: torch.Tensor, tw: MontPair | None, m: int, mid: bool):
+def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
     """(A, m, B) view of the data, the twiddles broadcastable to it, and
-    the output shape: lead (m, batch...) -> (1, m, B) with tw (1, m, B);
-    mid (A, m, batch...) -> (A, m, B) with tw (A, m, 1)."""
+    a function taking the (A, m, B) result back to the data's shape:
+    lead (m, batch...) -> (1, m, B) with tw (1, m, B); mid (A, m, batch...)
+    -> (A, m, B) with tw (A, m, 1); lane (batch..., m) -> the (1, m, B)
+    view of the contiguous (B, m) rows, transform stride 1."""
+    if orientation == "lane":
+        if x.shape[-1] != m:
+            raise ValueError(f"trailing axis {x.shape[-1]} != transform length {m}")
+        shape = tuple(x.shape)
+        rows = x.reshape(-1, m).contiguous()
+        return rows.t().unsqueeze(0), None, lambda y: y[0].t().reshape(shape)
+    mid = orientation == "mid"
     if mid:
         if x.dim() < 2 or x.shape[1] != m:
             raise ValueError(f"axis-1 length != transform length {m}")
@@ -324,20 +331,19 @@ def _as3(x: torch.Tensor, tw: MontPair | None, m: int, mid: bool):
         shape = (a, m, 1) if mid else (1, m, b)
         tw = montpair_map(lambda v: v.reshape(shape), tw)
     out_shape = ((a, m) if mid else (m,)) + batch_shape
-    return x.reshape(a, m, b), tw, out_shape
+    return x.reshape(a, m, b).contiguous(), tw, lambda y: y.reshape(out_shape)
 
 
-def _run(x, t: MxuDirection, fc: FieldConsts, tw, mid: bool):
-    x3, tw3, out_shape = _as3(x, tw, t.m, mid)
-    orientation = "mid" if mid else "lead"
+def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
+    x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
         out = _launch(x3, t, fc, tw3)
         LAUNCHES[orientation] += 1
-        return out.reshape(out_shape)
+        return back(out)
     if x.device.type != "cpu":
         raise ValueError(f"mxu engine runs on cpu or cuda tensors, got {x.device}")
     PLAIN_CALLS[orientation] += 1
-    return _mxu_plain(x3, t, fc, tw3).reshape(out_shape)
+    return back(_mxu_plain(x3, t, fc, tw3))
 
 
 def mxu_ntt(
@@ -350,7 +356,7 @@ def mxu_ntt(
     canonical, or lazy [0, 2N) representatives when a lazy-mode epilogue is
     fused.
     """
-    return _run(x, tables, fc, tw, mid=False)
+    return _run(x, tables, fc, tw, "lead")
 
 
 def mxu_ntt_mid(
@@ -361,18 +367,26 @@ def mxu_ntt_mid(
     ``tw``: optional (A, m) inter-step MontPair, broadcast over the batch
     axes and fused as prologue (forward) / epilogue (inverse).
     """
-    return _run(x, tables, fc, tw, mid=True)
+    return _run(x, tables, fc, tw, "mid")
+
+
+def mxu_ntt_lane(x: torch.Tensor, tables: MxuDirection, fc: FieldConsts) -> torch.Tensor:
+    """Length-m matrix NTT along the LAST axis of (batch..., m), no twiddle:
+    the six-step row step on the natural layout, without transposes."""
+    return _run(x, tables, fc, None, "lane")
 
 
 def mxu_plain(
     x: torch.Tensor, tables: MxuDirection, fc: FieldConsts,
-    tw: MontPair | None = None, mid: bool = False,
+    tw: MontPair | None = None, mid: bool = False, lane: bool = False,
 ) -> torch.Tensor:
-    """The plain version of ``mxu_ntt`` (``mid=False``) or ``mxu_ntt_mid``
-    (``mid=True``) on a tensor on any device; counts nothing.  The
-    reference a kernel is held against on the card."""
-    x3, tw3, out_shape = _as3(x, tw, tables.m, mid)
-    return _mxu_plain(x3, tables, fc, tw3).reshape(out_shape)
+    """The plain version of ``mxu_ntt`` (default), ``mxu_ntt_mid``
+    (``mid=True``) or ``mxu_ntt_lane`` (``lane=True``) on a tensor on any
+    device; counts nothing.  The reference a kernel is held against on the
+    card."""
+    orientation = "lane" if lane else ("mid" if mid else "lead")
+    x3, tw3, back = _as3(x, tw, tables.m, orientation)
+    return back(_mxu_plain(x3, tables, fc, tw3))
 
 
 def reset_counts() -> None:

@@ -1,13 +1,21 @@
-"""Inter-step (six-step) twiddle tables on int64 tensors.
+"""Twiddle tables on int64 tensors.
 
-The PyTorch counterpart of the parts of ``sventt_tpu/ops/twiddle.py`` that
-the matrix-NTT path uses: Montgomery-form twiddles ``w = v * 2^64 mod N``
-with the companion ``wp = w * N^-1 mod 2^64`` beside them.  Every builder
-takes the device its tensors go to.
+The PyTorch counterpart of ``sventt_tpu/ops/twiddle.py`` without its
+Solinas tables:
+
+* inter-step (six-step) twiddles, always Montgomery-form ``w = v * 2^64
+  mod N`` with the companion ``wp = w * N^-1 mod 2^64`` beside them;
+* per-stage butterfly twiddles (``forward_tables`` / ``inverse_tables``) in
+  the form of the configured engine: Montgomery as above, or Shoup (``w``
+  plain, ``wp = floor(w * 2^64 / N)``).
+
+The public builders put their tensors on the CUDA card unless given a
+``device``; the private helpers take the device they are given.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -16,6 +24,7 @@ import torch
 from ..field.golden import bitreverse_permutation
 from ..field.limb import FieldConsts, from_numpy, s64
 from ..field.modulus import Modulus
+from ..utils.device import resolve_device
 
 
 class MontPair(NamedTuple):
@@ -38,10 +47,32 @@ def _powers(base: int, count: int, N: int) -> list[int]:
     return out
 
 
-def _mont_pair(mod: Modulus, values_plain: list[int], device=None) -> MontPair:
+def inter_step_mul(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tensor:
+    """The inter-step twiddle multiply, Montgomery whatever ``fc.modmul``
+    says: ``mont_mul`` with the companion, ``mont_mul_full`` without it."""
+    if tw.wp is None:
+        return fc.mont_mul_full(x, tw.w)
+    return fc.mont_mul(x, tw.w, tw.wp)
+
+
+def _mont_pair(mod: Modulus, values_plain: list[int], device) -> MontPair:
     wm = np.array([mod.to_montgomery(v) for v in values_plain], dtype=np.uint64)
     wp = np.array([mod.montgomery_precompute(int(v)) for v in wm], dtype=np.uint64)
     return MontPair(from_numpy(wm, device), from_numpy(wp, device))
+
+
+def _twiddle_pair(mod: Modulus, values_plain: list[int], modmul: str, device) -> MontPair:
+    """Twiddle + companion for the engine ``modmul``: Montgomery
+    ``(w*R mod N, w*R*N^-1 mod 2^64)`` or Shoup ``(w, floor(w*2^64/N))``."""
+    if modmul == "montgomery":
+        return _mont_pair(mod, values_plain, device)
+    if modmul != "shoup":
+        raise NotImplementedError(
+            f"modmul={modmul!r} stage twiddles are not ported yet (ROADMAP Queue 1 item 1)"
+        )
+    w = np.array([v % mod.modulus for v in values_plain], dtype=np.uint64)
+    wp = np.array([mod.shoup_precompute(int(v)) for v in w], dtype=np.uint64)
+    return MontPair(from_numpy(w, device), from_numpy(wp, device))
 
 
 def _row_twiddles_host(mod: Modulus, n0: int, n1: int, inverse: bool, device) -> MontPair:
@@ -57,12 +88,12 @@ def _row_twiddles_host(mod: Modulus, n0: int, n1: int, inverse: bool, device) ->
 
 def sixstep_row_twiddles(mod: Modulus, n0: int, n1: int, device=None) -> MontPair:
     """The n0 x n1 matrix W[p0, j1] = omega_n^(bitrev(p0)*j1), host-built."""
-    return _row_twiddles_host(mod, n0, n1, False, device)
+    return _row_twiddles_host(mod, n0, n1, False, resolve_device(device))
 
 
 def sixstep_row_twiddles_inverse(mod: Modulus, n0: int, n1: int, device=None) -> MontPair:
     """Inverse inter-step twiddles W[p0, j1] = omega_n^(-bitrev(p0)*j1)."""
-    return _row_twiddles_host(mod, n0, n1, True, device)
+    return _row_twiddles_host(mod, n0, n1, True, resolve_device(device))
 
 
 def sixstep_row_twiddles_device(
@@ -82,10 +113,11 @@ def sixstep_row_twiddles_device(
     """
     if modmul != "montgomery":
         raise NotImplementedError(
-            f"modmul={modmul!r} twiddles are not ported yet (ROADMAP Queue 1 item 8)"
+            f"modmul={modmul!r} twiddles are not ported yet (ROADMAP Queue 1 item 1)"
         )
     if n1 & (n1 - 1):
         raise ValueError("n1 must be a power of two")
+    device = resolve_device(device)
     N = mod.modulus
     omega = mod.get_root_forward(n0 * n1)
     if inverse:
@@ -103,3 +135,61 @@ def sixstep_row_twiddles_device(
     w = wt if transposed else wt.t().contiguous()
     wp = w * s64(mod.montgomery_inverse) if with_companion else None
     return MontPair(w, wp)
+
+
+@dataclass(frozen=True)
+class ForwardTables:
+    """Per-stage DIF twiddles of a length-m NTT: ``stages[s]`` covers
+    half-width ``l = m >> (s+1)`` and holds the ``l`` twiddles
+    ``omega_{2l}^j`` with their companions."""
+
+    m: int
+    stages: tuple[MontPair, ...]
+
+
+@dataclass(frozen=True)
+class InverseTables:
+    """Per-stage DIT twiddles: ``stages[s]`` covers ``l = 1 << s`` with
+    ``omegainv_{2l}^j``; the last stage holds ``s * omegainv_m^j`` and
+    ``scale`` the pair of ``s = m^-1 * scale_extra``."""
+
+    m: int
+    stages: tuple[MontPair, ...]
+    scale: MontPair
+
+
+def forward_tables(
+    mod: Modulus, m: int, modmul: str = "montgomery", device=None
+) -> ForwardTables:
+    """DIF stage tables (stage order l = m/2 ... 1)."""
+    if m & (m - 1) or m < 2:
+        raise ValueError("m must be a power of two >= 2")
+    device = resolve_device(device)
+    N = mod.modulus
+    omega_2l = mod.get_root_forward(m)
+    stages = []
+    for i in range(m.bit_length() - 2, -1, -1):
+        stages.append(_twiddle_pair(mod, _powers(omega_2l, 1 << i, N), modmul, device))
+        omega_2l = omega_2l * omega_2l % N
+    return ForwardTables(m, tuple(stages))
+
+
+def inverse_tables(
+    mod: Modulus, m: int, scale_extra: int = 1, modmul: str = "montgomery", device=None
+) -> InverseTables:
+    """DIT stage tables (stage order l = 1 ... m/2) with 1/m (times
+    ``scale_extra``) folded into the last stage."""
+    if m & (m - 1) or m < 2:
+        raise ValueError("m must be a power of two >= 2")
+    device = resolve_device(device)
+    N = mod.modulus
+    log2m = m.bit_length() - 1
+    omegainv_m = mod.invert(mod.get_root_forward(m))
+    s = mod.invert(m) * (scale_extra % N) % N
+    stages = []
+    for i in range(log2m):
+        tw = _powers(pow(omegainv_m, 1 << (log2m - i - 1), N), 1 << i, N)
+        if i == log2m - 1:
+            tw = [t * s % N for t in tw]  # fold the scaling into the last stage
+        stages.append(_twiddle_pair(mod, tw, modmul, device))
+    return InverseTables(m, tuple(stages), _twiddle_pair(mod, [s], modmul, device))

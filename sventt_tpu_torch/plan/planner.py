@@ -1,20 +1,24 @@
-"""Recursive transform planner: matrix-NTT leaves composed by six-step splits.
+"""Recursive transform planner: leaves composed by six-step splits.
 
 The counterpart of ``sventt_tpu/plan/planner.py`` for the matrix engine
-("mxu").  A plan is a static tree:
+("mxu") and the radix-2 butterfly engine ("pallas").  A plan is a static
+tree:
 
-* ``Leaf(m)`` -- a length-m NTT along the leading axis (``ops.ntt_mxu``).
+* ``Leaf(m, engine)`` -- a length-m NTT along the leading axis
+  (``ops.ntt_mxu.mxu_ntt`` or ``ops.ntt_pallas.fused_ntt``).
 * ``Split(m, m0, m1)`` -- the six-step decomposition m = m0*m1: column
-  NTTs (the ``col`` subtree, length m0), then the row step (a length-m1 mxu
-  leaf) with the inter-step twiddle multiply fused into the kernel.  The
-  output is bit-reversed like a Leaf of the same length, so nodes compose.
+  NTTs (the ``col`` subtree, length m0), then the row step (a length-m1
+  leaf of either engine) with the inter-step twiddle multiply fused into
+  its kernel.  The output is bit-reversed like a Leaf of the same length,
+  so nodes compose, also across engines.
 
 The row step runs mid-axis when the node has batch axes (inner levels: no
-transposes) and lead-axis between two transposes at the unbatched root,
-with the root's twiddle table stored transposed (``split_tw_t``), as in the
-JAX package.  Plans with other leaf engines are built (``build_plan_spec``
-validates them as the JAX package does) but running them raises
-``NotImplementedError``.
+transposes).  At the unbatched root an mxu row runs lead-axis between two
+transposes, with the root's twiddle table stored transposed
+(``split_tw_t``); a pallas row runs lane-axis on the data as it lies, with
+the table in its natural (m0, m1) layout -- both as in the JAX package.
+Plans with jnp leaves are built (``build_plan_spec`` validates them as the
+JAX package does) but running them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from ..field.limb import FieldConsts
 from ..field.modulus import Modulus
-from ..ops import ntt_mxu
+from ..ops import ntt_mxu, ntt_pallas
 from ..ops.transpose import transpose01
 from ..ops.twiddle import (
     MontPair,
@@ -34,6 +38,7 @@ from ..ops.twiddle import (
     sixstep_row_twiddles_device,
     sixstep_row_twiddles_inverse,
 )
+from ..utils.device import resolve_device
 
 #: Above this element count inter-step twiddle matrices are generated on the
 #: device instead of with host Python ints.
@@ -43,10 +48,11 @@ DEVICE_TWIDDLE_THRESHOLD = 1 << 16
 #: dropped (the multiply computes it in flight), halving twiddle memory.
 W_ONLY_THRESHOLD = 1 << 26
 
-#: Largest leaf of the unported engines, for plan_spec validation only
-#: (sventt_tpu/ops/ntt_pallas.py MAX_FUSED; the jnp cap of build_plan_spec).
-_PALLAS_MAX_FUSED = 256
+#: Largest jnp leaf, for plan_spec validation only (the engine is unported).
 _JNP_SPEC_CAP = 1 << 22
+
+#: The engines whose leaves and row steps run.
+PORTED_ENGINES = ("mxu", "pallas")
 
 
 def _not_ported(what: str, item: str):
@@ -58,13 +64,14 @@ def row_twiddles(
     w_only: bool | None = None, modmul: str = "montgomery",
     transposed: bool = False, device=None,
 ) -> MontPair:
-    """Inter-step twiddle matrix for one Split level (Montgomery form).
+    """Inter-step twiddle matrix for one Split level, Montgomery form for
+    every engine but solinas (Shoup applies to stage twiddles only).
 
     ``w_only`` drops the companion; None applies W_ONLY_THRESHOLD.
     ``transposed`` returns the (n1, n0) layout of the lead-axis root step.
     """
     if modmul == "solinas":
-        raise _not_ported("modmul='solinas'", "Queue 1 item 8")
+        raise _not_ported("modmul='solinas'", "Queue 1 item 1")
     if w_only is None:
         w_only = n0 * n1 >= W_ONLY_THRESHOLD
     if n0 * n1 > DEVICE_TWIDDLE_THRESHOLD:
@@ -88,7 +95,7 @@ def _transpose_pair(tw: MontPair) -> MontPair:
 @dataclass(frozen=True)
 class Leaf:
     m: int
-    engine: str  # "mxu" runs; "jnp" | "pallas" are not ported
+    engine: str  # "mxu" | "pallas" run; "jnp" is not ported
 
 
 @dataclass(frozen=True)
@@ -101,16 +108,17 @@ class Split:
 
 
 def build_plan(n: int, engine: str, max_fused: int | None = None) -> "Leaf | Split":
-    """Static plan tree for a length-n transform (mxu engine).
+    """Static plan tree for a length-n transform.
 
     log2(n) is cut into the fewest near-equal factors, each <= max_fused
-    (512 by default), left-deep: the row side is a leaf, the column side
-    recurses.  2^17 -> 256 x 512; 2^24 -> (256 x 256) x 256.
+    (512 for mxu, ``ntt_pallas.MAX_FUSED`` = 256 for pallas), left-deep:
+    the row side is a leaf, the column side recurses.  mxu: 2^17 -> 256 x
+    512, 2^24 -> (256 x 256) x 256; pallas: 2^17 -> (32 x 64) x 64.
     """
-    if engine != "mxu":
-        raise _not_ported(f"engine={engine!r}", "Queue 1 items 7-8")
+    if engine not in PORTED_ENGINES:
+        raise _not_ported(f"engine={engine!r}", "Queue 1 item 7")
     if max_fused is None:
-        max_fused = 512
+        max_fused = 512 if engine == "mxu" else ntt_pallas.MAX_FUSED
     if n <= max_fused:
         return Leaf(n, engine)
     log2n = n.bit_length() - 1
@@ -125,7 +133,7 @@ def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
     """Explicit plan tree from a spec string, top-down: ``engine:m1`` per
     Split level (its row leaf), then a bare engine for the column leaf.
     Validates exactly as ``sventt_tpu.plan.planner.build_plan_spec``."""
-    caps = {"jnp": _JNP_SPEC_CAP, "pallas": _PALLAS_MAX_FUSED, "mxu": ntt_mxu.MAX_MXU}
+    caps = {"jnp": _JNP_SPEC_CAP, "pallas": ntt_pallas.MAX_FUSED, "mxu": ntt_mxu.MAX_MXU}
 
     def leaf(m: int, engine: str) -> Leaf:
         if engine not in caps:
@@ -160,42 +168,64 @@ def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
 
 
 def check_ported(node) -> None:
-    """Raise NotImplementedError unless every node runs on the mxu path."""
+    """Raise NotImplementedError unless every node runs on a ported path:
+    mxu or pallas leaves, and splits whose row is such a leaf."""
     if isinstance(node, Leaf):
-        if node.engine != "mxu":
-            raise _not_ported(f"engine={node.engine!r} leaves", "Queue 1 items 7-8")
+        if node.engine not in PORTED_ENGINES:
+            raise _not_ported(f"engine={node.engine!r} leaves", "Queue 1 item 7")
         return
-    if not _mxu_row(node):
-        raise _not_ported("split levels without an mxu row leaf", "Queue 1 item 5")
+    if not isinstance(node.row, Leaf):
+        raise _not_ported("split levels whose row is a subtree", "Queue 1 item 5")
+    check_ported(node.row)
     check_ported(node.col)
 
 
+def _row_engine(node) -> str | None:
+    """The engine of a Split's row leaf (None for a Leaf or a row subtree)."""
+    if isinstance(node, Split) and isinstance(node.row, Leaf):
+        return node.row.engine
+    return None
+
+
 def _mxu_row(node) -> bool:
-    """Split nodes whose row child is an mxu leaf (the only row step ported)."""
-    return isinstance(node, Split) and isinstance(node.row, Leaf) and node.row.engine == "mxu"
+    return _row_engine(node) == "mxu"
+
+
+def _lane_row(node) -> bool:
+    """Split nodes whose row child is a pallas leaf: lane-axis when the
+    batch is empty, mid-axis otherwise (no transposes either way)."""
+    return _row_engine(node) == "pallas"
 
 
 class PlanTables:
-    """Twiddle and matrix tables for every node of a plan, one direction,
-    on one device.
+    """Twiddle, matrix and stage tables for every node of a plan, one
+    direction, on one device (None: the CUDA card).
 
-    ``leaf[(m, "mxu")]``: MxuDirection; ``split_tw[(m0, m1)]``: (m0, m1)
-    MontPair of an inner level; ``split_tw_t[(m0, m1)]``: the (m1, m0)
-    transposed table of the unbatched root's lead-axis row step.
+    ``leaf[(m, engine)]``: MxuDirection or FusedDirection; ``lane[m1]``:
+    LaneDirection of a pallas row leaf, for the unbatched lane-axis step;
+    ``split_tw[(m0, m1)]``: (m0, m1) MontPair of a level; ``split_tw_t[(m0,
+    m1)]``: the (m1, m0) transposed table of an unbatched root whose row is
+    an mxu leaf (its lead-axis step).  The pallas knobs (``block_b``,
+    ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the pallas tables.
     """
 
     def __init__(
         self, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
-        device=None, split_w_only: bool | None = None,
+        device=None, split_w_only: bool | None = None, block_b: int | None = None,
+        spc: int | None = None, rows: int | None = None, max_r: int | None = None,
+        tw_layout: str | None = None,
     ):
         check_ported(plan)
         self.plan = plan
         self.mod = mod
         self.fc = fc
         self.inverse = inverse
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.split_w_only = split_w_only
+        self.knobs = dict(block_b=block_b, spc=spc, max_r=max_r, tw_layout=tw_layout)
+        self.rows = rows
         self.leaf: dict = {}
+        self.lane: dict = {}
         self.split_tw: dict = {}
         self.split_tw_t: dict = {}
         self._prepare(plan, root=True)
@@ -203,48 +233,78 @@ class PlanTables:
     @classmethod
     def from_parts(
         cls, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
-        leaf: dict, split_tw: dict, split_tw_t: dict,
+        leaf: dict, split_tw: dict, split_tw_t: dict, lane: dict | None = None,
     ) -> "PlanTables":
         """Tables assembled from prepared parts (see ``interop``)."""
         check_ported(plan)
         obj = object.__new__(cls)
         obj.plan, obj.mod, obj.fc, obj.inverse = plan, mod, fc, inverse
         first = next(iter(leaf.values()))
-        obj.device = first.planes.device
+        obj.device = (first.planes if isinstance(first, ntt_mxu.MxuDirection) else first.w).device
         obj.split_w_only = None
+        obj.knobs, obj.rows = {}, None
         obj.leaf, obj.split_tw, obj.split_tw_t = leaf, split_tw, split_tw_t
+        obj.lane = lane or {}
         return obj
 
     def _prepare(self, node, root: bool = False):
         if isinstance(node, Leaf):
-            if (node.m, node.engine) not in self.leaf:
-                self.leaf[(node.m, node.engine)] = ntt_mxu.make_mxu_tables(
+            key = (node.m, node.engine)
+            if key in self.leaf:
+                return
+            if node.engine == "mxu":
+                self.leaf[key] = ntt_mxu.make_mxu_tables(
                     self.mod, node.m, inverse=self.inverse, device=self.device
+                )
+            else:
+                self.leaf[key] = ntt_pallas.make_leaf_tables(
+                    self.mod, node.m, inverse=self.inverse, modmul=self.fc.modmul,
+                    device=self.device, **self.knobs,
                 )
             return
         key = (node.m0, node.m1)
-        store = self.split_tw_t if root else self.split_tw
+        # only an mxu root stores its table transposed: a pallas root's lane
+        # step reads the data's own (m0, m1) layout
+        transposed = root and _mxu_row(node)
+        store = self.split_tw_t if transposed else self.split_tw
         if key not in store:
             store[key] = row_twiddles(
                 self.mod, node.m0, node.m1, inverse=self.inverse,
                 w_only=self.split_w_only, modmul=self.fc.modmul,
-                transposed=root, device=self.device,
+                transposed=transposed, device=self.device,
+            )
+        if _lane_row(node) and node.m1 not in self.lane:
+            self.lane[node.m1] = ntt_pallas.make_lane_tables(
+                self.mod, node.m1, inverse=self.inverse, modmul=self.fc.modmul,
+                max_r=self.knobs["max_r"], rows=self.rows, device=self.device,
             )
         self._prepare(node.col)
         self._prepare(node.row)
 
 
+def _split_tw(tables: PlanTables, key) -> MontPair:
+    """A level's (m0, m1) table, transposed back if only the root's
+    transposed copy is stored."""
+    tw = tables.split_tw.get(key)
+    return _transpose_pair(tables.split_tw_t[key]) if tw is None else tw
+
+
 def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torch.Tensor:
-    """The mxu row step of a Split on (m0, m1, batch...) data, with the
-    inter-step twiddle fused (prologue forward, epilogue inverse)."""
+    """The row step of a Split on (m0, m1, batch...) data, with the
+    inter-step twiddle fused into its kernel (prologue forward, epilogue
+    inverse)."""
     fc = tables.fc
-    t = tables.leaf[(node.m1, "mxu")]
     key = (node.m0, node.m1)
+    if _lane_row(node):
+        if batch:
+            t = tables.leaf[(node.m1, "pallas")]
+            return ntt_pallas.fused_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
+        return ntt_pallas.fused_ntt_lane(
+            mat, tables.lane[node.m1], fc, pre_tw=_split_tw(tables, key)
+        )
+    t = tables.leaf[(node.m1, "mxu")]
     if batch:
-        tw = tables.split_tw.get(key)
-        if tw is None:  # root table stored transposed only
-            tw = _transpose_pair(tables.split_tw_t[key])
-        return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=tw)
+        return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
     twt = tables.split_tw_t.get(key)
     if twt is None:
         twt = _transpose_pair(tables.split_tw[key])
@@ -252,10 +312,17 @@ def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torc
     return transpose01(mat)
 
 
+def _leaf(x: torch.Tensor, node: Leaf, tables: PlanTables) -> torch.Tensor:
+    t = tables.leaf[(node.m, node.engine)]
+    if node.engine == "pallas":
+        return ntt_pallas.fused_ntt(x, t, tables.fc)
+    return ntt_mxu.mxu_ntt(x, t, tables.fc)
+
+
 def run_forward(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
     """Length-m DIF NTT along the leading axis (bit-reversed output)."""
     if isinstance(node, Leaf):
-        return ntt_mxu.mxu_ntt(x, tables.leaf[(node.m, node.engine)], tables.fc)
+        return _leaf(x, node, tables)
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
     mat = run_forward(mat, node.col, tables)  # column NTTs, leading axis m0
@@ -266,7 +333,7 @@ def run_forward(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
 def run_inverse(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
     """Mirror of run_forward: undo the row step, then the column NTTs."""
     if isinstance(node, Leaf):
-        return ntt_mxu.mxu_ntt(x, tables.leaf[(node.m, node.engine)], tables.fc)
+        return _leaf(x, node, tables)
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
     mat = _row_step(mat, node, tables, batch)

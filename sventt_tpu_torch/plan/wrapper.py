@@ -11,12 +11,13 @@ numerical contract:
 * inputs must already be reduced ([0, N), or [0, 2N) in lazy mode).
 
 Data is an int64 tensor of u64 bit patterns, shape ``(n,)`` or
-``(n, batch...)``, on the NTT's device.
+``(n, batch...)``, on the NTT's device.  ``device=None`` is the current
+CUDA card (``RuntimeError`` where there is none); ``device="cpu"`` runs
+every kernel's plain PyTorch version.
 
 Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
 engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
-engine off the TPU; here the matrix engine is the only one ported, and on
-CPU tensors it runs its plain PyTorch version, on CUDA tensors its kernel.
+engine off the TPU, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,30 +26,32 @@ import numpy as np
 import torch
 
 from ..field.limb import FieldConsts, from_numpy, to_numpy
+from ..utils.device import resolve_device
 from . import planner
 from .config import NttConfig
+
+
+def _resolve_modmul(config: NttConfig) -> str:
+    """'auto' -> Shoup at n >= 2^22 for lazy-capable moduli, Montgomery
+    otherwise (the JAX package's rule, verbatim).  The matrix engine has
+    no stage twiddles, so its output does not depend on the choice."""
+    if config.modmul != "auto":
+        return config.modmul
+    lazy = config.lazy if config.lazy is not None else config.mod.bit_width <= 62
+    if lazy and config.n >= (1 << 22):
+        return "shoup"
+    return "montgomery"
 
 
 def _resolve_engine(engine: str) -> str:
     """'auto' -> 'mxu' on every device (see the module docstring)."""
     if engine == "auto":
         return "mxu"
-    if engine != "mxu":
+    if engine not in planner.PORTED_ENGINES:
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP Queue 1 items 7-8)"
+            f"engine={engine!r} is not ported yet (ROADMAP Queue 1 item 7)"
         )
     return engine
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class NTT:
@@ -67,17 +70,18 @@ class NTT:
                 "tune=True is not ported yet (ROADMAP Queue 1 item 10)"
             )
         self.config = config
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.mod = config.mod
-        # 'auto' and 'montgomery' are the same on the matrix engine: its
-        # inter-step tables are Montgomery-form for every engine but solinas
         self.fc = FieldConsts.from_modulus(
-            self.mod, lazy=config.lazy,
-            modmul="montgomery" if config.modmul == "auto" else config.modmul,
+            self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
         )
         self.engine = _resolve_engine(config.engine)
         self.plan = self._build_plan()
-        tables = dict(device=self.device, split_w_only=config.split_w_only)
+        tables = dict(
+            device=self.device, split_w_only=config.split_w_only,
+            block_b=config.block_b, spc=config.stages_per_call, rows=config.lane_rows,
+            max_r=config.max_r, tw_layout=config.tw_layout,
+        )
         self._fwd_tables = self._inv_tables = None
         if enable_forward:
             self._fwd_tables = planner.PlanTables(
@@ -116,7 +120,12 @@ class NTT:
             if isinstance(node, planner.Leaf):
                 lines.append(f"{pad}leaf m={node.m} engine={node.engine}")
                 return
-            if batch:
+            if planner._lane_row(node):  # the JAX package's wording
+                if batch:
+                    row = f"mid-axis pallas m1={node.m1} (no transposes)"
+                else:
+                    row = f"lane-axis pallas m1={node.m1} (fused twiddle, no transposes)"
+            elif batch:
                 row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
             else:
                 row = f"lead-axis mxu m1={node.m1} (fused twiddle, between transposes)"

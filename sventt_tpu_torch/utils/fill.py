@@ -2,8 +2,8 @@
 
 The counterpart of ``sventt_tpu/utils/fill.py``: a splitmix64 mix of the
 indices 1..n, masked to ``2^(bit_width(N)-1) - 1`` so every value is below
-N.  ``host_fill`` (numpy uint64) and ``device_fill`` (int64 tensor on any
-device) give the same bits.
+N.  ``host_fill`` (numpy uint64) and ``device_fill`` (int64 tensor on the card
+by default, or on the device given) give the same bits.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..field.limb import _shr, s64
+from .device import resolve_device
 
 _C1 = 0x9E3779B97F4A7C15
 _C2 = 0xBF58476D1CE4E5B9
@@ -38,7 +39,9 @@ def host_fill(n: int, modulus: int) -> np.ndarray:
 
 
 def device_fill(n: int, modulus: int, device=None) -> torch.Tensor:
-    """``host_fill``'s values as an int64 tensor made on ``device``."""
+    """``host_fill``'s values as an int64 tensor made on ``device`` (None:
+    the CUDA card)."""
+    device = resolve_device(device)
     z = torch.arange(1, n + 1, dtype=torch.int64, device=device) * s64(_C1)
     z = z ^ _shr(z, 30)
     z = z * s64(_C2)

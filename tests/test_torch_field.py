@@ -160,3 +160,104 @@ def test_golden_matches_jax(rng, N, g):
     assert p.forward(x) == j.forward(x)
     assert p.inverse(x) == j.inverse(x)
     assert golden.bitreverse_permutation(m) == jgolden.bitreverse_permutation(m)
+
+
+# -- lazy/canonical add and sub, Shoup, the butterflies -----------------------
+
+# (modulus, generator, lazy, stage-multiply engine): Shoup needs lazy mode
+ENGINE_CASES = [
+    pytest.param(*p.values, "montgomery", id=f"{p.id}-mont") for p in FIELD_CASES
+] + [
+    pytest.param(N_TEST, 3, True, "shoup", id="test-lazy-shoup"),
+    pytest.param(N_F4, 3, True, "shoup", id="f4-lazy-shoup"),
+]
+
+
+def _consts(N, g, lazy, modmul="montgomery"):
+    return (
+        jlimb.FieldConsts.from_modulus(jmodulus.Modulus(N, g), lazy=lazy, modmul=modmul),
+        limb.FieldConsts.from_modulus(modulus.Modulus(N, g), lazy=lazy, modmul=modmul),
+    )
+
+
+def _in_contract(rng, N: int, lazy: bool, count: int = 509) -> np.ndarray:
+    """Values in [0, 2N) (lazy) or [0, N), with both ends of the range."""
+    top = 2 * N if lazy else N
+    v = rng.integers(0, top, count, dtype=np.uint64)
+    return np.concatenate([v, np.array([0, 1, N - 1, top - 1], dtype=np.uint64)])
+
+
+def _engine_pair(N: int, g: int, modmul: str, w: np.ndarray) -> np.ndarray:
+    """The companion of plain-domain twiddles ``w`` for ``modmul``."""
+    if modmul == "shoup":
+        mod = modulus.Modulus(N, g)
+        return np.array([mod.shoup_precompute(int(v)) for v in w], dtype=np.uint64)
+    return _pair(N, w)
+
+
+@pytest.mark.parametrize("N,g,lazy", FIELD_CASES)
+def test_add_sub(rng, N, g, lazy):
+    fj, fp = _consts(N, g, lazy)
+    a = _in_contract(rng, N, lazy)
+    b = np.resize(_in_contract(rng, N, lazy)[::-1], a.size)
+    for name in ("add", "sub"):
+        got = _port(getattr(fp, name), a, b)
+        np.testing.assert_array_equal(got, _jax(getattr(fj, name), a, b), err_msg=name)
+
+
+def test_u64_min(rng):
+    a = _values(rng, N_FLAG)
+    b = np.resize(_values(rng, N_FLAG)[::-1], a.size)
+    np.testing.assert_array_equal(_port(limb.u64_min, a, b), _jax(jlimb.u64_min, a, b))
+
+
+@pytest.mark.parametrize("N,g,lazy,modmul", ENGINE_CASES)
+def test_twiddle_mul(rng, N, g, lazy, modmul):
+    """Montgomery or Shoup stage multiply on full-range a (incl. 2^64-1)."""
+    fj, fp = _consts(N, g, lazy, modmul)
+    assert fp.modmul == fj.modmul == modmul
+    a = _values(rng, N)
+    w = np.resize(_values(rng, N, below=N), a.size)
+    wp = _engine_pair(N, g, modmul, w)
+    np.testing.assert_array_equal(
+        _port(fp.twiddle_mul, a, w, wp), _jax(fj.twiddle_mul, a, w, wp)
+    )
+    if modmul == "shoup":
+        np.testing.assert_array_equal(
+            _port(fp.shoup_mul, a, w, wp), _jax(fj.shoup_mul, a, w, wp)
+        )
+
+
+@pytest.mark.parametrize("N,g,lazy,modmul", ENGINE_CASES)
+def test_butterflies(rng, N, g, lazy, modmul):
+    """DIF, DIT and the scaled last DIT butterfly, bit for bit before any
+    normalize (lazy representatives included)."""
+    fj, fp = _consts(N, g, lazy, modmul)
+    x0 = _in_contract(rng, N, lazy)
+    x1 = np.resize(_in_contract(rng, N, lazy)[::-1], x0.size)
+    w = np.resize(_values(rng, N, below=N), x0.size)
+    s = np.full(x0.size, rng.integers(1, N, dtype=np.uint64), dtype=np.uint64)
+    wp, sp = _engine_pair(N, g, modmul, w), _engine_pair(N, g, modmul, s)
+    cases = [
+        ("butterfly_forward", (x0, x1, w, wp)),
+        ("butterfly_inverse", (x0, x1, w, wp)),
+        ("butterfly_inverse_scaled", (x0, x1, s, sp, w, wp)),
+    ]
+    for name, args in cases:
+        got = getattr(fp, name)(*[limb.from_numpy(v) for v in args])
+        want = getattr(fj, name)(*[jlimb.u64_from_numpy(v) for v in args])
+        for i in range(2):
+            np.testing.assert_array_equal(
+                limb.to_numpy(got[i]), jlimb.u64_to_numpy(want[i]), err_msg=f"{name}[{i}]"
+            )
+
+
+def test_engine_choices_match_jax():
+    """Shoup needs lazy mode in both packages; Solinas is not ported."""
+    for pkg_mod, pkg_limb in ((jmodulus, jlimb), (modulus, limb)):
+        with pytest.raises(ValueError):
+            pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_FLAG, 3), modmul="shoup")
+        with pytest.raises(ValueError):
+            pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_FLAG, 3), modmul="karatsuba")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        limb.FieldConsts.from_modulus(modulus.Modulus(N_FLAG, 3), modmul="solinas")

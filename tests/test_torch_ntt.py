@@ -7,6 +7,7 @@ zero), and the roundtrip must return the input exactly.
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -45,7 +46,7 @@ def test_ntt_matches_jax_mxu(rng, N, g, log2n, max_fused):
     n = 1 << log2n
     kw = dict(max_fused=max_fused)
     ref = JNTT(JNttConfig(N, g, n, engine="mxu", **kw))
-    ntt = NTT(NttConfig(N, g, n, **kw))
+    ntt = NTT(NttConfig(N, g, n, **kw), device="cpu")
     assert ntt.engine == "mxu"
     assert repr(ntt.plan) == repr(ref.plan)
     x = rng.integers(0, N, n, dtype=np.uint64)
@@ -58,20 +59,20 @@ def test_ntt_matches_jax_mxu(rng, N, g, log2n, max_fused):
 def test_three_level_plan_reaches_mid_kernel(rng):
     """The 2^24-shaped composition at reduced size: both orientations run."""
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, max_fused=16)
-    ntt = NTT(cfg)
+    ntt = NTT(cfg, device="cpu")
     assert isinstance(ntt.plan.col, planner.Split)
     x = rng.integers(0, cfg.modulus, cfg.n, dtype=np.uint64)
     ntt_mxu.reset_counts()
     out = ntt.forward_numpy(x)
     assert ntt_mxu.PLAIN_CALLS["lead"] > 0 and ntt_mxu.PLAIN_CALLS["mid"] > 0
-    assert ntt_mxu.LAUNCHES == {"lead": 0, "mid": 0}
+    assert ntt_mxu.LAUNCHES == {"lead": 0, "mid": 0, "lane": 0}
     np.testing.assert_array_equal(out, native.golden_forward(x, cfg.modulus, cfg.generator))
 
 
 def test_batched_input_matches_columns(rng):
     """(n, batch) input: each column equals the unbatched transform."""
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 8, max_fused=16)
-    ntt = NTT(cfg)
+    ntt = NTT(cfg, device="cpu")
     x = rng.integers(0, cfg.modulus, (cfg.n, 3), dtype=np.uint64)
     from sventt_tpu_torch.field.limb import from_numpy
 
@@ -84,7 +85,7 @@ def test_oracle_and_fill_match():
     n = 1 << 10
     x = fill.host_fill(n, FLAGSHIP_MODULUS)
     np.testing.assert_array_equal(x, jfill.host_fill(n, FLAGSHIP_MODULUS))
-    np.testing.assert_array_equal(to_numpy(fill.device_fill(n, FLAGSHIP_MODULUS)), x)
+    np.testing.assert_array_equal(to_numpy(fill.device_fill(n, FLAGSHIP_MODULUS, "cpu")), x)
     mod = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, n).mod
     want = GoldenNTT(n, mod).forward([int(v) for v in x])
     assert [int(v) for v in native.golden_forward(x, mod.modulus, mod.generator)] == want
@@ -94,7 +95,7 @@ def test_oracle_and_fill_match():
 
 def test_describe_and_get_m():
     ntt = NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 14, max_fused=32),
-              enable_inverse=False)
+              enable_inverse=False, device="cpu")
     assert ntt.get_m() == 1 << 14
     assert ntt.describe().splitlines() == [
         "split 16384 = 512 x 32: lead-axis mxu m1=32 (fused twiddle, between transposes)",
@@ -112,10 +113,10 @@ def test_describe_and_get_m():
     "kw",
     [
         dict(engine="jnp"),
-        dict(engine="pallas"),
+        dict(engine="pallas", max_r=2),
         dict(tune=True),
         dict(strategy="six_step"),
-        dict(modmul="shoup"),
+        dict(plan_spec="pallas:64,jnp"),
         dict(modmul="solinas"),
         dict(plan_spec="jnp:64,mxu"),
     ],
@@ -123,7 +124,7 @@ def test_describe_and_get_m():
 )
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw))
+        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
 
 
 def test_config_validation_matches_jax():
@@ -143,6 +144,28 @@ def test_cuda_device_without_card_raises():
         NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 10), device="cuda")
 
 
+def test_default_device_without_card_raises():
+    """``device=None`` is the CUDA card: without one, NTT and the public
+    table builders raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 10)
+    mod = cfg.mod
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NTT(cfg)
+    from sventt_tpu_torch.ops import ntt_pallas
+
+    for build in (
+        lambda: ntt_mxu.make_mxu_tables(mod, 8, inverse=False),
+        lambda: ntt_pallas.make_leaf_tables(mod, 8, inverse=False),
+        lambda: ntt_pallas.make_lane_tables(mod, 8, inverse=True),
+        lambda: planner.PlanTables(planner.build_plan(64, "pallas", 8), mod, NTT(cfg, device="cpu").fc, False),
+        lambda: fill.device_fill(8, FLAGSHIP_MODULUS),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+
+
 def _imported_modules(path: pathlib.Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -153,11 +176,35 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
     return names
 
 
+def _path_strings(path: pathlib.Path) -> list[str]:
+    """String constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [
+        n.value for n in ast.walk(tree)
+        if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs
+    ]
+
+
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or sventt_tpu."""
+    """No module of the port, nor chip_smoke.py, imports jax or sventt_tpu;
+    no module of the port names a path into sventt_tpu/, and the oracle
+    source it compiles lies in the port."""
     files = sorted((REPO / "sventt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
         for name in _imported_modules(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "sventt_tpu"), f"{path}: imports {name}"
+    into_jax_pkg = re.compile(r"(^|[/\\])sventt_tpu([/\\]|$)")
+    for path in files[:-1]:
+        for text in _path_strings(path):
+            assert not into_jax_pkg.search(text), f"{path}: path into sventt_tpu/: {text!r}"
+    port = (REPO / "sventt_tpu_torch").resolve()
+    source = pathlib.Path(native.SOURCE).resolve()
+    assert source.is_relative_to(port) and source.exists(), native.SOURCE

@@ -63,7 +63,7 @@ def _port_pair(w, wp):
 def test_tables_equal_jax(m, inverse):
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     jt = jmxu.make_mxu_tables(JModulus(mod.modulus, mod.generator), m, inverse=inverse)
-    pt = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse)
+    pt = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device="cpu")
     planes, corr = _np_tables(jt)
     np.testing.assert_array_equal(pt.planes.numpy(), planes)
     np.testing.assert_array_equal(to_numpy(pt.corr), to_numpy(from_limbs(*corr)).ravel())
@@ -80,7 +80,7 @@ def test_mxu_ntt_matches_jax(rng, N, g, inverse, m):
     jfc, fc = JFieldConsts.from_modulus(jmod), FieldConsts.from_modulus(mod)
     assert fc.lazy == jfc.lazy
     jt = jmxu.make_mxu_tables(jmod, m, inverse=inverse)
-    pt = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse)
+    pt = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device="cpu")
     x = rng.integers(0, N, (m, 3), dtype=np.uint64)
     x[:, 1] = N - 1  # maximal-carry column
     for mode in ("none", "pair", "w"):
@@ -103,7 +103,7 @@ def test_mxu_ntt_mid_matches_jax(rng, inverse, mode):
     jmod, mod = JModulus(N, g), Modulus(N, g)
     jfc, fc = JFieldConsts.from_modulus(jmod), FieldConsts.from_modulus(mod)
     jt = jmxu.make_mxu_tables(jmod, 32, inverse=inverse)
-    pt = ntt_mxu.make_mxu_tables(mod, 32, inverse=inverse)
+    pt = ntt_mxu.make_mxu_tables(mod, 32, inverse=inverse, device="cpu")
     x = rng.integers(0, N, (4, 32, 2), dtype=np.uint64)
     w, wp = _twiddles(rng, N, (4, 32), mode)
     want = u64_to_numpy(
@@ -120,7 +120,7 @@ def test_mxu_1024_plane_minimizer_golden():
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod)
     m = 1024
-    t = ntt_mxu.make_mxu_tables(mod, m, inverse=False)
+    t = ntt_mxu.make_mxu_tables(mod, m, inverse=False, device="cpu")
     D = t.planes.numpy().astype(np.int64).reshape(ntt_mxu.NL_S8, m, m)
     min_a = np.where(D > 0, -128 * D, 127 * D).sum(axis=2)
     worst = np.zeros((15, m), dtype=np.int64)
@@ -153,8 +153,8 @@ def test_mxu_small_modulus_f4(rng):
     fc = FieldConsts.from_modulus(mod, lazy=False)
     assert ntt_mxu._reduce_consts(mod.modulus) == (1, True)
     m = 64
-    ft = ntt_mxu.make_mxu_tables(mod, m, inverse=False)
-    it = ntt_mxu.make_mxu_tables(mod, m, inverse=True)
+    ft = ntt_mxu.make_mxu_tables(mod, m, inverse=False, device="cpu")
+    it = ntt_mxu.make_mxu_tables(mod, m, inverse=True, device="cpu")
     x = rng.integers(0, mod.modulus, (m, 3), dtype=np.uint64)
     x[:, 1] = mod.modulus - 1
     out = to_numpy(ntt_mxu.mxu_ntt(from_numpy(x), ft, fc))
@@ -167,7 +167,9 @@ def test_mxu_small_modulus_f4(rng):
 
 def test_balanced8_matches_table_digits():
     """Each table entry's digits are the scalar balanced decomposition."""
-    t = ntt_mxu.make_mxu_tables(Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR), 16, inverse=True)
+    t = ntt_mxu.make_mxu_tables(
+        Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR), 16, inverse=True, device="cpu"
+    )
     planes = t.planes.numpy()
     for p in range(16):
         for j in range(16):
@@ -180,16 +182,16 @@ def test_counts_and_rejects():
     """CPU tensors count plain calls, never launches; bad shapes raise."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod)
-    t = ntt_mxu.make_mxu_tables(mod, 8, inverse=False)
+    t = ntt_mxu.make_mxu_tables(mod, 8, inverse=False, device="cpu")
     ntt_mxu.reset_counts()
     ntt_mxu.mxu_ntt(from_numpy(np.zeros((8, 2), np.uint64)), t, fc)
     ntt_mxu.mxu_ntt_mid(from_numpy(np.zeros((3, 8, 2), np.uint64)), t, fc)
-    assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": 1}
-    assert ntt_mxu.LAUNCHES == {"lead": 0, "mid": 0}
+    assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": 1, "lane": 0}
+    assert ntt_mxu.LAUNCHES == {"lead": 0, "mid": 0, "lane": 0}
     with pytest.raises(ValueError):
         ntt_mxu.mxu_ntt(from_numpy(np.zeros((4, 2), np.uint64)), t, fc)
     with pytest.raises(ValueError):
-        ntt_mxu.make_mxu_tables(mod, 2 * ntt_mxu.MAX_MXU, inverse=False)
+        ntt_mxu.make_mxu_tables(mod, 2 * ntt_mxu.MAX_MXU, inverse=False, device="cpu")
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
@@ -218,8 +220,8 @@ def test_interop_plan_tables(rng, inverse):
         "split_tw": {k: pair(v) for k, v in jpt.split_tw.items()},
         "split_tw_t": {k: pair(v) for k, v in jpt.split_tw_t.items()},
     }
-    carried = interop.tables_from_numpy(plan, mod, fc, inverse, arrays)
-    own = planner.PlanTables(plan, mod, fc, inverse)
+    carried = interop.tables_from_numpy(plan, mod, fc, inverse, arrays, device="cpu")
+    own = planner.PlanTables(plan, mod, fc, inverse, device="cpu")
     assert carried.leaf.keys() == own.leaf.keys()
     assert carried.split_tw.keys() == own.split_tw.keys()
     assert carried.split_tw_t.keys() == own.split_tw_t.keys()

@@ -32,10 +32,10 @@ def test_host_row_twiddles(inverse):
     n0, n1 = 16, 32
     if inverse:
         want = jtw.sixstep_row_twiddles_inverse(JMOD, n0, n1)
-        got = twiddle.sixstep_row_twiddles_inverse(MOD, n0, n1)
+        got = twiddle.sixstep_row_twiddles_inverse(MOD, n0, n1, device="cpu")
     else:
         want = jtw.sixstep_row_twiddles(JMOD, n0, n1)
-        got = twiddle.sixstep_row_twiddles(MOD, n0, n1)
+        got = twiddle.sixstep_row_twiddles(MOD, n0, n1, device="cpu")
     _assert_pair(got, want)
 
 
@@ -47,18 +47,18 @@ def test_device_row_twiddles(shape, inverse, transposed):
     for with_companion in (True, False):
         kw = dict(inverse=inverse, with_companion=with_companion, transposed=transposed)
         want = jtw.sixstep_row_twiddles_device(JMOD, n0, n1, **kw)
-        got = twiddle.sixstep_row_twiddles_device(MOD, n0, n1, **kw)
+        got = twiddle.sixstep_row_twiddles_device(MOD, n0, n1, device="cpu", **kw)
         _assert_pair(got, want)
 
 
 def test_device_generator_equals_host_tables():
     """The doubling generator gives the host recurrence's values."""
-    got = twiddle.sixstep_row_twiddles_device(MOD, 32, 64, inverse=True)
-    want = twiddle.sixstep_row_twiddles_inverse(MOD, 32, 64)
+    got = twiddle.sixstep_row_twiddles_device(MOD, 32, 64, inverse=True, device="cpu")
+    want = twiddle.sixstep_row_twiddles_inverse(MOD, 32, 64, device="cpu")
     np.testing.assert_array_equal(to_numpy(got.w), to_numpy(want.w))
     np.testing.assert_array_equal(to_numpy(got.wp), to_numpy(want.wp))
 
 
 def test_solinas_twiddles_not_ported():
     with pytest.raises(NotImplementedError):
-        twiddle.sixstep_row_twiddles_device(MOD, 16, 16, modmul="solinas")
+        twiddle.sixstep_row_twiddles_device(MOD, 16, 16, modmul="solinas", device="cpu")
