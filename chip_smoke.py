@@ -14,18 +14,29 @@ Phases, each printing its own lines:
    plane-minimizer input; the radix-2 butterfly kernel (K4 leaf, K5 mid,
    K6 lane) with every twiddle mode, both directions, the flagship and the
    lazy test modulus under Montgomery and Shoup, a ragged batch and m = 2;
-4. paths: the matrix engine (the default, ``engine="auto"``) and the
-   butterfly engine (``engine="pallas"``) at n = 2^17, 2^24 and 2^26 on the
-   flagship modulus, plus the butterfly engine on the lazy test modulus at
+   the grouped kernel (K7 leaf, K8 lane) at max_r 2, 3 and 4 the same way,
+   m = 2 and m = 8 included; the blocked transpose (K9a/K9b) at the 2^24
+   root-row shapes with three block shapes, int64 and int32; the
+   inter-step multiply kernel of the transpose fallback;
+4. paths: the matrix engine (the default, ``engine="auto"``), the
+   butterfly engine (``engine="pallas"``) and the grouped butterfly engine
+   (``engine="pallas", max_r=3``) at n = 2^17, 2^24 and 2^26 on the
+   flagship modulus, plus each butterfly engine on the lazy test modulus at
    2^24 (``modmul="auto"`` resolves to Shoup there), forward and inverse,
-   elementwise against the native oracle, with an exact roundtrip; then
-   ``mxu_ntt_lane`` (K3, which no plan calls) on the 2^24 root-row shape
-   against the lead orientation between transposes.  Each path runs with
-   the launch counts set to 0 just before and read just after: every
-   kernel of the path must have launched, and no plain version may have
-   run;
+   elementwise against the native oracle (computed once per modulus and
+   length), with an exact roundtrip; then ``mxu_ntt_lane`` (K3, which no
+   plan calls) on the 2^24 root-row shape against the lead orientation
+   between transposes, and ``transpose01_u64(x, "pallas")`` /
+   ``transpose_pallas`` on the 2^24 root-row shapes against the torch
+   copy.  Each path runs with the launch counts set to 0 just before and
+   read just after: every kernel of the path must have launched, and no
+   plain version may have run;
 5. times: CUDA-event medians of the transforms and of each kernel alone
-   beside its plain version, and the least time the card could take.
+   beside its plain version (and, for the transpose, the PyTorch call
+   ``.t().contiguous()``), and the least time the card could take;
+6. breakdown: the radix-2 and grouped butterfly engines' 2^24 forward
+   transforms, device time by kernel (torch.profiler) and the device's
+   busy share -- informational, no check rests on it.
 
 The tolerance of every comparison is zero: the arithmetic is exact.  Any
 failed check raises, so the script exits non-zero.  The line before the
@@ -297,25 +308,150 @@ def pallas_kernel_cases(device, rng):
     return worst
 
 
-def counts():
-    from sventt_tpu_torch.ops import ntt_mxu, ntt_pallas
+def grouped_kernel_cases(device, rng):
+    """K7/K8 vs plain at the grouped plans' shapes and the edge cases;
+    returns the largest mismatch per orientation."""
+    from sventt_tpu_torch.field.limb import FieldConsts
+    from sventt_tpu_torch.ops import ntt_pallas as P
 
+    flag, test = moduli()
+    # (name, modulus, modmul, max_r, inverse, orientation, data shape, twiddle)
+    cases = [
+        *[(f"K7 leaf 256x65536 r={r} {d}", flag, "montgomery", r, d == "inv", "leaf",
+           (256, 65536), None) for r in (2, 3, 4) for d in ("fwd", "inv")],
+        ("K8 lane 65536x256 r=3 pair fwd", flag, "montgomery", 3, False, "lane", (65536, 256), "pair"),
+        ("K8 lane 65536x256 r=3 pair inv", flag, "montgomery", 3, True, "lane", (65536, 256), "pair"),
+        ("K8 lane 4096x128 r=3 w fwd", flag, "montgomery", 3, False, "lane", (4096, 128), "w"),
+        ("K8 lane 4096x128 r=3 w inv", flag, "montgomery", 3, True, "lane", (4096, 128), "w"),
+        ("K8 lane 4096x256 r=4 none fwd", flag, "montgomery", 4, False, "lane", (4096, 256), None),
+        # the lazy test modulus, Montgomery and Shoup stage multiplies
+        ("K7 leaf 256x4096 r=3 fwd TEST mont", test, "montgomery", 3, False, "leaf", (256, 4096), None),
+        ("K7 leaf 256x4096 r=3 inv TEST mont", test, "montgomery", 3, True, "leaf", (256, 4096), None),
+        ("K7 leaf 256x4096 r=3 fwd TEST shoup", test, "shoup", 3, False, "leaf", (256, 4096), None),
+        ("K7 leaf 256x4096 r=4 inv TEST shoup", test, "shoup", 4, True, "leaf", (256, 4096), None),
+        ("K8 lane 4096x256 r=3 pair fwd TEST shoup", test, "shoup", 3, False, "lane", (4096, 256), "pair"),
+        ("K8 lane 4096x256 r=2 pair inv TEST shoup", test, "shoup", 2, True, "lane", (4096, 256), "pair"),
+        ("K8 lane 4096x256 r=3 w fwd TEST mont", test, "montgomery", 3, False, "lane", (4096, 256), "w"),
+        ("K8 lane 4096x256 r=4 w inv TEST mont", test, "montgomery", 4, True, "lane", (4096, 256), "w"),
+        # ragged batches, m = 2, m = 8
+        ("K7 leaf 64x300 r=3 inv (ragged)", flag, "montgomery", 3, True, "leaf", (64, 300), None),
+        ("K8 lane 300x64 r=3 pair fwd TEST shoup (ragged)", test, "shoup", 3, False, "lane",
+         (300, 64), "pair"),
+        ("K7 leaf 2x5 r=2 fwd", flag, "montgomery", 2, False, "leaf", (2, 5), None),
+        ("K8 lane 5x2 r=2 pair inv TEST", test, "montgomery", 2, True, "lane", (5, 2), "pair"),
+        ("K7 leaf 8x1000 r=4 inv TEST shoup", test, "shoup", 4, True, "leaf", (8, 1000), None),
+        ("K8 lane 1000x8 r=3 w fwd", flag, "montgomery", 3, False, "lane", (1000, 8), "w"),
+    ]
+    worst = {"grouped": 0, "lane_grouped": 0}
+    for name, mod, modmul, max_r, inverse, orient, shape, mode in cases:
+        fc = FieldConsts.from_modulus(mod, modmul=modmul)
+        x = rand_u64(rng, shape, device, below=mod.modulus)
+        kw = dict(inverse=inverse, modmul=modmul, max_r=max_r, device=device)
+        if orient == "lane":
+            t = P.make_lane_tables(mod, shape[1], **kw)
+            tw = None if mode is None else rand_twiddle(rng, shape, mod, mode, device)
+            got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_grouped_plain(x, t, fc, tw)
+            key = "lane_grouped"
+        else:
+            t = P.make_leaf_tables(mod, shape[0], **kw)
+            got, want = P.fused_ntt(x, t, fc), P.grouped_plain(x, t, fc)
+            key = "grouped"
+        check(isinstance(t, (P.GroupedDirection, P.GroupedLaneDirection)), f"{name}: not grouped")
+        sync(device)
+        err = mismatch(got, want)
+        worst[key] = max(worst[key], err)
+        groups = [spec.R for spec in t.specs]
+        log(f"  {name}: max_abs_err {err} (groups {groups}, lazy={fc.lazy})")
+        check(err <= TOL, f"{name}: kernel != plain")
+    return worst
+
+
+def transpose_cases(device, rng):
+    """K9a/K9b vs plain at the 2^24 root-row shapes with three block shapes;
+    returns the largest mismatch per entry."""
+    import torch
+
+    from sventt_tpu_torch.ops import transpose as T
+
+    worst = {"plane": 0, "pair": 0}
+    for shape, blocks in (((1 << 16, 256), ((256, 256), (512, 64), (512, 8))),
+                          ((256, 1 << 16), ((256, 256), (64, 512), (8, 512)))):
+        x = rand_u64(rng, shape, device)
+        for br, bc in blocks:
+            got = T.transpose_u64(x, "pallas", br=br, bc=bc)
+            err = mismatch(got, T.transpose_pallas_plain(x))
+            worst["pair"] = max(worst["pair"], err)
+            log(f"  K9b transpose_u64 int64 {shape[0]}x{shape[1]} blocks ({br}, {bc}): "
+                f"max_abs_err {err}")
+            check(err <= TOL, "K9b: kernel != plain")
+    x32 = x.view(torch.int32)  # (256, 131072) int32 plane
+    got = T.transpose_pallas(x32)
+    err = int((got != T.transpose_pallas_plain(x32)).sum())
+    worst["plane"] = err
+    log(f"  K9a transpose_pallas int32 256x131072: {err} elements differ")
+    check(err <= TOL, "K9a: kernel != plain")
+    return worst
+
+
+def inter_step_cases(device, rng):
+    """The inter-step multiply kernel vs its plain version: the 2^24 inner
+    row step's (256, 256, 256) shape, both twiddle modes, the lazy modulus,
+    an unbatched root and a ragged batch; returns the largest mismatch."""
+    from sventt_tpu_torch.field.limb import FieldConsts
+    from sventt_tpu_torch.ops import inter_step
+    from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
+
+    flag, test = moduli()
+    worst = 0
+    for name, mod, shape, mode in (
+        ("256x256x256 pair", flag, (256, 256, 256), "pair"),
+        ("256x256x256 w", flag, (256, 256, 256), "w"),
+        ("256x256x256 pair TEST (lazy)", test, (256, 256, 256), "pair"),
+        ("65536x256 w (unbatched)", flag, (1 << 16, 256), "w"),
+        ("8x16x300 w TEST (ragged)", test, (8, 16, 300), "w"),
+    ):
+        fc = FieldConsts.from_modulus(mod)
+        x = rand_u64(rng, shape, device, below=mod.modulus)
+        tw = rand_twiddle(rng, shape[:2], mod, mode, device)
+        got = inter_step.mont_mul_bcast(fc, x, tw)
+        view = shape[:2] + (1,) * (len(shape) - 2)
+        want = inter_step_mul(
+            fc, x, MontPair(tw.w.reshape(view), None if tw.wp is None else tw.wp.reshape(view))
+        )
+        sync(device)
+        err = mismatch(got, want)
+        worst = max(worst, err)
+        log(f"  inter-step {name}: max_abs_err {err}")
+        check(err <= TOL, f"inter-step {name}: kernel != plain")
+    return worst
+
+
+def counts():
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
+
+    mods = {"mxu": ntt_mxu, "pallas": ntt_pallas, "inter_step": inter_step,
+            "transpose": transpose}
     return {
-        "launches": {"mxu": dict(ntt_mxu.LAUNCHES), "pallas": dict(ntt_pallas.LAUNCHES)},
-        "plain": {"mxu": dict(ntt_mxu.PLAIN_CALLS), "pallas": dict(ntt_pallas.PLAIN_CALLS)},
+        "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
+        "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
     }
 
 
 def reset_counts() -> None:
-    from sventt_tpu_torch.ops import ntt_mxu, ntt_pallas
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
 
-    ntt_mxu.reset_counts()
-    ntt_pallas.reset_counts()
+    for mod in (ntt_mxu, ntt_pallas, inter_step, transpose):
+        mod.reset_counts()
+
+
+def no_plain(c) -> bool:
+    """No plain version ran in the counts ``c``."""
+    return all(v == 0 for d in c["plain"].values() for v in d.values())
 
 
 def slice_run(device, configs, oracles: dict):
-    """Each (label, modulus, generator, n, engine) against the native
-    oracle, whose outputs are cached in ``oracles`` per (modulus, n).
+    """Each (label, modulus, generator, n, config keywords) against the
+    native oracle, whose outputs are cached in ``oracles`` per (modulus, n).
     Returns the NTTs and the launch and plain-call counts of the run."""
     import numpy as np
 
@@ -325,16 +461,16 @@ def slice_run(device, configs, oracles: dict):
     from sventt_tpu_torch.utils.fill import host_fill
 
     ntts = {}
-    for label, N, g, n, engine in configs:
+    for label, N, g, n, kw in configs:
         t0 = time.perf_counter()
-        ntts[label] = NTT(NttConfig(N, g, n, engine=engine), device=device)
+        ntts[label] = NTT(NttConfig(N, g, n, **kw), device=device)
         sync(device)
         log(f"  {label}: modmul {ntts[label].fc.modmul}; tables built in "
             f"{time.perf_counter() - t0:.2f} s; plan:")
         for line in ntts[label].describe().splitlines():
             log(f"    {line}")
     reset_counts()
-    for label, N, g, n, engine in configs:
+    for label, N, g, n, _ in configs:
         ntt = ntts[label]
         x = host_fill(n, N)
         xd = from_numpy(x, device)
@@ -390,6 +526,40 @@ def lane_path(device, rng):
     return c
 
 
+def transpose_path(device, rng):
+    """``transpose01_u64(x, "pallas")`` (K9b) on the 2^24 root-row shapes in
+    both orientations and ``transpose_pallas`` (K9a) on a u32 plane of the
+    same rows, each against the torch copy; then a 3-D input, which must
+    take the torch copy and launch nothing.  Returns the launch and
+    plain-call counts of the first three calls."""
+    import torch
+
+    from sventt_tpu_torch.ops.transpose import transpose01_u64, transpose_pallas, transpose_xla
+
+    xs = [rand_u64(rng, (1 << 16, 256), device), rand_u64(rng, (256, 1 << 16), device)]
+    plane = rand_u64(rng, (1 << 16, 128), device).view(torch.int32)  # (65536, 256) u32
+    reset_counts()
+    got = [transpose01_u64(x, "pallas") for x in xs]
+    got_plane = transpose_pallas(plane)
+    c = counts()
+    for x, g in zip(xs, got):
+        err = mismatch(g, transpose_xla(x))
+        log(f"  transpose01_u64 {x.shape[0]}x{x.shape[1]} pallas: max_abs_err {err} "
+            "against the torch copy")
+        check(err <= TOL, "transpose01_u64(pallas) != the torch copy")
+    bad = int((got_plane != transpose_xla(plane)).sum())
+    log(f"  transpose_pallas int32 65536x256: {bad} elements differ from the torch copy")
+    check(bad == 0, "transpose_pallas != the torch copy")
+    x3 = xs[0].view(256, 256, 256)
+    reset_counts()
+    got3 = transpose01_u64(x3, "pallas")
+    c3 = counts()
+    check(torch.equal(got3, transpose_xla(x3)), "3-D transpose01_u64 != the torch copy")
+    check(not any(c3["launches"]["transpose"].values()), "a 3-D transpose launched the kernel")
+    log("  transpose01_u64 256x256x256 pallas: the torch copy, no launch")
+    return c
+
+
 # ---------------------------------------------------------------------------
 # the least time the card could take
 # ---------------------------------------------------------------------------
@@ -429,13 +599,54 @@ def butterfly_bound(points: int, m: int, inverse: bool, modmul: str, tw: str | N
     return bound(16 * points + tw_bytes + 16 * (m - 1), imads / IMAD_PER_S)
 
 
+def grouped_bound(points: int, t, modmul: str, tw: str | None, tw_points: int,
+                  lane: bool) -> tuple[float, str]:
+    """K7/K8, counted from the tables' GroupSpecs: a stage multiply (as in
+    butterfly_bound) for each butterfly of a rank whose sub-slice has a
+    constant, and one for each combined-table entry the kernel multiplies
+    -- every point for K8 (``lane``), for K7 the second points and the
+    first points whose combined exponent is not 0 (all in a scaled group);
+    the inter-step multiply as in butterfly_bound.  Bytes: 8 a point in and
+    8 out, the inter-step table and the (groups, m) combined tables."""
+    m = t.m
+    per_col = 0
+    for spec in t.specs:
+        for s, h in enumerate(spec.ls):
+            with_const = sum(c is not None for c in spec.consts[s])
+            per_col += with_const * (m // (2 * h)) * spec.L
+        h = spec.ls[0] if t.inverse else spec.ls[-1]
+        if lane or spec.scaled:
+            per_col += m
+        else:
+            firsts = [j for j in range(m) if j % (2 * h) < h]
+            per_col += m // 2 + sum(1 for j in firsts if (j % spec.span) // spec.L)
+    mul = 2 * IMAD_HI + IMAD_LO if modmul == "montgomery" else IMAD_HI + 2 * IMAD_LO
+    imads = per_col * (points // m) * mul
+    tw_bytes = 0
+    if tw is not None:
+        imads += points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
+        tw_bytes = tw_points * (16 if tw == "pair" else 8)
+    return bound(16 * points + tw_bytes + 16 * m * len(t.specs), imads / IMAD_PER_S)
+
+
+def inter_step_bound(points: int, tw_points: int, tw: str) -> tuple[float, str]:
+    """The inter-step multiply: one Montgomery product a point (mode "w"
+    one low product more); 8 bytes a point in, 8 out, the table once."""
+    imads = points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
+    return bound(16 * points + tw_points * (16 if tw == "pair" else 8), imads / IMAD_PER_S)
+
+
 def times(device, ntts, rng):
     """CUDA-event medians: transforms, and each kernel vs its plain
     version at the 2^24 plans' shapes; with each kernel's bound."""
+    import torch
+
     from sventt_tpu_torch.field.limb import FieldConsts
-    from sventt_tpu_torch.ops import ntt_mxu
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu
     from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.ops import transpose as T
     from sventt_tpu_torch.ops.transpose import transpose01
+    from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
     from sventt_tpu_torch.utils.fill import device_fill
 
     out, bounds = {}, {}
@@ -488,7 +699,67 @@ def times(device, ntts, rng):
     kernel("K6 lane 65536x256 pair", lambda: P.fused_ntt_lane(xr, rt, fc, twr),
            lambda: P.lane_plain(xr, rt, fc, twr),
            butterfly_bound(n24, 256, False, "montgomery", "pair", n24))
+    # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
+    # and the inner row's leaf between transposes), the inter-step multiply
+    # of that row, the root
+    gt = P.make_leaf_tables(flag, 256, inverse=False, max_r=3, device=device)
+    kernel("K7 leaf 256x65536 r=3", lambda: P.fused_ntt(xm.view(256, 65536), gt, fc),
+           lambda: P.grouped_plain(xm.view(256, 65536), gt, fc),
+           grouped_bound(n24, gt, "montgomery", None, 0, False))
+    gr = P.make_lane_tables(flag, 256, inverse=False, max_r=3, device=device)
+    kernel("K8 lane 65536x256 r=3 pair", lambda: P.fused_ntt_lane(xr, gr, fc, twr),
+           lambda: P.lane_grouped_plain(xr, gr, fc, twr),
+           grouped_bound(n24, gr, "montgomery", "pair", n24, True))
+    view = MontPair(twm.w.unsqueeze(2), twm.wp.unsqueeze(2))
+    kernel("inter-step 256x256x256 pair", lambda: inter_step.mont_mul_bcast(fc, xm, twm),
+           lambda: inter_step_mul(fc, xm, view), inter_step_bound(n24, 65536, "pair"))
+    # the blocked transpose at the root-row shape: u64 (K9b), u32 plane (K9a)
+    plane = xr.view(torch.int32)[:, :256].contiguous()
+    for key, fn, x in (("K9b transpose_u64 65536x256 int64",
+                        lambda v: T.transpose_u64(v, "pallas"), xr),
+                       ("K9a transpose_pallas 65536x256 int32", T.transpose_pallas, plane)):
+        kernel(key, lambda: fn(x), lambda: T.transpose_pallas_plain(x),
+               bound(2 * x.numel() * x.element_size(), 0.0))
+        out[key + " library"] = timed(lambda: x.t().contiguous(), 3, 10)
     return out, bounds
+
+
+def breakdown(label: str, ntt, device, reps: int = 5) -> None:
+    """Device time of ``reps`` forward transforms by kernel (torch.profiler,
+    CUPTI), per transform, and the device's busy share of the host-clock
+    time of the same transforms run back to back without the profiler.
+    Informational: where the profiler records no device time it says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    x = device_fill(ntt.get_m(), ntt.config.modulus, device)
+    ntt.compute_forward(x)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ntt.compute_forward(x)
+    sync(device)
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ntt.compute_forward(x)
+        sync(device)
+    rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy = sum(r[1] for r in rows)
+    if not rows:
+        log(f"  {label} forward: no device time recorded by the profiler (not measured)")
+        return
+    log(f"  {label} forward: device {busy:.4f} ms (profiler) of {wall:.4f} ms host clock per "
+        f"transform without it (busy {100 * busy / wall:.1f}%)")
+    for name, ms, count in rows:
+        log(f"    {ms:.4f} ms {100 * ms / busy:5.1f}%  x{count:g}  {name[:110]}")
 
 
 def main() -> int:
@@ -534,6 +805,9 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     log("[kernel vs plain] bitwise, tolerance 0")
     worst = {"mxu": mxu_kernel_cases(device, rng), "pallas": pallas_kernel_cases(device, rng)}
+    worst["pallas"].update(grouped_kernel_cases(device, rng))
+    worst["transpose"] = transpose_cases(device, rng)
+    worst["inter_step"] = inter_step_cases(device, rng)
     torch.cuda.empty_cache()
 
     # 4. the slices, each with its own counts
@@ -541,7 +815,7 @@ def main() -> int:
     oracles: dict = {}
     log("[slice mxu] NTT(engine='auto' -> mxu) vs the native oracle, elementwise")
     ntts_mxu, c_mxu = slice_run(
-        device, [(f"mxu 2^{k}", F, G, 1 << k, "auto") for k in (17, 24, 26)], oracles
+        device, [(f"mxu 2^{k}", F, G, 1 << k, {}) for k in (17, 24, 26)], oracles
     )
     log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
     check(c_mxu["launches"]["mxu"]["lead"] > 0 and c_mxu["launches"]["mxu"]["mid"] > 0,
@@ -549,45 +823,78 @@ def main() -> int:
     del ntts_mxu["mxu 2^26"]
     torch.cuda.empty_cache()
     log("[slice pallas] NTT(engine='pallas') vs the native oracle, elementwise")
+    pal = dict(engine="pallas")
     ntts_pal, c_pal = slice_run(
         device,
-        [(f"pallas 2^{k}", F, G, 1 << k, "pallas") for k in (17, 24, 26)]
-        + [("pallas TEST 2^24", TEST_MODULUS, TEST_GENERATOR, 1 << 24, "pallas")],
+        [(f"pallas 2^{k}", F, G, 1 << k, pal) for k in (17, 24, 26)]
+        + [("pallas TEST 2^24", TEST_MODULUS, TEST_GENERATOR, 1 << 24, pal)],
         oracles,
     )
     log(f"  launches {c_pal['launches']}, plain calls {c_pal['plain']}")
     check(ntts_pal["pallas TEST 2^24"].fc.modmul == "shoup", "TEST 2^24 auto != shoup")
-    check(all(v > 0 for v in c_pal["launches"]["pallas"].values()),
+    check(all(c_pal["launches"]["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a butterfly orientation of the path never ran")
-    for c in (c_mxu, c_pal):
-        check(all(v == 0 for d in c["plain"].values() for v in d.values()),
-              "a plain version ran on the card")
-    del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"], oracles
+    del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"]
+    torch.cuda.empty_cache()
+    log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
+        "elementwise")
+    grp = dict(engine="pallas", max_r=3)
+    ntts_grp, c_grp = slice_run(
+        device,
+        [(f"grouped 2^{k}", F, G, 1 << k, grp) for k in (17, 24, 26)]
+        + [("grouped TEST 2^24", TEST_MODULUS, TEST_GENERATOR, 1 << 24, grp)],
+        oracles,
+    )
+    log(f"  launches {c_grp['launches']}, plain calls {c_grp['plain']}")
+    check(ntts_grp["grouped TEST 2^24"].fc.modmul == "shoup", "TEST 2^24 auto != shoup")
+    lg = c_grp["launches"]
+    check(lg["pallas"]["grouped"] > 0 and lg["pallas"]["lane_grouped"] > 0
+          and lg["inter_step"]["inter_step"] > 0, "a kernel of the grouped path never ran")
+    check(not any(lg["pallas"][k] for k in ("leaf", "mid", "lane")),
+          "the grouped path ran a radix-2 kernel")
+    for c in (c_mxu, c_pal, c_grp):
+        check(no_plain(c), "a plain version ran on the card")
+    del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"], oracles
     torch.cuda.empty_cache()
     log("[path mxu_ntt_lane] K3 on the 2^24 root-row shape vs transpose + K1 + transpose")
     c_lane = lane_path(device, rng)
     log(f"  launches {c_lane['launches']}, plain calls {c_lane['plain']}")
     check(c_lane["launches"]["mxu"]["lane"] > 0, "mxu_ntt_lane never launched")
-    check(all(v == 0 for v in c_lane["plain"]["mxu"].values()), "a plain version ran on the card")
+    check(no_plain(c_lane), "a plain version ran on the card")
+    log("[path transpose01_u64 pallas] K9 on the 2^24 root-row shapes vs the torch copy")
+    c_tr = transpose_path(device, rng)
+    log(f"  launches {c_tr['launches']}, plain calls {c_tr['plain']}")
+    check(c_tr["launches"]["transpose"]["pair"] > 0 and c_tr["launches"]["transpose"]["plane"] > 0,
+          "the blocked transpose never launched")
+    check(no_plain(c_tr), "a plain version ran on the card")
 
     # 5. times
-    ms, bounds = times(device, {**ntts_mxu, **ntts_pal}, rng)
+    ms, bounds = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp}, rng)
     log(f"[times] median ms by CUDA events on {smi}:")
     for k, v in ms.items():
         extra = f"   (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})" if k in bounds else ""
         log(f"  {k}: {v:.4f}{extra}")
+    log("[breakdown] device time by kernel, torch.profiler")
+    for label in ("pallas 2^24", "grouped 2^24"):
+        try:
+            breakdown(label, {**ntts_pal, **ntts_grp}[label], device)
+        except Exception as e:  # instrumentation only: the checks above decide
+            log(f"  {label}: profiler failed ({e!r}); not measured")
 
     def entry(name, key, src, replaces, launches, err):
         return {
             "name": name, "route": "cuda", "source": f"sventt_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms[key], "plain_ms": ms[key + " plain"], "bound_ms": bounds[key][0],
-            "bound_by": bounds[key][1], "library_ms": None,
+            "bound_by": bounds[key][1], "library_ms": ms.get(key + " library"),
         }
 
-    lm, lp = dict(c_mxu["launches"]["mxu"]), c_pal["launches"]["pallas"]
+    lm, lp = dict(c_mxu["launches"]["mxu"]), dict(c_pal["launches"]["pallas"])
     lm["lane"] = c_lane["launches"]["mxu"]["lane"]
-    wm, wp = worst["mxu"], worst["pallas"]
+    for k in ("grouped", "lane_grouped"):
+        lp[k] = c_grp["launches"]["pallas"][k]
+    lt = c_tr["launches"]["transpose"]
+    wm, wp, wt = worst["mxu"], worst["pallas"], worst["transpose"]
     record = {"kernels": [
         entry("K1 s8 matrix NTT, lead (mxu_ntt)", "K1 lead 256x65536 pair", "ntt_mxu.cu",
               "sventt_tpu/ops/ntt_mxu.py:574", lm["lead"], wm["lead"]),
@@ -601,6 +908,22 @@ def main() -> int:
               "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:1167", lp["mid"], wp["mid"]),
         entry("K6 radix-2 stages, lane (fused_ntt_lane)", "K6 lane 65536x256 pair",
               "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:891", lp["lane"], wp["lane"]),
+        entry("K7 radix-2^R groups, leaf (fused_ntt_grouped)", "K7 leaf 256x65536 r=3",
+              "ntt_grouped.cu", "sventt_tpu/ops/ntt_pallas.py:679", lp["grouped"],
+              wp["grouped"]),
+        entry("K8 radix-2^R groups, lane (fused_ntt_lane, grouped)",
+              "K8 lane 65536x256 r=3 pair", "ntt_grouped.cu",
+              "sventt_tpu/ops/ntt_pallas.py:1107", lp["lane_grouped"], wp["lane_grouped"]),
+        entry("K9a blocked transpose, one plane (transpose_pallas)",
+              "K9a transpose_pallas 65536x256 int32", "transpose.cu",
+              "sventt_tpu/ops/transpose.py:39", lt["plane"], wt["plane"]),
+        entry("K9b blocked transpose, u64 (transpose_u64 / transpose01_u64)",
+              "K9b transpose_u64 65536x256 int64", "transpose.cu",
+              "sventt_tpu/ops/transpose.py:69", lt["pair"], wt["pair"]),
+        entry("inter-step multiply of the transpose fallback (an XLA pass there, "
+              "not a Pallas kernel)", "inter-step 256x256x256 pair", "inter_step.cu",
+              "sventt_tpu/plan/planner.py:376", c_grp["launches"]["inter_step"]["inter_step"],
+              worst["inter_step"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

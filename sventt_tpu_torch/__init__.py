@@ -1,7 +1,8 @@
 """sventt_tpu_torch: the PyTorch + CUDA port of sventt_tpu.
 
 Field elements are int64 tensors holding u64 bit patterns.  The matrix
-engine ("mxu") and the radix-2 butterfly engine ("pallas") run their
+engine ("mxu"), the butterfly engine ("pallas", radix-2 or radix-2^R
+grouped) and the blocked transpose run their
 hand-written CUDA kernels (``csrc/``, built with nvcc at first use) on CUDA
 tensors and their plain PyTorch versions on CPU tensors; entry points run
 on the CUDA card unless given ``device="cpu"``.

@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from .ops import ntt_mxu, ntt_pallas
+            from .ops import inter_step, ntt_mxu, ntt_pallas, transpose
 
             sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
             deps = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
@@ -117,6 +117,9 @@ def load() -> ctypes.CDLL:
             for fn, argtypes in (
                 (lib.sventt_mxu_ntt, ntt_mxu._ARGTYPES),
                 (lib.sventt_butterfly_ntt, ntt_pallas._ARGTYPES),
+                (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_ARGTYPES),
+                (lib.sventt_inter_step_mul, inter_step._ARGTYPES),
+                (lib.sventt_transpose, transpose._ARGTYPES),
             ):
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes

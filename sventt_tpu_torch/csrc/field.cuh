@@ -81,3 +81,13 @@ __device__ __forceinline__ u64 twiddle_mul(u64 a, u64 w, u64 wp, u64 N, bool laz
   if constexpr (MM == 1) return shoup_mul(a, w, wp, N, lazy);
   return mont_mul(a, w, wp, N, lazy);
 }
+
+// The six-step inter-step multiply of v by twiddle i, always Montgomery:
+// with the companion table wp ("pair") or computing it in flight (wp null,
+// "w") -- ops/twiddle.py::inter_step_mul.
+__device__ __forceinline__ u64 inter_step_mul(u64 v, const long long *w,
+                                              const long long *wp, long long i, u64 N,
+                                              u64 ninv, bool lazy) {
+  if (wp != nullptr) return mont_mul(v, (u64)w[i], (u64)wp[i], N, lazy);
+  return mont_mul_full(v, (u64)w[i], N, ninv, lazy);
+}

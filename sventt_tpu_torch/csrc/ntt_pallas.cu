@@ -63,14 +63,6 @@ struct Consts {
   u64 N, ninv, s, sp;
 };
 
-// The fused inter-step multiply: 1 "pair" (companion given), 2 "w".
-__device__ __forceinline__ u64 inter_step(u64 v, const long long *tw_w,
-                                          const long long *tw_wp, long long ti,
-                                          int mode, const Consts &k, bool lazy) {
-  if (mode == 1) return mont_mul(v, (u64)tw_w[ti], (u64)tw_wp[ti], k.N, lazy);
-  return mont_mul_full(v, (u64)tw_w[ti], k.N, k.ninv, lazy);
-}
-
 template <bool INV, int MM, bool LAZY>
 __global__ void __launch_bounds__(THREADS)
     butterfly_kernel(const long long *__restrict__ x, long long *__restrict__ out,
@@ -102,7 +94,9 @@ __global__ void __launch_bounds__(THREADS)
       u64 v = 0;
       if (col < B) {
         v = (u64)x[a * sa + j * sm + col * sb];
-        if (prologue) v = inter_step(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, k, LAZY);
+        if (prologue)
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, k.N, k.ninv,
+                             LAZY);
       }
       T[j * P + c] = v;
     }
@@ -148,7 +142,9 @@ __global__ void __launch_bounds__(THREADS)
       const long long col = c0 + c;
       if (col < B) {
         u64 v = T[j * P + c];
-        if (epilogue) v = inter_step(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, k, LAZY);
+        if (epilogue)
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, k.N, k.ninv,
+                             LAZY);
         out[a * sa + j * sm + col * sb] = (long long)v;
       }
     }
@@ -186,7 +182,7 @@ extern "C" int sventt_butterfly_ntt(
     unsigned long long sp, void *stream) {
   if (A <= 0 || B <= 0 || log2m < 1 || log2m > 12 || log2c < 0 || log2c > 16 ||
       first < 0 || first >= last || last > log2m || tw_mode < 0 || tw_mode > 2 ||
-      (tw_mode != 0 && tw_w == nullptr) || (tw_mode == 1 && tw_wp == nullptr) ||
+      (tw_mode != 0 && tw_w == nullptr) || ((tw_mode == 1) != (tw_wp != nullptr)) ||
       modmul < 0 || modmul > 1 || (modmul == 1 && !lazy))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (((size_t)1 << log2c) + 1) * ((size_t)1 << log2m) * sizeof(u64);

@@ -11,15 +11,24 @@ caller does the ``np.asarray`` on the JAX side), into the port's tensors:
   broadcast (s, sp) pair, or none) -> ``ops.ntt_pallas.FusedDirection``;
 * ``LaneDirection`` (``stage_ls``, ``tw``: (stages, 4, rows, m),
   ``scale_scalar``: (s, sp) ints or None) -> ``ops.ntt_pallas.LaneDirection``;
+* ``GroupedDirection`` (``specs``; ``tw``: per group the four (m, 256)
+  arrays w_hi, w_lo, wp_hi, wp_lo) -> ``ops.ntt_pallas.GroupedDirection``,
+  and ``GroupedLaneDirection`` (``specs``; ``tw``: (groups, 4, rows, m))
+  -> ``ops.ntt_pallas.GroupedLaneDirection``.  A spec is any object with
+  the fields of ``GroupSpec`` (the JAX one as it is); its ``consts``
+  become the port's constant tensor;
 * a ``MontPair`` as ``{"w": (hi, lo), "wp": (hi, lo) or None}``;
 * a whole ``PlanTables`` as ``{"leaf": {(m, "mxu"): {"planes": ..., "corr":
-  (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}},
-  "lane": {m1: {"stage_ls": ..., "tw": ..., "scale_scalar": ...}},
+  (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}
+  or {"specs": ..., "tw": ...}}, "lane": {m1: {"stage_ls": ..., "tw": ...,
+  "scale_scalar": ...} or {"specs": ..., "tw": ...}},
   "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``.
 
 The JAX package broadcasts each stage's l twiddles to its vreg tiles (a
 row or lane index i holds ``w_stage[i mod l]``); the port's compact tables
-take column or row 0 of each and keep its first l entries.  Every
+take column or row 0 of each and keep its first l entries.  A grouped
+table is broadcast the same way; the port keeps column or row 0, all m
+entries.  Every
 ``device`` None is the CUDA card.  No JAX is imported here.
 """
 
@@ -31,7 +40,15 @@ import torch
 from .field.limb import FieldConsts, from_limbs
 from .field.modulus import Modulus
 from .ops.ntt_mxu import MxuDirection
-from .ops.ntt_pallas import FusedDirection, LaneDirection, _compact
+from .ops.ntt_pallas import (
+    FusedDirection,
+    GroupedDirection,
+    GroupedLaneDirection,
+    GroupSpec,
+    LaneDirection,
+    _compact,
+    _const_tensors,
+)
 from .ops.twiddle import MontPair
 from .plan.planner import PlanTables
 from .utils.device import resolve_device
@@ -105,6 +122,45 @@ def lane_direction_from_numpy(
     return LaneDirection(m, inverse, modmul, tuple(stage_ls), w, wp, sc)
 
 
+def _grouped_fields(m: int, inverse: bool, modmul: str, specs, vectors, device) -> tuple:
+    """(fields of a grouped direction) from the specs and, per group, the
+    four (m,) limb vectors of its combined table."""
+    specs = tuple(
+        GroupSpec(tuple(s.ls), s.L, s.span, tuple(tuple(row) for row in s.consts), s.scaled)
+        for s in specs
+    )
+    if len(vectors) != len(specs) or any(len(v) != 4 for v in vectors):
+        raise ValueError("expected four arrays (w_hi, w_lo, wp_hi, wp_lo) per group")
+    w = torch.stack([from_limbs(wh, wl, device) for wh, wl, _, _ in vectors])
+    wp = torch.stack([from_limbs(ph, pl, device) for _, _, ph, pl in vectors])
+    if tuple(w.shape) != (len(specs), m):
+        raise ValueError(f"expected (m,) = ({m},) tables per group, got {tuple(w.shape)}")
+    return (m, inverse, modmul, specs, w, wp, *_const_tensors(specs, device))
+
+
+def grouped_direction_from_numpy(
+    m: int, inverse: bool, modmul: str, specs, tw, device=None
+) -> GroupedDirection:
+    """The JAX ``GroupedDirection`` as the port's: column 0 of each group's
+    four pre-broadcast (m, 256) arrays."""
+    device = resolve_device(device)
+    vectors = [[np.asarray(a)[:, 0] for a in group] for group in tw]
+    return GroupedDirection(*_grouped_fields(m, inverse, modmul, specs, vectors, device))
+
+
+def grouped_lane_direction_from_numpy(
+    m: int, inverse: bool, modmul: str, specs, tw, device=None
+) -> GroupedLaneDirection:
+    """The JAX ``GroupedLaneDirection`` as the port's: row 0 of each
+    group's four lane vectors of its (groups, 4, rows, m) array."""
+    device = resolve_device(device)
+    tw = np.asarray(tw)
+    if tw.ndim != 4 or tw.shape[1] != 4 or tw.shape[3] != m:
+        raise ValueError(f"expected (groups, 4, rows, {m}) lane tables, got {tw.shape}")
+    vectors = [[tw[g, c, 0] for c in range(4)] for g in range(tw.shape[0])]
+    return GroupedLaneDirection(*_grouped_fields(m, inverse, modmul, specs, vectors, device))
+
+
 def tables_from_numpy(
     plan, mod: Modulus, fc: FieldConsts, inverse: bool, arrays: dict, device=None
 ) -> PlanTables:
@@ -117,16 +173,24 @@ def tables_from_numpy(
             leaf[key] = mxu_direction_from_numpy(
                 mod, key[0], inverse, v["planes"], v["corr"], device
             )
+        elif "specs" in v:
+            leaf[key] = grouped_direction_from_numpy(
+                key[0], inverse, fc.modmul, v["specs"], v["tw"], device
+            )
         else:
             leaf[key] = fused_direction_from_numpy(
                 key[0], inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale"], device
             )
-    lane = {
-        m1: lane_direction_from_numpy(
-            m1, inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale_scalar"], device
-        )
-        for m1, v in arrays.get("lane", {}).items()
-    }
+    lane = {}
+    for m1, v in arrays.get("lane", {}).items():
+        if "specs" in v:
+            lane[m1] = grouped_lane_direction_from_numpy(
+                m1, inverse, fc.modmul, v["specs"], v["tw"], device
+            )
+        else:
+            lane[m1] = lane_direction_from_numpy(
+                m1, inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale_scalar"], device
+            )
     conv = {
         name: {k: montpair_from_numpy(v, device) for k, v in arrays[name].items()}
         for name in ("split_tw", "split_tw_t")

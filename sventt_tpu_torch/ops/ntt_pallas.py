@@ -1,9 +1,9 @@
-"""Radix-2 butterfly NTTs along one axis, every stage in one kernel launch.
+"""Butterfly NTTs along one axis, every stage in one kernel launch.
 
-The PyTorch counterpart of the per-stage radix-2 part of
-``sventt_tpu/ops/ntt_pallas.py`` (the engine ``"pallas"`` with its default
-``max_r = 1``).  Three Pallas kernels of the JAX package become ONE CUDA
-kernel (``csrc/ntt_pallas.cu``) in three orientations:
+The PyTorch counterpart of ``sventt_tpu/ops/ntt_pallas.py`` (the engine
+``"pallas"``).  With its default ``max_r = 1`` (per-stage radix-2) three
+Pallas kernels of the JAX package become ONE CUDA kernel
+(``csrc/ntt_pallas.cu``) in three orientations:
 
 * leaf (``fused_ntt``, K4 ``_group_call``): along axis 0 of (m, batch...);
 * mid (``fused_ntt_mid``, K5 ``_mid_call``): along axis 1 of
@@ -25,6 +25,23 @@ bias the forward difference by +2N (``FieldConsts.butterfly_forward``), K6
 reduces it with ``FieldConsts.sub`` first.  Both are the same residue; the
 bits differ by N on some points, and the port keeps each kernel's bits.
 
+With ``max_r > 1`` the stages fold into radix-2^R groups (``GroupSpec``):
+R ranks whose twiddles are scalar constants, then one multiply by the
+group's combined table (forward epilogue, inverse prologue; the last
+inverse group's table holds 1/m).  Two more Pallas kernels become ONE CUDA
+kernel (``csrc/ntt_grouped.cu``) in two orientations:
+
+* leaf (``fused_ntt`` on a ``GroupedDirection``, K7 ``_grouped_call``);
+* lane (``fused_ntt_lane`` on a ``GroupedLaneDirection``, K8
+  ``_lane_grouped_call``), the inter-step twiddle fused as for K6.
+
+The JAX planner never sends grouped tables to the mid orientation (its
+``_mid_row`` asks for a ``FusedDirection``): a batched grouped row takes
+the transpose fallback, so ``fused_ntt_mid`` rejects them.  The lazy bits
+of K7 and K8 differ as K4's and K6's do, and in one more place: K7 skips
+the table multiply where the combined exponent is 0, K8 multiplies every
+point by its (then unit) table entry.
+
 On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation.
@@ -38,13 +55,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..field.limb import FieldConsts, s64
+from ..field.limb import FieldConsts, from_numpy, s64
 from ..field.modulus import Modulus
 from ..utils.device import resolve_device
-from .twiddle import MontPair, forward_tables, inter_step_mul, inverse_tables
+from .twiddle import (
+    MontPair,
+    _twiddle_pair,
+    forward_tables,
+    inter_step_mul,
+    inverse_tables,
+)
 
 #: Largest leaf of this engine in an automatic plan (as in the JAX package).
 MAX_FUSED = 256
+
+#: Default maximum radix exponent (per-stage radix-2, as in the JAX package).
+DEFAULT_MAX_RADIX = 1
+
+#: Largest radix exponent of a group (``NttConfig.max_r`` allows 1..4).
+MAX_R = 4
+
+#: Constant entries a rank of a group may have: 2^(MAX_R - 1).
+MAX_LOWS = 1 << (MAX_R - 1)
 
 #: Largest transform length one kernel launch takes (its whole tile of
 #: columns sits in shared memory).
@@ -58,12 +90,12 @@ TILE_POINTS = 4096
 #: Largest dynamic shared memory a Hopper block may use.
 MAX_SMEM = 232448
 
-_ROADMAP_GROUPED = "ROADMAP Queue 2, K7/K8"
-
-#: Kernel launches per orientation (added to where the kernel launches).
-LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0}
+#: Kernel launches per orientation (added to where the kernel launches):
+#: radix-2 "leaf" (K4), "mid" (K5), "lane" (K6); grouped "grouped" (K7),
+#: "lane_grouped" (K8).
+LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0, "grouped": 0, "lane_grouped": 0}
 #: Plain-version calls per orientation.
-PLAIN_CALLS = {"leaf": 0, "mid": 0, "lane": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 @dataclass(frozen=True)
@@ -177,14 +209,230 @@ def make_lane_inverse(
     )
 
 
-def _radix2_only(max_r: int | None, modmul: str) -> None:
+# ---------------------------------------------------------------------------
+# radix-2^R groups: static structure (host Python ints)
+#
+# R consecutive stages factor into R ranks of butterflies whose twiddles are
+# scalar constants -- powers of the order-2^R root theta -- and ONE combined
+# table multiply per point (W^{bitrev_R(k)}), as in the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _bitrev(k: int, bits: int) -> int:
+    out = 0
+    for _ in range(bits):
+        out = (out << 1) | (k & 1)
+        k >>= 1
+    return out
+
+
+def _choose_groups(num_stages: int, max_r: int) -> tuple[int, ...]:
+    """Greedy grouping of the stage cascade into radix-2^R bodies; a
+    4-stage remainder becomes 2+2 rather than 3+1."""
+    if max_r <= 1:
+        return (1,) * num_stages
+    out, n = [], num_stages
+    while n > 0:
+        if n == 4 and max_r >= 3:
+            out += [2, 2]
+            n = 0
+        elif n >= max_r:
+            out.append(max_r)
+            n -= max_r
+        else:
+            out.append(n)
+            n = 0
+    return tuple(out)
+
+
+def _const_pair(mod: Modulus, modmul: str, value: int) -> tuple[int, int]:
+    """(w, wp) scalar ints in engine form for a constant twiddle."""
+    if modmul == "montgomery":
+        w = mod.to_montgomery(value % mod.modulus)
+        return w, mod.montgomery_precompute(w)
+    w = value % mod.modulus
+    return w, mod.shoup_precompute(w)
+
+
+@dataclass(frozen=True)
+class GroupSpec:
+    """Static structure of one radix-2^R stage group.
+
+    ``ls``: rank half-widths (forward: descending l, l/2, ...; inverse:
+    ascending l, 2l, ...).  ``L``: sub-slice row unit (forward ls[-1],
+    inverse ls[0]).  ``span``: the row period of the combined table.
+    ``consts``: per rank, per ``low`` sub-slice index, the scalar constant
+    twiddle as an engine-form (w, wp) int pair, or None for exponent 0.
+    ``scaled``: inverse only, this group's table folds the 1/m scaling.
+    """
+
+    ls: tuple[int, ...]
+    L: int
+    span: int
+    consts: tuple[tuple[object, ...], ...]
+    scaled: bool = False
+
+    @property
+    def R(self) -> int:
+        return len(self.ls)
+
+
+def _forward_group_values(mod: Modulus, m: int, modmul: str, max_r: int):
+    """(specs, per-group combined-table plain values of length m)."""
+    N = mod.modulus
+    specs, tables = [], []
+    s0 = 0
+    for R in _choose_groups(m.bit_length() - 1, max_r):
+        l = m >> (s0 + 1)
+        L = l >> (R - 1)
+        span = 2 * l
+        omega_2l = mod.get_root_forward(2 * l)
+        theta = pow(omega_2l, L, N)
+        consts = []
+        for s in range(R):
+            row = []
+            for low in range((l >> s) // L):
+                e = ((1 << s) * low) % (1 << R)
+                row.append(None if e == 0 else _const_pair(mod, modmul, pow(theta, e, N)))
+            consts.append(tuple(row))
+        tables.append(
+            [pow(omega_2l, (i % L) * _bitrev((i % span) // L, R), N) for i in range(m)]
+        )
+        specs.append(GroupSpec(tuple(l >> s for s in range(R)), L, span, tuple(consts)))
+        s0 += R
+    return tuple(specs), tables
+
+
+def _inverse_group_values(mod: Modulus, m: int, modmul: str, scale_extra: int, max_r: int):
+    """(specs, tables) for the DIT inverse; 1/m (x scale_extra) folded into
+    the last group's combined pre-multiply table."""
+    N = mod.modulus
+    rs = _choose_groups(m.bit_length() - 1, max_r)
+    s_scale = mod.invert(m) * (scale_extra % N) % N
+    specs, tables = [], []
+    s0 = 0
+    for gi, R in enumerate(rs):
+        l = 1 << s0
+        span = (1 << R) * l
+        omega_span = mod.invert(mod.get_root_forward(span))
+        theta = pow(omega_span, l, N)
+        last = gi == len(rs) - 1
+        consts = []
+        for s in range(R):
+            row = []
+            for low in range(1 << s):
+                e = ((1 << (R - 1 - s)) * low) % (1 << R)
+                row.append(None if e == 0 else _const_pair(mod, modmul, pow(theta, e, N)))
+            consts.append(tuple(row))
+        vals = [pow(omega_span, (i % l) * _bitrev((i % span) // l, R), N) for i in range(m)]
+        if last:
+            vals = [v * s_scale % N for v in vals]
+        specs.append(
+            GroupSpec(tuple((1 << s) * l for s in range(R)), l, span, tuple(consts), scaled=last)
+        )
+        tables.append(vals)
+        s0 += R
+    return tuple(specs), tables
+
+
+# ---------------------------------------------------------------------------
+# grouped tables
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class _GroupedTables:
+    """Grouped tables for one direction at one length, on one device.
+
+    ``specs``: each group's ``GroupSpec``.  ``w`` / ``wp``: (groups, m)
+    int64, each group's combined table in the form of ``modmul``.
+    ``consts``: (groups, MAX_R, MAX_LOWS, 2) int64, the (w, wp) constant of
+    group g, rank s, sub-slice ``low``; ``const_mask`` (groups, MAX_R,
+    MAX_LOWS) bool is False where the spec holds None or no entry.
+    """
+
+    m: int
+    inverse: bool
+    modmul: str
+    specs: tuple[GroupSpec, ...]
+    w: torch.Tensor
+    wp: torch.Tensor
+    consts: torch.Tensor
+    const_mask: torch.Tensor
+
+
+@dataclass(frozen=True)
+class GroupedDirection(_GroupedTables):
+    """Leaf tables of the grouped engine (K7)."""
+
+
+@dataclass(frozen=True)
+class GroupedLaneDirection(_GroupedTables):
+    """Lane tables of the grouped engine (K8)."""
+
+
+def _const_tensors(specs, device) -> tuple[torch.Tensor, torch.Tensor]:
+    consts = np.zeros((len(specs), MAX_R, MAX_LOWS, 2), dtype=np.uint64)
+    mask = np.zeros((len(specs), MAX_R, MAX_LOWS), dtype=bool)
+    for g, spec in enumerate(specs):
+        for s, row in enumerate(spec.consts):
+            for low, pair in enumerate(row):
+                if pair is not None:
+                    consts[g, s, low] = pair
+                    mask[g, s, low] = True
+    return from_numpy(consts, device), torch.from_numpy(mask).to(device)
+
+
+def _grouped_parts(mod: Modulus, m: int, inverse: bool, modmul: str, max_r: int,
+                   scale_extra: int, device) -> tuple:
+    _check_knobs(m, None)
+    if not 1 <= max_r <= MAX_R:
+        raise ValueError(f"max_r must be in 1..{MAX_R}, got {max_r}")
+    device = resolve_device(device)
+    if inverse:
+        specs, tables = _inverse_group_values(mod, m, modmul, scale_extra, max_r)
+    else:
+        specs, tables = _forward_group_values(mod, m, modmul, max_r)
+    pairs = [_twiddle_pair(mod, vals, modmul, device) for vals in tables]
+    w = torch.stack([p.w for p in pairs])
+    wp = torch.stack([p.wp for p in pairs])
+    return (m, inverse, modmul, specs, w, wp, *_const_tensors(specs, device))
+
+
+def make_grouped_forward(
+    mod: Modulus, m: int, modmul: str = "montgomery", max_r: int = DEFAULT_MAX_RADIX,
+    device=None,
+) -> GroupedDirection:
+    return GroupedDirection(*_grouped_parts(mod, m, False, modmul, max_r, 1, device))
+
+
+def make_grouped_inverse(
+    mod: Modulus, m: int, scale_extra: int = 1, modmul: str = "montgomery",
+    max_r: int = DEFAULT_MAX_RADIX, device=None,
+) -> GroupedDirection:
+    return GroupedDirection(*_grouped_parts(mod, m, True, modmul, max_r, scale_extra, device))
+
+
+def make_lane_grouped_forward(
+    mod: Modulus, m: int, modmul: str = "montgomery", max_r: int = DEFAULT_MAX_RADIX,
+    device=None,
+) -> GroupedLaneDirection:
+    return GroupedLaneDirection(*_grouped_parts(mod, m, False, modmul, max_r, 1, device))
+
+
+def make_lane_grouped_inverse(
+    mod: Modulus, m: int, scale_extra: int = 1, modmul: str = "montgomery",
+    max_r: int = DEFAULT_MAX_RADIX, device=None,
+) -> GroupedLaneDirection:
+    return GroupedLaneDirection(
+        *_grouped_parts(mod, m, True, modmul, max_r, scale_extra, device)
+    )
+
+
+def _solinas_unported(modmul: str) -> None:
     if modmul == "solinas":
         raise NotImplementedError(
             "modmul='solinas' is not ported yet (ROADMAP Queue 1 item 1)"
-        )
-    if max_r is not None and max_r > 1:
-        raise NotImplementedError(
-            f"max_r={max_r} (radix-2^R grouped stages) is not ported yet ({_ROADMAP_GROUPED})"
         )
 
 
@@ -192,10 +440,18 @@ def make_leaf_tables(
     mod: Modulus, m: int, *, inverse: bool, modmul: str = "montgomery",
     max_r: int | None = None, block_b: int | None = None, spc: int | None = None,
     tw_layout: str | None = None, device=None,
-) -> FusedDirection:
-    """Leaf / mid tables (per-stage radix-2); ``device`` None is the card."""
-    _radix2_only(max_r, modmul)
+) -> FusedDirection | GroupedDirection:
+    """Leaf / mid tables: per-stage radix-2 by default, radix-2^R grouped
+    with ``max_r`` > 1 (leaf only; ``block_b`` / ``spc`` / ``tw_layout``
+    are then validated but, as in the JAX package, unused).  ``device``
+    None is the card."""
+    _solinas_unported(modmul)
     tw_layout = tw_layout or "tiled"
+    if max_r is not None and max_r > 1:
+        _check_knobs(m, tw_layout, block_b=block_b, spc=spc)
+        if inverse:
+            return make_grouped_inverse(mod, m, modmul=modmul, max_r=max_r, device=device)
+        return make_grouped_forward(mod, m, modmul=modmul, max_r=max_r, device=device)
     if inverse:
         return make_fused_inverse(
             mod, m, modmul=modmul, block_b=block_b, spc=spc, tw_layout=tw_layout,
@@ -210,9 +466,16 @@ def make_leaf_tables(
 def make_lane_tables(
     mod: Modulus, m: int, *, inverse: bool, modmul: str = "montgomery",
     max_r: int | None = None, rows: int | None = None, device=None,
-) -> LaneDirection:
-    """Lane tables (per-stage radix-2); ``device`` None is the card."""
-    _radix2_only(max_r, modmul)
+) -> LaneDirection | GroupedLaneDirection:
+    """Lane tables: per-stage radix-2 by default, radix-2^R grouped with
+    ``max_r`` > 1 (``rows`` then validated but unused); ``device`` None is
+    the card."""
+    _solinas_unported(modmul)
+    if max_r is not None and max_r > 1:
+        _check_knobs(m, None, rows=rows)
+        if inverse:
+            return make_lane_grouped_inverse(mod, m, modmul=modmul, max_r=max_r, device=device)
+        return make_lane_grouped_forward(mod, m, modmul=modmul, max_r=max_r, device=device)
     if inverse:
         return make_lane_inverse(mod, m, modmul=modmul, rows=rows, device=device)
     return make_lane_forward(mod, m, modmul=modmul, rows=rows, device=device)
@@ -250,6 +513,70 @@ def _stages_plain(
         else:
             y0, y1 = fc.butterfly_inverse(x0, x1, w, wp)
         x = torch.stack([y0, y1], dim=2).reshape(A, m, B)
+    if tw is not None and t.inverse:
+        x = inter_step_mul(fc, x, tw)
+    return x
+
+
+def _table_on_first(spec: GroupSpec, m: int, h: int, device) -> torch.Tensor:
+    """(1, m/2h, h, 1) bool: where K7 multiplies a butterfly's first point
+    by the combined table -- the combined exponent e0 of point j0 is not 0
+    (bitrev of a nonzero index is nonzero)."""
+    j0 = np.arange(m).reshape(m // (2 * h), 2, h)[:, 0]
+    return torch.from_numpy((j0 % spec.span) // spec.L != 0).to(device).reshape(1, m // (2 * h), h, 1)
+
+
+def _groups_plain(
+    x: torch.Tensor, t: _GroupedTables, fc: FieldConsts, lane: bool,
+    tw: MontPair | None = None,
+) -> torch.Tensor:
+    """Every group of ``t`` along axis 1 of an (A, m, B) tensor, ``tw`` as
+    in ``_stages_plain``.  Rank s of group g pairs points j0 and j0 + h
+    (h = ``spec.ls[s]``); the constant of sub-slice low = (j0 mod h) // L
+    multiplies the difference (forward) or the second input (inverse); the
+    combined table multiplies both outputs of the last forward rank and
+    both inputs of the first inverse rank.  K7 (``lane`` False) biases a
+    lazy forward difference by +2N where a constant follows and skips the
+    table on a first point whose exponent is 0 (unless the group is
+    scaled); K8 (``lane``) reduces every difference and multiplies every
+    point."""
+    A, m, B = x.shape
+    two_n = 2 * s64(fc.modulus)
+    if tw is not None and not t.inverse:
+        x = inter_step_mul(fc, x, tw)
+    for g, spec in enumerate(t.specs):
+        for s, h in enumerate(spec.ls):
+            v = x.reshape(A, m // (2 * h), 2, h, B)
+            x0, x1 = v[:, :, 0], v[:, :, 1]
+            lows = h // spec.L
+            cw, cwp = (t.consts[g, s, :lows, k].repeat_interleave(spec.L).reshape(1, 1, h, 1)
+                       for k in (0, 1))
+            has = t.const_mask[g, s, :lows].repeat_interleave(spec.L).reshape(1, 1, h, 1)
+            fused = s == (0 if t.inverse else spec.R - 1)
+            if fused:
+                tab = [a[g].reshape(1, m // (2 * h), 2, h, 1) for a in (t.w, t.wp)]
+                (w0, w1), (wp0, wp1) = ((a[:, :, 0], a[:, :, 1]) for a in tab)
+                if lane or spec.scaled:
+                    first = torch.ones((), dtype=torch.bool, device=x.device)
+                else:
+                    first = _table_on_first(spec, m, h, x.device)
+            if not t.inverse:
+                y0 = fc.add(x0, x1)
+                d = fc.sub(x0, x1)
+                dc = (x0 - x1 + two_n) if fc.lazy and not lane else d
+                d = torch.where(has, fc.twiddle_mul(dc, cw, cwp), d)
+                if fused:
+                    y0 = torch.where(first, fc.twiddle_mul(y0, w0, wp0), y0)
+                    d = fc.twiddle_mul(d, w1, wp1)
+                y1 = d
+            else:
+                if fused:
+                    x0 = torch.where(first, fc.twiddle_mul(x0, w0, wp0), x0)
+                    t1 = fc.twiddle_mul(x1, w1, wp1)
+                else:
+                    t1 = torch.where(has, fc.twiddle_mul(x1, cw, cwp), x1)
+                y0, y1 = fc.add(x0, t1), fc.sub(x0, t1)
+            x = torch.stack([y0, y1], dim=2).reshape(A, m, B)
     if tw is not None and t.inverse:
         x = inter_step_mul(fc, x, tw)
     return x
@@ -305,6 +632,22 @@ def lane_plain(
     return out.reshape(x.shape)
 
 
+def grouped_plain(x: torch.Tensor, tables: GroupedDirection, fc: FieldConsts) -> torch.Tensor:
+    """The plain version of ``fused_ntt_grouped`` (K7); counts nothing."""
+    return _groups_plain(_leaf_view(x, tables.m), tables, fc, False).reshape(x.shape)
+
+
+def lane_grouped_plain(
+    x: torch.Tensor, tables: GroupedLaneDirection, fc: FieldConsts,
+    pre_tw: MontPair | None = None,
+) -> torch.Tensor:
+    """The plain version of ``fused_ntt_lane`` on grouped tables (K8);
+    counts nothing."""
+    rows = _lane_rows(x, tables.m)
+    tw3 = None if pre_tw is None else _lane_tw(pre_tw, x, rows)
+    return _groups_plain(rows.unsqueeze(2), tables, fc, True, tw3).reshape(x.shape)
+
+
 def _tw_view(tw: MontPair, shape: tuple, view: tuple) -> MontPair:
     """Inter-step twiddles of exactly ``shape`` (a transposed table of the
     same size would give wrong values silently) as contiguous ``view``s."""
@@ -330,8 +673,12 @@ def _lane_tw(tw: MontPair, x: torch.Tensor, rows: torch.Tensor) -> MontPair:
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(t: _StageTables, fc: FieldConsts, x: torch.Tensor, tw: MontPair | None):
+def _check_cuda(t, fc: FieldConsts, x: torch.Tensor, tw: MontPair | None):
     tensors = [t.w, t.wp] + ([] if tw is None else [v for v in tw if v is not None])
+    if isinstance(t, _GroupedTables):
+        tensors.append(t.consts)
+        if t.const_mask.device != x.device or t.const_mask.dtype != torch.bool:
+            raise TypeError(f"const_mask must be a bool tensor on {x.device}")
     for v in tensors:
         if v.device != x.device:
             raise ValueError(f"table on {v.device}, data on {x.device}")
@@ -343,36 +690,46 @@ def _check_cuda(t: _StageTables, fc: FieldConsts, x: torch.Tensor, tw: MontPair 
         raise ValueError(f"tables built for {t.modmul!r}, field engine is {fc.modmul!r}")
 
 
+def _geometry(x3: torch.Tensor, m: int, lane: bool, cols: int):
+    """The kernels' (A, m, B) view of the contiguous ``x3``: (dims, element
+    strides, inter-step twiddle strides, log2 cols).  ``lane`` (x3 is
+    (rows, m, 1)): the rows are B = rows batch entries of stride m,
+    transform stride 1, so a block reads whole rows; otherwise the
+    twiddle is (A, m, 1), broadcast over the batch.  Each block takes
+    ``cols`` batch entries."""
+    if (cols + 1) * m * 8 > MAX_SMEM:
+        raise ValueError(f"a tile of {cols} x {m} points exceeds shared memory")
+    A, _, B = x3.shape
+    if lane:
+        return (1, m, A), (0, 1, m), (0, 1, m), cols.bit_length() - 1
+    return (A, m, B), x3.stride(), (m, 1, 0), cols.bit_length() - 1
+
+
+def _tw_args(tw3: MontPair | None) -> tuple:
+    """(w pointer, wp pointer, mode): mode 0 none, 1 "pair", 2 "w"."""
+    if tw3 is None:
+        return None, None, 0
+    if tw3.wp is None:
+        return tw3.w.data_ptr(), None, 2
+    return tw3.w.data_ptr(), tw3.wp.data_ptr(), 1
+
+
 def _launch(
     x3: torch.Tensor, t: _StageTables, fc: FieldConsts, tw3: MontPair | None,
     lane: bool, cols: int, first: int, last: int,
 ) -> torch.Tensor:
-    """One launch of the kernel on stages [first, last) of ``t`` along axis
-    1 of the contiguous (A, m, B) tensor ``x3``; ``tw3`` the contiguous
-    (A, m, 1) inter-step twiddles.  Each block takes ``cols`` batch entries.
-    ``lane`` (x3 is (rows, m, 1)): K6's forward sequence, and the kernel
-    sees the rows as B = rows batch entries of stride m, transform stride 1,
-    so a block reads whole rows."""
+    """One launch of the radix-2 kernel on stages [first, last) of ``t``
+    along axis 1 of the contiguous (A, m, B) tensor ``x3`` (see
+    ``_geometry``); ``lane`` also selects K6's forward sequence."""
     from .. import _build
 
     _check_cuda(t, fc, x3, tw3)
-    A, m, B = x3.shape
-    if lane:
-        dims, strides, tw_strides = (1, m, A), (0, 1, m), (0, 1, m)
-    else:
-        dims, strides, tw_strides = (A, m, B), x3.stride(), (m, 1, 0)
-    log2c = cols.bit_length() - 1
-    if (cols + 1) * m * 8 > MAX_SMEM:
-        raise ValueError(f"a tile of {cols} x {m} points exceeds shared memory")
+    m = t.m
+    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
     lib = _build.load()
     out = torch.empty_like(x3)
-    w_ptr = wp_ptr = None
-    mode = 0
-    if tw3 is not None:
-        w_ptr, mode = tw3.w.data_ptr(), 2
-        if tw3.wp is not None:
-            wp_ptr, mode = tw3.wp.data_ptr(), 1
     s, sp = t.scale if t.scale is not None else (0, 0)
+    w_ptr, wp_ptr, mode = _tw_args(tw3)
     rc = lib.sventt_butterfly_ntt(
         x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(), w_ptr, wp_ptr,
         dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
@@ -385,15 +742,48 @@ def _launch(
     return out
 
 
-def _run(
-    x3: torch.Tensor, t: _StageTables, fc: FieldConsts, tw3: MontPair | None,
-    orientation: str, cols: int | None, spc: int | None,
+def _launch_grouped(
+    x3: torch.Tensor, t: _GroupedTables, fc: FieldConsts, tw3: MontPair | None,
+    lane: bool, cols: int,
 ) -> torch.Tensor:
-    lane = orientation == "lane"
+    """One launch of the grouped kernel on every group of ``t`` (K7, or K8
+    with ``lane``), the view as in ``_launch``."""
+    from .. import _build
+
+    _check_cuda(t, fc, x3, tw3)
+    m = t.m
+    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
+    ranks = sum(spec.R << (4 * g) for g, spec in enumerate(t.specs))
+    lib = _build.load()
+    out = torch.empty_like(x3)
+    w_ptr, wp_ptr, mode = _tw_args(tw3)
+    rc = lib.sventt_grouped_ntt(
+        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(),
+        t.consts.data_ptr(), t.const_mask.data_ptr(), w_ptr, wp_ptr,
+        dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
+        len(t.specs), ranks, log2c, int(t.inverse), int(fc.modmul == "shoup"),
+        int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
+        torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _run(
+    x3: torch.Tensor, t, fc: FieldConsts, tw3: MontPair | None, orientation: str,
+    cols: int | None = None, spc: int | None = None,
+) -> torch.Tensor:
+    lane = orientation.startswith("lane")
+    grouped = isinstance(t, _GroupedTables)
     if x3.is_cuda:
+        cols = cols or max(1, TILE_POINTS // t.m)
+        if grouped:
+            x3 = _launch_grouped(x3, t, fc, tw3, lane, cols)
+            LAUNCHES[orientation] += 1
+            return x3
         n = len(t.stage_ls)
         step = spc or n
-        cols = cols or max(1, TILE_POINTS // t.m)
         for first in range(0, n, step):
             x3 = _launch(x3, t, fc, tw3, lane, cols, first, min(first + step, n))
             LAUNCHES[orientation] += 1
@@ -401,13 +791,24 @@ def _run(
     if x3.device.type != "cpu":
         raise ValueError(f"butterfly engine runs on cpu or cuda tensors, got {x3.device}")
     PLAIN_CALLS[orientation] += 1
-    return _stages_plain(x3, t, fc, lane, tw3)
+    return (_groups_plain if grouped else _stages_plain)(x3, t, fc, lane, tw3)
 
 
-def fused_ntt(x: torch.Tensor, tables: FusedDirection, fc: FieldConsts) -> torch.Tensor:
-    """Length-m NTT along the leading axis of (m, batch...) (K4)."""
+def fused_ntt(
+    x: torch.Tensor, tables: FusedDirection | GroupedDirection, fc: FieldConsts
+) -> torch.Tensor:
+    """Length-m NTT along the leading axis of (m, batch...): K4 on
+    per-stage tables, K7 on grouped ones."""
+    if isinstance(tables, GroupedDirection):
+        return fused_ntt_grouped(x, tables, fc)
     out = _run(_leaf_view(x, tables.m), tables, fc, None, "leaf", tables.block_b, tables.spc)
     return out.reshape(x.shape)
+
+
+def fused_ntt_grouped(x: torch.Tensor, tables: GroupedDirection, fc: FieldConsts) -> torch.Tensor:
+    """Length-m NTT along the leading axis of (m, batch...) by radix-2^R
+    groups, all in one launch (K7)."""
+    return _run(_leaf_view(x, tables.m), tables, fc, None, "grouped").reshape(x.shape)
 
 
 def fused_ntt_mid(
@@ -417,24 +818,35 @@ def fused_ntt_mid(
 
     ``tw``: optional (A, m) inter-step MontPair (Montgomery form; the
     companion may be None), broadcast over the batch and fused: multiplied
-    before the stages on the forward, after them on the inverse.
+    before the stages on the forward, after them on the inverse.  Per-stage
+    tables only: the planner runs a grouped row by the transpose fallback.
     """
+    if not isinstance(tables, FusedDirection):
+        raise TypeError(
+            f"fused_ntt_mid takes per-stage FusedDirection tables, got "
+            f"{type(tables).__name__} (a grouped row runs between transposes)"
+        )
     x3 = _mid_view(x, tables.m)
     tw3 = None if tw is None else _mid_tw(tw, x3)
     return _run(x3, tables, fc, tw3, "mid", tables.block_b, tables.spc).reshape(x.shape)
 
 
 def fused_ntt_lane(
-    x: torch.Tensor, tables: LaneDirection, fc: FieldConsts, pre_tw: MontPair | None = None
+    x: torch.Tensor, tables: LaneDirection | GroupedLaneDirection, fc: FieldConsts,
+    pre_tw: MontPair | None = None,
 ) -> torch.Tensor:
-    """Length-m NTT along the LAST axis of (batch..., m) (K6).
+    """Length-m NTT along the LAST axis of (batch..., m): K6 on per-stage
+    tables, K8 on grouped ones.
 
     ``pre_tw``: optional inter-step MontPair in the data's layout, fused as
     prologue (forward) / epilogue (inverse).
     """
     rows = _lane_rows(x, tables.m)
     tw3 = None if pre_tw is None else _lane_tw(pre_tw, x, rows)
-    out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane", tables.rows, None)
+    if isinstance(tables, GroupedLaneDirection):
+        out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane_grouped")
+    else:
+        out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane", tables.rows)
     return out.reshape(x.shape)
 
 
@@ -445,12 +857,21 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-# ctypes signature of the C entry in csrc/ntt_pallas.cu
+# ctypes signatures of the C entries in csrc/ntt_pallas.cu and csrc/ntt_grouped.cu
 _ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_longlong] * 6
     + [ctypes.c_int] * 8
     + [ctypes.c_ulonglong] * 4
+    + [ctypes.c_void_p]
+)
+_GROUPED_ARGTYPES = (
+    [ctypes.c_void_p] * 8
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    + [ctypes.c_longlong] * 6
+    + [ctypes.c_int, ctypes.c_ulonglong]
+    + [ctypes.c_int] * 6
+    + [ctypes.c_ulonglong] * 2
     + [ctypes.c_void_p]
 )

@@ -1,24 +1,29 @@
 """Recursive transform planner: leaves composed by six-step splits.
 
 The counterpart of ``sventt_tpu/plan/planner.py`` for the matrix engine
-("mxu") and the radix-2 butterfly engine ("pallas").  A plan is a static
-tree:
+("mxu") and the butterfly engine ("pallas", radix-2 or, with ``max_r`` >
+1, radix-2^R grouped).  A plan is a static tree:
 
 * ``Leaf(m, engine)`` -- a length-m NTT along the leading axis
   (``ops.ntt_mxu.mxu_ntt`` or ``ops.ntt_pallas.fused_ntt``).
 * ``Split(m, m0, m1)`` -- the six-step decomposition m = m0*m1: column
-  NTTs (the ``col`` subtree, length m0), then the row step (a length-m1
-  leaf of either engine) with the inter-step twiddle multiply fused into
-  its kernel.  The output is bit-reversed like a Leaf of the same length,
-  so nodes compose, also across engines.
+  NTTs (the ``col`` subtree, length m0), then the row step (the ``row``
+  subtree, length m1).  The output is bit-reversed like a Leaf of the same
+  length, so nodes compose, also across engines.
 
-The row step runs mid-axis when the node has batch axes (inner levels: no
+A row that is a leaf takes the inter-step twiddle multiply fused into its
+kernel.  It runs mid-axis when the node has batch axes (inner levels: no
 transposes).  At the unbatched root an mxu row runs lead-axis between two
 transposes, with the root's twiddle table stored transposed
 (``split_tw_t``); a pallas row runs lane-axis on the data as it lies, with
 the table in its natural (m0, m1) layout -- both as in the JAX package.
-Plans with jnp leaves are built (``build_plan_spec`` validates them as the
-JAX package does) but running them raises ``NotImplementedError``.
+Every other row step -- a batched pallas row with grouped tables (the
+mid kernel takes per-stage tables only) or a row subtree -- takes the JAX
+package's transpose fallback: the inter-step multiply as its own pass
+(``ops.inter_step``), a transpose, the row as a leading-axis transform, a
+transpose back (mirrored on the inverse).  Plans with jnp leaves are built
+(``build_plan_spec`` validates them as the JAX package does) but running
+them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 from ..field.limb import FieldConsts
 from ..field.modulus import Modulus
-from ..ops import ntt_mxu, ntt_pallas
+from ..ops import inter_step, ntt_mxu, ntt_pallas
 from ..ops.transpose import transpose01
 from ..ops.twiddle import (
     MontPair,
@@ -168,14 +173,11 @@ def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
 
 
 def check_ported(node) -> None:
-    """Raise NotImplementedError unless every node runs on a ported path:
-    mxu or pallas leaves, and splits whose row is such a leaf."""
+    """Raise NotImplementedError unless every leaf is an mxu or pallas leaf."""
     if isinstance(node, Leaf):
         if node.engine not in PORTED_ENGINES:
             raise _not_ported(f"engine={node.engine!r} leaves", "Queue 1 item 7")
         return
-    if not isinstance(node.row, Leaf):
-        raise _not_ported("split levels whose row is a subtree", "Queue 1 item 5")
     check_ported(node.row)
     check_ported(node.col)
 
@@ -193,16 +195,26 @@ def _mxu_row(node) -> bool:
 
 def _lane_row(node) -> bool:
     """Split nodes whose row child is a pallas leaf: lane-axis when the
-    batch is empty, mid-axis otherwise (no transposes either way)."""
+    batch is empty; when batched, mid-axis if its tables are per-stage
+    (``_mid_row``), else the transpose fallback."""
     return _row_engine(node) == "pallas"
+
+
+def _mid_row(node, tables: "PlanTables") -> bool:
+    """A pallas row leaf that the mid kernel takes when batched: per-stage
+    tables (``FusedDirection``), as the JAX package decides."""
+    return _lane_row(node) and isinstance(
+        tables.leaf.get((node.m1, "pallas")), ntt_pallas.FusedDirection
+    )
 
 
 class PlanTables:
     """Twiddle, matrix and stage tables for every node of a plan, one
     direction, on one device (None: the CUDA card).
 
-    ``leaf[(m, engine)]``: MxuDirection or FusedDirection; ``lane[m1]``:
-    LaneDirection of a pallas row leaf, for the unbatched lane-axis step;
+    ``leaf[(m, engine)]``: MxuDirection, FusedDirection or (``max_r`` > 1)
+    GroupedDirection; ``lane[m1]``: LaneDirection or GroupedLaneDirection
+    of a pallas row leaf, for the unbatched lane-axis step;
     ``split_tw[(m0, m1)]``: (m0, m1) MontPair of a level; ``split_tw_t[(m0,
     m1)]``: the (m1, m0) transposed table of an unbatched root whose row is
     an mxu leaf (its lead-axis step).  The pallas knobs (``block_b``,
@@ -290,18 +302,20 @@ def _split_tw(tables: PlanTables, key) -> MontPair:
 
 
 def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torch.Tensor:
-    """The row step of a Split on (m0, m1, batch...) data, with the
-    inter-step twiddle fused into its kernel (prologue forward, epilogue
-    inverse)."""
+    """The row step of a Split on (m0, m1, batch...) data: a row leaf with
+    the inter-step twiddle fused into its kernel (prologue forward,
+    epilogue inverse), else the transpose fallback."""
     fc = tables.fc
     key = (node.m0, node.m1)
-    if _lane_row(node):
-        if batch:
-            t = tables.leaf[(node.m1, "pallas")]
-            return ntt_pallas.fused_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
+    if _lane_row(node) and not batch:
         return ntt_pallas.fused_ntt_lane(
             mat, tables.lane[node.m1], fc, pre_tw=_split_tw(tables, key)
         )
+    if _mid_row(node, tables):
+        t = tables.leaf[(node.m1, "pallas")]
+        return ntt_pallas.fused_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
+    if not _mxu_row(node):
+        return _transposed_row(mat, node, tables)
     t = tables.leaf[(node.m1, "mxu")]
     if batch:
         return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
@@ -310,6 +324,19 @@ def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torc
         twt = _transpose_pair(tables.split_tw[key])
     mat = ntt_mxu.mxu_ntt(transpose01(mat), t, fc, tw=twt)
     return transpose01(mat)
+
+
+def _transposed_row(mat: torch.Tensor, node: Split, tables: PlanTables) -> torch.Tensor:
+    """The JAX package's fallback row step (``sventt_tpu/plan/planner.py``
+    ``:595-599`` and ``:653-657``): forward, the inter-step multiply, a
+    transpose to (m1, m0, batch...), the row transform along the leading
+    axis, a transpose back; the inverse mirrors it."""
+    tw = _split_tw(tables, (node.m0, node.m1))
+    if not tables.inverse:
+        mat = transpose01(inter_step.mont_mul_bcast(tables.fc, mat, tw))
+        return transpose01(run_forward(mat, node.row, tables))
+    mat = transpose01(run_inverse(transpose01(mat), node.row, tables))
+    return inter_step.mont_mul_bcast(tables.fc, mat, tw)
 
 
 def _leaf(x: torch.Tensor, node: Leaf, tables: PlanTables) -> torch.Tensor:

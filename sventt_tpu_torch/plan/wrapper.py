@@ -112,7 +112,12 @@ class NTT:
     def describe(self, batched: bool = False) -> str:
         """Human-readable execution strategy per plan node: which path each
         Split's row step takes.  ``batched`` describes the schedule for
-        inputs with trailing batch dims."""
+        inputs with trailing batch dims.
+
+        The pallas lines are the JAX package's wording, its quirk included:
+        a batched pallas row with grouped tables (``max_r`` > 1) reads
+        "mid-axis pallas ... (no transposes)" although it runs the
+        transpose fallback, as in the JAX package."""
         lines = []
 
         def walk(node, depth, batch):
@@ -120,16 +125,21 @@ class NTT:
             if isinstance(node, planner.Leaf):
                 lines.append(f"{pad}leaf m={node.m} engine={node.engine}")
                 return
-            if planner._lane_row(node):  # the JAX package's wording
+            if planner._lane_row(node):
                 if batch:
                     row = f"mid-axis pallas m1={node.m1} (no transposes)"
                 else:
                     row = f"lane-axis pallas m1={node.m1} (fused twiddle, no transposes)"
-            elif batch:
-                row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
+            elif planner._mxu_row(node):
+                if batch:
+                    row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
+                else:
+                    row = f"lead-axis mxu m1={node.m1} (fused twiddle, between transposes)"
             else:
-                row = f"lead-axis mxu m1={node.m1} (fused twiddle, between transposes)"
+                row = f"transposed row subtree m1={node.m1}"
             lines.append(f"{pad}split {node.m} = {node.m0} x {node.m1}: {row}")
+            if not isinstance(node.row, planner.Leaf):
+                walk(node.row, depth + 1, True)
             walk(node.col, depth + 1, True)
 
         walk(self.plan, 0, batched)

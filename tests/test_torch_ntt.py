@@ -113,7 +113,7 @@ def test_describe_and_get_m():
     "kw",
     [
         dict(engine="jnp"),
-        dict(engine="pallas", max_r=2),
+        dict(engine="pallas", max_r=3, modmul="solinas"),
         dict(tune=True),
         dict(strategy="six_step"),
         dict(plan_spec="pallas:64,jnp"),

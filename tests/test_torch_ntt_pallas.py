@@ -209,17 +209,22 @@ def test_stage_split_and_counts(rng):
     a, b = ntt_pallas.fused_ntt(x, one, fc), ntt_pallas.fused_ntt(x, split, fc)
     np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
     np.testing.assert_array_equal(to_numpy(ntt_pallas.leaf_plain(x, one, fc)), to_numpy(a))
-    assert ntt_pallas.PLAIN_CALLS == {"leaf": 2, "mid": 0, "lane": 0}
-    assert ntt_pallas.LAUNCHES == {"leaf": 0, "mid": 0, "lane": 0}
+    assert ntt_pallas.PLAIN_CALLS == {"leaf": 2, "mid": 0, "lane": 0, "grouped": 0,
+                                      "lane_grouped": 0}
+    assert not any(ntt_pallas.LAUNCHES.values())
 
 
 def test_unported_and_bad_arguments_raise():
+    """Solinas is unported; max_r > 1 gives the grouped tables (ported,
+    see test_torch_ntt_grouped.py); bad knobs raise."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ntt_pallas.make_leaf_tables(mod, 16, inverse=False, max_r=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ntt_pallas.make_lane_tables(mod, 16, inverse=False, max_r=2, device="cpu")
+    grouped = ntt_pallas.make_leaf_tables(mod, 16, inverse=False, max_r=3, device="cpu")
+    assert isinstance(grouped, ntt_pallas.GroupedDirection)
+    assert [s.R for s in grouped.specs] == [2, 2]  # 4 stages: 2 + 2, not 3 + 1
+    lane = ntt_pallas.make_lane_tables(mod, 16, inverse=False, max_r=2, device="cpu")
+    assert isinstance(lane, ntt_pallas.GroupedLaneDirection)
+    assert [s.R for s in lane.specs] == [2, 2]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ntt_pallas.make_leaf_tables(mod, 16, inverse=False, modmul="solinas", device="cpu")
     with pytest.raises(ValueError):
