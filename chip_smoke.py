@@ -31,12 +31,25 @@ Phases, each printing its own lines:
    copy.  Each path runs with the launch counts set to 0 just before and
    read just after: every kernel of the path must have launched, and no
    plain version may have run;
+   Then the distributed six-step (``parallel.DistributedNTT``) on logical
+   shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
+   K10 against its plain version first (D = 1, 2, 3, 4, 8, both
+   orientations, the 2^24 and 2^26 splits' exchanges, a ragged canonical
+   case), then each distributed path forward and inverse against the same
+   oracle with an exact roundtrip -- comm "xla", "ring" and "overlap" at
+   2^24, the matrix and grouped engines, the lazy test modulus, 2^26, the
+   (2, 4) ("dcn", "ici") mesh -- and a 2^28 run against the single-device
+   six-step transform on the card, beside its memory budget.  Where the
+   machine has two or more cards, the 2^24 ring path over distinct cards;
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
-   ``.t().contiguous()``), and the least time the card could take;
+   ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
+   least time the card could take; the distributed 2^24 forward at D = 4
+   and 8 per comm mode, as logical shards of one card;
 6. breakdown: the radix-2 and grouped butterfly engines' 2^24 forward
-   transforms, device time by kernel (torch.profiler) and the device's
-   busy share -- informational, no check rests on it.
+   transforms, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
+   overlap): device time by kernel (torch.profiler) and the device's busy
+   share -- informational, no check rests on it.
 
 The tolerance of every comparison is zero: the arithmetic is exact.  Any
 failed check raises, so the script exits non-zero.  The line before the
@@ -105,6 +118,23 @@ def timed(fn, warmup: int, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_graph(fn, warmup: int, reps: int) -> float:
+    """Median milliseconds of one replay of ``fn`` captured in a CUDA
+    graph: the device time of its kernels without the host's per-call
+    work, for calls whose Python wrapper takes longer than their kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timed(graph.replay, warmup, reps)
 
 
 def rand_u64(rng, shape, device, below: int | None = None):
@@ -426,11 +456,55 @@ def inter_step_cases(device, rng):
     return worst
 
 
+def ring_cases(device, rng):
+    """K10 vs plain on logical shards of the card: D = 1, 2, 3, 4, 8 in both
+    orientations, the exchanges of the flagship 2^24 (4096 x 4096) and
+    2^26 (8192 x 8192) splits at D = 8, and a ragged canonical case (D = 3,
+    (5, 7) slabs: odd rows take the 8-byte path); returns the largest
+    mismatch."""
+    import torch
+
+    from sventt_tpu_torch.parallel import ring
+
+    cases = [(f"D={D} {r}x{c}", D, (r, c), orients)
+             for D, r, c, orients in ((1, 16, 64, "both"), (2, 16, 64, "both"), (4, 16, 64, "both"),
+                                      (8, 16, 64, "both"), (3, 6, 9, "both"))]
+    cases += [
+        ("2^24 comm1 D=8 512x4096", 8, (512, 4096), (1, 0)),
+        ("2^24 comm2 D=8 4096x512", 8, (4096, 512), (0, 1)),
+        ("2^26 comm1 D=8 1024x8192", 8, (1024, 8192), (1, 0)),
+        ("2^26 comm2 D=8 8192x1024", 8, (8192, 1024), (0, 1)),
+    ]
+    worst = 0
+    for name, D, shape, orients in cases:
+        for split, concat in ((1, 0), (0, 1)) if orients == "both" else (orients,):
+            shards = [rand_u64(rng, shape, device) for _ in range(D)]
+            got = ring.ring_all_to_all(shards, split, concat)
+            want = ring.ring_all_to_all_plain(shards, split, concat)
+            sync(device)
+            err = max(mismatch(g, w) for g, w in zip(got, want))
+            check(all(g.data_ptr() != x.data_ptr() for g in got for x in shards), "K10 aliased")
+            worst = max(worst, err)
+            log(f"  K10 {name} split {split} concat {concat}: max_abs_err {err}")
+            check(err <= TOL, f"K10 {name}: kernel != plain")
+    slabs = [rand_u64(rng, (3, 5, 7), device) for _ in range(3)]
+    got = ring.canonical_all_to_all(slabs)
+    want = ring.canonical_all_to_all_plain(slabs)
+    sync(device)
+    err = max(mismatch(g, w) for g, w in zip(got, want))
+    worst = max(worst, err)
+    log(f"  K10 canonical D=3 (3, 5, 7) slabs: max_abs_err {err}")
+    check(err <= TOL, "K10 canonical: kernel != plain")
+    torch.cuda.empty_cache()
+    return worst
+
+
 def counts():
     from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
+    from sventt_tpu_torch.parallel import ring
 
     mods = {"mxu": ntt_mxu, "pallas": ntt_pallas, "inter_step": inter_step,
-            "transpose": transpose}
+            "transpose": transpose, "ring": ring}
     return {
         "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
@@ -439,8 +513,9 @@ def counts():
 
 def reset_counts() -> None:
     from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
+    from sventt_tpu_torch.parallel import ring
 
-    for mod in (ntt_mxu, ntt_pallas, inter_step, transpose):
+    for mod in (ntt_mxu, ntt_pallas, inter_step, transpose, ring):
         mod.reset_counts()
 
 
@@ -558,6 +633,138 @@ def transpose_path(device, rng):
     check(not any(c3["launches"]["transpose"].values()), "a 3-D transpose launched the kernel")
     log("  transpose01_u64 256x256x256 pallas: the torch copy, no launch")
     return c
+
+
+def logical_mesh(device, D: int, shape=None):
+    """A mesh naming the card D times (logical shards): 1-D "shard", or
+    ``shape`` (2, 4) with axes ("dcn", "ici")."""
+    from sventt_tpu_torch.parallel import make_ntt_mesh
+    from sventt_tpu_torch.parallel.mesh import make_mesh
+
+    if shape is None:
+        return make_ntt_mesh(devices=[device] * D)
+    return make_mesh(shape, ("dcn", "ici"), devices=[device] * D)
+
+
+def dist_run(device, paths, oracles: dict):
+    """Each (label, modulus, generator, n, config keywords, mesh, comm)
+    distributed path: forward and inverse of the ``host_fill`` input
+    against the native oracle (``oracles`` per (modulus, n)), and an exact
+    roundtrip, with the launch counts set to 0 before and read after.
+    Returns the counts per label."""
+    import numpy as np
+    import torch
+
+    from sventt_tpu_torch.field.limb import from_numpy, to_numpy
+    from sventt_tpu_torch.parallel import DistributedNTT
+    from sventt_tpu_torch.plan import NttConfig
+    from sventt_tpu_torch.utils.fill import host_fill
+
+    out = {}
+    for label, N, g, n, kw, mesh, comm in paths:
+        t0 = time.perf_counter()
+        axes = mesh.axis_names
+        dntt = DistributedNTT(NttConfig(N, g, n, strategy="six_step", **kw), mesh,
+                              axis=axes[0] if len(axes) == 1 else axes, comm=comm)
+        sync(device)
+        build = time.perf_counter() - t0
+        x = host_fill(n, N)
+        shards = dntt.shard(from_numpy(x, device))
+        reset_counts()
+        t0 = time.perf_counter()
+        fwd = dntt.compute_forward(shards)
+        inv = dntt.compute_inverse(shards)  # x read as a bit-reversed spectrum
+        back = dntt.compute_inverse(fwd)
+        sync(device)
+        secs = time.perf_counter() - t0
+        c = counts()
+        got = [to_numpy(torch.cat(dntt.normalize(v))) for v in (fwd, inv, back)]
+        del fwd, inv, back, shards
+        want_f, want_i = oracles[(N, n)]
+        bad = [int(np.count_nonzero(a != b)) for a, b in zip(got, (want_f, want_i, x))]
+        log(f"  {label}: D={dntt.D} comm={comm} {dntt.fc.modmul} on {len(set(dntt.devices))} "
+            f"card(s); forward {bad[0]} / inverse {bad[1]} elements differ from the oracle, "
+            f"roundtrip {bad[2]} differ (tables {build:.2f} s; 3 transforms {secs * 1e3:.1f} ms "
+            "incl. first-call set-up)")
+        log(f"    launches {c['launches']}, plain calls {c['plain']}")
+        check(bad == [0, 0, 0], f"{label}: mismatch")
+        k10 = c["launches"]["ring"]["ring"]
+        check(k10 > 0 if comm == "ring" else k10 == 0, f"{label}: K10 launches {k10}")
+        check(c["launches"]["inter_step"]["inter_step"] > 0, f"{label}: no inter-step launch")
+        check(no_plain(c), f"{label}: a plain version ran on the card")
+        out[label] = c
+        del dntt
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_2p28(device):
+    """The 2^28 flagship transform, ``engine="pallas"``, on 8 logical
+    shards with the ring: its forward equals the single-device six-step
+    transform of the same split on the card (``torch.equal`` after
+    ``normalize``), its roundtrip is exact; beside the memory budget and
+    the card's peak allocation.  Returns the launch counts."""
+    import torch
+
+    from sventt_tpu_torch.parallel import DistributedNTT, distributed_memory_budget
+    from sventt_tpu_torch.plan import NTT, NttConfig
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    flag, _ = moduli()
+    n = 1 << 28
+    cfg = NttConfig(flag.modulus, flag.generator, n, strategy="six_step", engine="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dntt = DistributedNTT(cfg, logical_mesh(device, 8), comm="ring")
+    x = device_fill(n, flag.modulus, device)
+    shards = dntt.shard(x)
+    reset_counts()
+    fwd = dntt.compute_forward(shards)
+    back = dntt.compute_inverse(fwd)
+    sync(device)
+    c = counts()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ok_back = torch.equal(torch.cat(dntt.normalize(back)), x)
+    del back, shards
+    got = torch.cat(dntt.normalize(fwd))
+    del fwd, dntt
+    torch.cuda.empty_cache()
+    single = NTT(cfg, enable_inverse=False, device=device)
+    ok_fwd = torch.equal(single.normalize(single.compute_forward(x)), got)
+    sync(device)
+    b = distributed_memory_budget(cfg, 8)
+    card = 8 * (b.coefficients + b.transient + b.directions * b.inter_step_twiddles)
+    card += b.directions * b.leaf_tables
+    log(f"  2^28 D=8 ring: forward == single-device six_step {ok_fwd}, roundtrip exact {ok_back} "
+        f"(tables + 2 transforms {secs:.2f} s); plan {single.plan.m0} x {single.plan.m1}")
+    log(f"    budget per shard {b}: total {b.total} bytes; 8 logical shards on one card "
+        f"{card} bytes; torch.cuda.max_memory_allocated() {peak} bytes")
+    log(f"    launches {c['launches']}, plain calls {c['plain']}")
+    check(ok_fwd and ok_back, "2^28: mismatch")
+    check(c["launches"]["ring"]["ring"] > 0 and no_plain(c), "2^28: K10 did not run, or a plain one did")
+    del single, got, x
+    torch.cuda.empty_cache()
+    return c
+
+
+def multi_card(oracles: dict) -> None:
+    """The 2^24 ring path over distinct cards, where there are two or
+    more; otherwise one line saying it did not run."""
+    import torch
+
+    from sventt_tpu_torch.parallel import make_ntt_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[multi-card] not run: {cards} card on this machine; cross-card peer reads "
+            "and stream ordering of K10 are not verified here")
+        return
+    D = 1 << (min(cards, 8).bit_length() - 1)
+    flag, _ = moduli()
+    log(f"[multi-card] the 2^24 ring path over {D} distinct cards")
+    dist_run("cuda", [(f"pallas 2^24 D={D} ring, {D} cards", flag.modulus, flag.generator,
+                       1 << 24, dict(engine="pallas"), make_ntt_mesh(D), "ring")], oracles)
 
 
 # ---------------------------------------------------------------------------
@@ -721,30 +928,61 @@ def times(device, ntts, rng):
         kernel(key, lambda: fn(x), lambda: T.transpose_pallas_plain(x),
                bound(2 * x.numel() * x.element_size(), 0.0))
         out[key + " library"] = timed(lambda: x.t().contiguous(), 3, 10)
+    del xm, xr, twm, twr, plane
+    # the distributed 2^24 forward on logical shards of this card, per D
+    # and comm mode; then K10 alone at the D = 8 [comm 1] exchange
+    from sventt_tpu_torch.parallel import DistributedNTT, ring
+    from sventt_tpu_torch.plan import NttConfig
+
+    x24 = device_fill(n24, flag.modulus, device)
+    cfg = NttConfig(flag.modulus, flag.generator, n24, strategy="six_step", engine="pallas")
+    for D in (4, 8):
+        for comm in ("xla", "ring", "overlap"):
+            dntt = DistributedNTT(cfg, logical_mesh(device, D), comm=comm, enable_inverse=False)
+            shards = dntt.shard(x24)
+            out[f"distributed 2^24 D={D} {comm} fwd"] = timed(
+                lambda: dntt.compute_forward(shards), 3, 10
+            )
+            del dntt, shards
+    del x24
+    # The wrappers' Python work (eight shards, ctypes, allocations) takes
+    # longer than the copy, so K10, its plain version and the torch copy
+    # are each also timed as one CUDA-graph replay: their device time.
+    shards = [rand_u64(rng, (512, 4096), device) for _ in range(8)]
+    key = "K10 ring 2^24 D=8 8x(512x4096) split 1"
+    calls = {"": lambda: ring.ring_all_to_all(shards, 1, 0),
+             " plain": lambda: ring.ring_all_to_all_plain(shards, 1, 0),
+             " library": lambda: ring.copy_all_to_all(shards, 1, 0)}
+    for suffix, fn in calls.items():
+        out[key + suffix + " eager"] = timed(fn, 3, 10)
+        try:
+            out[key + suffix] = timed_graph(fn, 3, 10)
+        except RuntimeError as e:  # a measurement only: the eager time stands in
+            log(f"  {key}{suffix}: CUDA graph capture failed ({e!r}); eager time used")
+            out[key + suffix] = out[key + suffix + " eager"]
+    bounds[key] = bound(16 * n24, 0.0)
     return out, bounds
 
 
-def breakdown(label: str, ntt, device, reps: int = 5) -> None:
-    """Device time of ``reps`` forward transforms by kernel (torch.profiler,
-    CUPTI), per transform, and the device's busy share of the host-clock
-    time of the same transforms run back to back without the profiler.
-    Informational: where the profiler records no device time it says so."""
+def breakdown(label: str, run, device, reps: int = 5, top: int = 12) -> None:
+    """Device time of ``reps`` forward transforms (``run()``) by kernel
+    (torch.profiler, CUPTI; the ``top`` largest), per transform, and the
+    device's busy share of the host-clock time of the same transforms run
+    back to back without the profiler.  Informational: where the profiler
+    records no device time it says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sventt_tpu_torch.utils.fill import device_fill
-
-    x = device_fill(ntt.get_m(), ntt.config.modulus, device)
-    ntt.compute_forward(x)
+    run()
     sync(device)
     t0 = time.perf_counter()
     for _ in range(reps):
-        ntt.compute_forward(x)
+        run()
     sync(device)
     wall = (time.perf_counter() - t0) * 1e3 / reps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            ntt.compute_forward(x)
+            run()
         sync(device)
     rows = sorted(
         ((e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
@@ -758,7 +996,7 @@ def breakdown(label: str, ntt, device, reps: int = 5) -> None:
         return
     log(f"  {label} forward: device {busy:.4f} ms (profiler) of {wall:.4f} ms host clock per "
         f"transform without it (busy {100 * busy / wall:.1f}%)")
-    for name, ms, count in rows:
+    for name, ms, count in rows[:top]:
         log(f"    {ms:.4f} ms {100 * ms / busy:5.1f}%  x{count:g}  {name[:110]}")
 
 
@@ -787,7 +1025,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"total_memory {torch.cuda.get_device_properties(0).total_memory} bytes")
     log(smi)
 
     # 2. build
@@ -808,6 +1047,7 @@ def main() -> int:
     worst["pallas"].update(grouped_kernel_cases(device, rng))
     worst["transpose"] = transpose_cases(device, rng)
     worst["inter_step"] = inter_step_cases(device, rng)
+    worst["ring"] = ring_cases(device, rng)
     torch.cuda.empty_cache()
 
     # 4. the slices, each with its own counts
@@ -854,7 +1094,7 @@ def main() -> int:
           "the grouped path ran a radix-2 kernel")
     for c in (c_mxu, c_pal, c_grp):
         check(no_plain(c), "a plain version ran on the card")
-    del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"], oracles
+    del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"]
     torch.cuda.empty_cache()
     log("[path mxu_ntt_lane] K3 on the 2^24 root-row shape vs transpose + K1 + transpose")
     c_lane = lane_path(device, rng)
@@ -867,19 +1107,63 @@ def main() -> int:
     check(c_tr["launches"]["transpose"]["pair"] > 0 and c_tr["launches"]["transpose"]["plane"] > 0,
           "the blocked transpose never launched")
     check(no_plain(c_tr), "a plain version ran on the card")
+    log("[distributed] DistributedNTT on logical shards of this card vs the native oracle, "
+        "elementwise")
+    T, TG = TEST_MODULUS, TEST_GENERATOR
+    pal, m4, m8 = dict(engine="pallas"), logical_mesh(device, 4), logical_mesh(device, 8)
+    c_dist = dist_run(device, [
+        ("pallas 2^24 D=4 xla", F, G, 1 << 24, pal, m4, "xla"),
+        ("pallas 2^24 D=4 ring", F, G, 1 << 24, pal, m4, "ring"),
+        ("pallas 2^24 D=4 overlap", F, G, 1 << 24, pal, m4, "overlap"),
+        ("pallas 2^24 D=8 ring", F, G, 1 << 24, pal, m8, "ring"),
+        ("mxu 2^24 D=4 ring", F, G, 1 << 24, {}, m4, "ring"),
+        ("grouped 2^24 D=8 ring", F, G, 1 << 24, dict(engine="pallas", max_r=3), m8, "ring"),
+        ("pallas TEST 2^24 D=4 ring", T, TG, 1 << 24, pal, m4, "ring"),
+        ("pallas 2^26 D=8 ring", F, G, 1 << 26, pal, m8, "ring"),
+        ("pallas 2^24 (2, 4) dcn x ici xla", F, G, 1 << 24, pal, logical_mesh(device, 8, (2, 4)),
+         "xla"),
+    ], oracles)
+    check(c_dist["mxu 2^24 D=4 ring"]["launches"]["mxu"]["mid"] > 0, "the mxu path ran no K2")
+    check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
+          "the grouped path ran no K7")
+    log("[distributed 2^28] 8 logical shards, ring, vs the single-device six_step transform")
+    dist_2p28(device)
+    multi_card(oracles)
+    del oracles
+    torch.cuda.empty_cache()
 
     # 5. times
     ms, bounds = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp}, rng)
-    log(f"[times] median ms by CUDA events on {smi}:")
+    log(f"[times] median ms by CUDA events on {smi} (distributed: logical shards of this "
+        "card, the schedule's cost on one card's memory, not scaling):")
     for k, v in ms.items():
         extra = f"   (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})" if k in bounds else ""
         log(f"  {k}: {v:.4f}{extra}")
+    # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
+    nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
+    log(f"  K10 2^24 D=8 across 8 cards: bound {nvlink:.4f} ms by NVLink bytes "
+        "(450 GB/s each way per card); not measured")
     log("[breakdown] device time by kernel, torch.profiler")
+    from sventt_tpu_torch.parallel import DistributedNTT
+    from sventt_tpu_torch.plan import NttConfig
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    runs = {}
     for label in ("pallas 2^24", "grouped 2^24"):
+        ntt = {**ntts_pal, **ntts_grp}[label]
+        x = device_fill(ntt.get_m(), F, device)
+        runs[label] = lambda ntt=ntt, x=x: ntt.compute_forward(x)
+    cfg24 = NttConfig(F, G, 1 << 24, strategy="six_step", engine="pallas")
+    for D, comm in ((4, "ring"), (8, "ring"), (4, "overlap")):
+        dntt = DistributedNTT(cfg24, logical_mesh(device, D), comm=comm, enable_inverse=False)
+        shards = dntt.shard(device_fill(1 << 24, F, device))
+        runs[f"distributed 2^24 D={D} {comm}"] = lambda dntt=dntt, s=shards: dntt.compute_forward(s)
+    for label, run in runs.items():
         try:
-            breakdown(label, {**ntts_pal, **ntts_grp}[label], device)
+            breakdown(label, run, device)
         except Exception as e:  # instrumentation only: the checks above decide
             log(f"  {label}: profiler failed ({e!r}); not measured")
+    del runs
 
     def entry(name, key, src, replaces, launches, err):
         return {
@@ -895,6 +1179,7 @@ def main() -> int:
         lp[k] = c_grp["launches"]["pallas"][k]
     lt = c_tr["launches"]["transpose"]
     wm, wp, wt = worst["mxu"], worst["pallas"], worst["transpose"]
+    k10_launches = c_dist["pallas 2^24 D=8 ring"]["launches"]["ring"]["ring"]
     record = {"kernels": [
         entry("K1 s8 matrix NTT, lead (mxu_ntt)", "K1 lead 256x65536 pair", "ntt_mxu.cu",
               "sventt_tpu/ops/ntt_mxu.py:574", lm["lead"], wm["lead"]),
@@ -924,6 +1209,9 @@ def main() -> int:
               "not a Pallas kernel)", "inter-step 256x256x256 pair", "inter_step.cu",
               "sventt_tpu/plan/planner.py:376", c_grp["launches"]["inter_step"]["inter_step"],
               worst["inter_step"]),
+        entry("K10 ring all-to-all of slabs (ring_all_to_all / canonical_all_to_all)",
+              "K10 ring 2^24 D=8 8x(512x4096) split 1", "ring.cu",
+              "sventt_tpu/parallel/ring.py:104", k10_launches, worst["ring"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -106,6 +106,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             from .ops import inter_step, ntt_mxu, ntt_pallas, transpose
+            from .parallel import ring
 
             sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
             deps = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
@@ -120,6 +121,8 @@ def load() -> ctypes.CDLL:
                 (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_ARGTYPES),
                 (lib.sventt_inter_step_mul, inter_step._ARGTYPES),
                 (lib.sventt_transpose, transpose._ARGTYPES),
+                (lib.sventt_ring_all_to_all, ring._ARGTYPES),
+                (lib.sventt_enable_peer_access, ring._PEER_ARGTYPES),
             ):
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes

@@ -22,7 +22,11 @@ caller does the ``np.asarray`` on the JAX side), into the port's tensors:
   (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}
   or {"specs": ..., "tw": ...}}, "lane": {m1: {"stage_ls": ..., "tw": ...,
   "scale_scalar": ...} or {"specs": ..., "tw": ...}},
-  "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``.
+  "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``;
+* a ``DistributedNTT``'s tables of one direction as ``{"tw": pair (the
+  whole (n0, n1) inter-step matrix, as ``np.asarray`` gathers it), "col":
+  PlanTables layout, "row": PlanTables layout}`` -> ``parallel.sixstep.
+  DirectionTables``, the matrix cut by columns onto the shards.
 
 The JAX package broadcasts each stage's l twiddles to its vreg tiles (a
 row or lane index i holds ``w_stage[i mod l]``); the port's compact tables
@@ -199,3 +203,22 @@ def tables_from_numpy(
         plan, mod, fc, inverse, leaf=leaf, split_tw=conv["split_tw"],
         split_tw_t=conv["split_tw_t"], lane=lane,
     )
+
+
+def distributed_tables_from_numpy(
+    col_plan, row_plan, mod: Modulus, fc: FieldConsts, inverse: bool, arrays: dict, devices
+):
+    """A JAX ``DistributedNTT``'s tables of one direction (layout above;
+    its local plans were built with ``root_lead=False``) as the port's
+    ``DirectionTables``: shard d's columns [d*n1/D, (d+1)*n1/D) of the
+    inter-step matrix on ``devices[d]``, the column and row PlanTables once
+    per distinct device."""
+    from .parallel.sixstep import DirectionTables, shard_columns
+
+    devices = [resolve_device(d) for d in devices]
+    tw = shard_columns(montpair_from_numpy(arrays["tw"], "cpu"), devices)
+    col, row = {}, {}
+    for dev in dict.fromkeys(devices):
+        col[dev] = tables_from_numpy(col_plan, mod, fc, inverse, arrays["col"], dev)
+        row[dev] = tables_from_numpy(row_plan, mod, fc, inverse, arrays["row"], dev)
+    return DirectionTables(tw, col, row)

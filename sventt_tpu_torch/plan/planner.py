@@ -217,7 +217,10 @@ class PlanTables:
     of a pallas row leaf, for the unbatched lane-axis step;
     ``split_tw[(m0, m1)]``: (m0, m1) MontPair of a level; ``split_tw_t[(m0,
     m1)]``: the (m1, m0) transposed table of an unbatched root whose row is
-    an mxu leaf (its lead-axis step).  The pallas knobs (``block_b``,
+    an mxu leaf (its lead-axis step).  ``root_lead=False`` keeps that
+    root's table in its (m0, m1) layout instead, for callers that always
+    enter the plan with a batch axis (the distributed local plans), so a
+    batched call never transposes it back.  The pallas knobs (``block_b``,
     ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the pallas tables.
     """
 
@@ -225,7 +228,7 @@ class PlanTables:
         self, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
         device=None, split_w_only: bool | None = None, block_b: int | None = None,
         spc: int | None = None, rows: int | None = None, max_r: int | None = None,
-        tw_layout: str | None = None,
+        tw_layout: str | None = None, root_lead: bool = True,
     ):
         check_ported(plan)
         self.plan = plan
@@ -240,7 +243,7 @@ class PlanTables:
         self.lane: dict = {}
         self.split_tw: dict = {}
         self.split_tw_t: dict = {}
-        self._prepare(plan, root=True)
+        self._prepare(plan, root=root_lead)
 
     @classmethod
     def from_parts(

@@ -96,12 +96,16 @@ class NTT:
         cfg = self.config
         if cfg.plan_spec is not None:
             return planner.build_plan_spec(cfg.n, cfg.plan_spec)
-        if cfg.strategy != "auto":
-            raise NotImplementedError(
-                f"strategy={cfg.strategy!r} is not ported yet "
-                "(ROADMAP Queue 1 item 5); strategy='auto' is"
-            )
-        return planner.build_plan(cfg.n, self.engine, cfg.max_fused)
+        if cfg.strategy == "auto":
+            return planner.build_plan(cfg.n, self.engine, cfg.max_fused)
+        if cfg.resolved_strategy == "iterative":
+            return planner.Leaf(cfg.n, self.engine)
+        n0, n1 = cfg.split
+        return planner.Split(
+            cfg.n, n0, n1,
+            planner.build_plan(n0, self.engine, cfg.max_fused),
+            planner.build_plan(n1, self.engine, cfg.max_fused),
+        )
 
     # -- public API -----------------------------------------------------------
 

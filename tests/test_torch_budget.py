@@ -1,0 +1,130 @@
+"""PyTorch port, the distributed memory budget: ``parallel.budget``
+against sventt_tpu's, and its table bytes against the tables the port
+really builds.
+
+The coefficient, transient and inter-step twiddle bytes follow the same
+rule as the JAX package (8 bytes a point); the table bytes are the port's
+own compact tables, held to the ``nbytes`` of the tensors that
+``DistributedNTT`` builds on CPU shards.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from sventt_tpu.parallel import distributed_memory_budget as jbudget
+from sventt_tpu.plan import NttConfig as JNttConfig
+from sventt_tpu_torch.field.modulus import (
+    FLAGSHIP_GENERATOR,
+    FLAGSHIP_MODULUS,
+    TEST_GENERATOR,
+    TEST_MODULUS,
+)
+from sventt_tpu_torch.parallel import (
+    DistributedNTT,
+    distributed_memory_budget,
+    make_ntt_mesh,
+    validate_2p30,
+)
+from sventt_tpu_torch.parallel.budget import DEFAULT_HBM_BYTES
+from sventt_tpu_torch.plan import NttConfig
+
+
+def _args(N, g, log2n, n0=None):
+    n = 1 << log2n
+    return dict(modulus=N, generator=g, n=n, strategy="six_step", n0=n0,
+                n1=None if n0 is None else n // n0)
+
+
+@pytest.mark.parametrize(
+    "args,devices,kw",
+    [
+        pytest.param(_args(TEST_MODULUS, TEST_GENERATOR, 20), 8, {}, id="2^20-D8"),
+        pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 26), 4, {}, id="2^26-D4"),
+        pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30), 8,
+                     dict(enable_inverse=False, donate_input=True), id="2^30-D8-fwd-donated"),
+        pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30), 2, {}, id="2^30-D2"),
+    ],
+)
+def test_budget_matches_jax(args, devices, kw):
+    """Coefficient, transient and inter-step twiddle bytes and the count of
+    directions equal the JAX budget's for the same config and D."""
+    got = distributed_memory_budget(NttConfig(**args), devices, **kw)
+    want = jbudget(JNttConfig(**args), devices, **kw)
+    for name in ("n", "devices", "coefficients", "transient", "inter_step_twiddles", "directions"):
+        assert getattr(got, name) == getattr(want, name), name
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of every tensor held by a table object, its fields and items."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(v) for v in obj)
+    return 0
+
+
+@pytest.mark.parametrize(
+    "log2n,n0,kw",
+    [
+        pytest.param(log2n, None, kw, id=f"2^{log2n}-{name}")
+        for log2n in (12, 13, 14)
+        for name, kw in (("mxu", dict(engine="mxu")), ("pallas", dict(engine="pallas")),
+                         ("grouped", dict(engine="pallas", max_r=3)))
+    ]
+    + [
+        pytest.param(18, 1 << 4, dict(engine="pallas"), id="2^18-row-split-pallas"),
+        pytest.param(18, 1 << 4, dict(engine="pallas", max_r=4), id="2^18-row-split-grouped"),
+        pytest.param(20, 1 << 4, dict(engine="mxu"), id="2^20-row-split-mxu"),
+    ],
+)
+def test_leaf_tables_match_built_tables(log2n, n0, kw):
+    """``leaf_tables`` equals the summed bytes of the tensors the port's
+    PlanTables built for the n0 and n1 plans (one direction, one device)."""
+    cfg = NttConfig(**_args(TEST_MODULUS, TEST_GENERATOR, log2n, n0), **kw)
+    dntt = DistributedNTT(cfg, make_ntt_mesh(devices=["cpu"] * 8), enable_inverse=False)
+    t = dntt._forward
+    built = 0
+    for tables in (t.col[torch.device("cpu")], t.row[torch.device("cpu")]):
+        built += sum(_tensor_bytes(getattr(tables, k)) for k in ("leaf", "lane", "split_tw", "split_tw_t"))
+    budget = distributed_memory_budget(cfg, 8, enable_inverse=False)
+    assert budget.leaf_tables == built
+    assert budget.directions == 1
+    # the sharded inter-step matrix: the per-device figure times D
+    assert budget.inter_step_twiddles * 8 == sum(_tensor_bytes(tw) for tw in t.tw)
+
+
+def test_validate_2p30_fits_the_h100():
+    b = validate_2p30(8)
+    assert b.coefficients == (1 << 30) // 8 * 8
+    assert b.inter_step_twiddles == b.coefficients  # companion-free
+    assert b.fits() and b.total <= DEFAULT_HBM_BYTES
+    assert 70 * (1 << 30) < DEFAULT_HBM_BYTES < 80 * (1 << 30)
+    # one card holds the whole 2^30 transform (40 GiB both ways), not 2^31
+    # with both directions and the caller's buffer kept (80 GiB)
+    assert validate_2p30(1).fits()
+    cfg = NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 31))
+    assert not distributed_memory_budget(cfg, 1).fits()
+    assert distributed_memory_budget(cfg, 1, enable_inverse=False, donate_input=True).fits()
+
+
+def test_budget_rejects_a_mesh_of_3():
+    cfg = NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30))
+    with pytest.raises(ValueError, match="divisible"):
+        distributed_memory_budget(cfg, 3)
+    with pytest.raises(ValueError, match="divisible"):
+        DistributedNTT(NttConfig(**_args(TEST_MODULUS, TEST_GENERATOR, 12)),
+                       make_ntt_mesh(devices=["cpu"] * 3))
+
+
+def test_companion_threshold_reflected():
+    """Below 2^26 the inter-step matrix keeps its Montgomery companion."""
+    mid = distributed_memory_budget(NttConfig(**_args(TEST_MODULUS, TEST_GENERATOR, 20)), 8)
+    assert mid.inter_step_twiddles == 2 * mid.coefficients
+    big = distributed_memory_budget(NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30)), 8)
+    assert big.inter_step_twiddles == big.coefficients

@@ -115,7 +115,8 @@ def test_describe_and_get_m():
         dict(engine="jnp"),
         dict(engine="pallas", max_r=3, modmul="solinas"),
         dict(tune=True),
-        dict(strategy="six_step"),
+        # six_step is ported; its local plans on the unported jnp engine are not
+        pytest.param(dict(strategy="six_step", engine="jnp"), id="strategy=six_step"),
         dict(plan_spec="pallas:64,jnp"),
         dict(modmul="solinas"),
         dict(plan_spec="jnp:64,mxu"),
