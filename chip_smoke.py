@@ -14,6 +14,10 @@ Phases, each printing its own lines:
    plane-minimizer input; the radix-2 butterfly kernel (K4 leaf, K5 mid,
    K6 lane) with every twiddle mode, both directions, the flagship and the
    lazy test modulus under Montgomery and Shoup, a ragged batch and m = 2;
+   the same matrix cases under the u7 and s8b plane schemes, with K1's
+   2^24 shape and, for u7, the m = 1024 all-ones input (against the golden
+   model too); K11 (the fused u7 prototype) at (128, 32768), with columns
+   0 and 7777 against the golden model;
    the grouped kernel (K7 leaf, K8 lane) at max_r 2, 3 and 4 the same way,
    m = 2 and m = 8 included; the blocked transpose (K9a/K9b) at the 2^24
    root-row shapes with three block shapes, int64 and int32; the
@@ -28,9 +32,11 @@ Phases, each printing its own lines:
    plan calls) on the 2^24 root-row shape against the lead orientation
    between transposes, and ``transpose01_u64(x, "pallas")`` /
    ``transpose_pallas`` on the 2^24 root-row shapes against the torch
-   copy.  Each path runs with the launch counts set to 0 just before and
-   read just after: every kernel of the path must have launched, and no
-   plain version may have run;
+   copy; the u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
+   ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
+   model, an exact roundtrip and s8.  Each path runs with the launch counts
+   set to 0 just before and read just after: every kernel of the path must
+   have launched, and no plain version may have run;
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
    shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
    K10 against its plain version first (D = 1, 2, 3, 4, 8, both
@@ -44,7 +50,10 @@ Phases, each printing its own lines:
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
-   least time the card could take; the distributed 2^24 forward at D = 4
+   least time the card could take -- the u7 and s8b kernels at K1/K2/K3's
+   2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
+   (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
+   with it as a separate pass); the distributed 2^24 forward at D = 4
    and 8 per comm mode, as logical shards of one card;
 6. breakdown: the radix-2 and grouped butterfly engines' 2^24 forward
    transforms, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
@@ -203,9 +212,11 @@ def moduli():
     return Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR), Modulus(TEST_MODULUS, TEST_GENERATOR)
 
 
-def mxu_kernel_cases(device, rng):
-    """K1/K2/K3 vs plain at the main path's shapes; returns the largest
-    mismatch per orientation."""
+def mxu_kernel_cases(device, rng, scheme: str = "s8"):
+    """K1/K2/K3 of one plane scheme vs plain at the main path's shapes;
+    returns the largest mismatch per orientation.  s8 adds the m = 1024
+    crafted plane-minimizer input, u7 the m = 1024 all-ones input; u7 and
+    s8b add K1's 2^24 shape (K2's and K3's are in every scheme's list)."""
     import numpy as np
 
     from sventt_tpu_torch.field.golden import GoldenNTT
@@ -235,12 +246,15 @@ def mxu_kernel_cases(device, rng):
         ("K1 lead 2x5 none fwd", flag, False, "lead", (2, 5), None),
         ("K2 mid 3x8x7 pair inv TEST (lazy)", test, True, "mid", (3, 8, 7), "pair"),
     ]
+    if scheme != "s8":
+        cases.append(("K1 lead 256x65536 pair fwd", flag, False, "lead", (256, 65536), "pair"))
     worst = {"lead": 0, "mid": 0, "lane": 0}
     calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid}
+    tag = "" if scheme == "s8" else f"{scheme} "
     for name, mod, inverse, orient, shape, mode in cases:
         fc = FieldConsts.from_modulus(mod)
         m = {"lead": shape[0], "mid": shape[1], "lane": shape[-1]}[orient]
-        t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device=device)
+        t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, scheme=scheme, device=device)
         x = rand_u64(rng, shape, device)
         if orient == "lane":
             got = ntt_mxu.mxu_ntt_lane(x, t, fc)
@@ -255,23 +269,62 @@ def mxu_kernel_cases(device, rng):
         sync(device)
         err = mismatch(got, want)
         worst[orient] = max(worst[orient], err)
-        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy})")
-        check(err <= TOL, f"{name}: kernel != plain")
-    # m = 1024: the crafted input, kernel vs plain vs the golden model
+        log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy})")
+        check(err <= TOL, f"{tag}{name}: kernel != plain")
+        del x, got, want
     fc = FieldConsts.from_modulus(flag)
-    t = ntt_mxu.make_mxu_tables(flag, 1024, inverse=False, device=device)
-    xc = crafted_1024(flag, t)
-    x = from_numpy(xc.reshape(1024, 1), device)
+    if scheme == "s8":
+        # m = 1024: the crafted input, kernel vs plain vs the golden model
+        t = ntt_mxu.make_mxu_tables(flag, 1024, inverse=False, device=device)
+        xc = crafted_1024(flag, t)
+        what = "crafted plane minimizer"
+    elif scheme == "u7":
+        # m = 1024, 2^64 - 1 in every point: the 7-bit data planes 0-8 at
+        # 127, so the 19 unsigned product planes at the largest sums the
+        # tables allow (each < 2^27.4)
+        t = ntt_mxu.make_mxu_tables(flag, 1024, inverse=False, scheme="u7", device=device)
+        xc = np.full(1024, (1 << 64) - 1, dtype=np.uint64)
+        what = "all-ones 2^64-1"
+    else:
+        return worst
+    x = from_numpy(np.repeat(xc.reshape(1024, 1), 8, axis=1), device)
     got = ntt_mxu.mxu_ntt(x, t, fc)
     want = ntt_mxu.mxu_plain(x, t, fc)
     sync(device)
     err = mismatch(got, want)
     worst["lead"] = max(worst["lead"], err)
     golden = GoldenNTT(1024, flag).forward([int(v) % flag.modulus for v in xc])
-    check(err <= TOL, "m=1024 crafted: kernel != plain")
-    check([int(v) for v in to_numpy(got)[:, 0]] == golden, "m=1024 crafted: != golden")
-    log(f"  K1 lead 1024x1 crafted plane minimizer: max_abs_err {err}, == golden")
+    check(err <= TOL, f"{tag}m=1024 {what}: kernel != plain")
+    got_h = to_numpy(got)
+    check(all([int(v) for v in got_h[:, c]] == golden for c in range(8)), f"{tag}m=1024 {what}: != golden")
+    log(f"  {tag}K1 lead 1024x8 {what}: max_abs_err {err}, == golden (x mod N)")
     return worst
+
+
+def fused_cases(device, rng):
+    """K11 at its own shape, (128, 32768), vs its plain version, and columns
+    0 and 7777 vs the golden model (as the JAX prototype checks them);
+    returns the largest mismatch."""
+    from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
+    from sventt_tpu_torch.field.golden import GoldenNTT
+    from sventt_tpu_torch.field.limb import to_numpy
+
+    flag, _ = moduli()
+    stack = fused.make_fused_stack(flag, device=device)
+    x = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
+    got = fused.mxu_fused_ntt(x, stack, flag)
+    want = fused.mxu_fused_plain(x, stack, flag)
+    sync(device)
+    err = mismatch(got, want)
+    log(f"  K11 fused u7 128x32768: max_abs_err {err}")
+    check(err <= TOL, "K11: kernel != plain")
+    golden = GoldenNTT(128, flag)
+    xh, gh = to_numpy(x), to_numpy(got)
+    for col in (0, 7777):
+        ok = [int(v) for v in gh[:, col]] == golden.forward([int(v) for v in xh[:, col]])
+        log(f"  K11 golden col {col}: {ok}")
+        check(ok, f"K11 column {col} != golden")
+    return err
 
 
 def pallas_kernel_cases(device, rng):
@@ -499,12 +552,17 @@ def ring_cases(device, rng):
     return worst
 
 
-def counts():
+def _counted_modules() -> dict:
+    from sventt_tpu_torch.experimental import mxu_fused_kernel
     from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
     from sventt_tpu_torch.parallel import ring
 
-    mods = {"mxu": ntt_mxu, "pallas": ntt_pallas, "inter_step": inter_step,
-            "transpose": transpose, "ring": ring}
+    return {"mxu": ntt_mxu, "pallas": ntt_pallas, "inter_step": inter_step,
+            "transpose": transpose, "ring": ring, "fused": mxu_fused_kernel}
+
+
+def counts():
+    mods = _counted_modules()
     return {
         "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
@@ -512,10 +570,7 @@ def counts():
 
 
 def reset_counts() -> None:
-    from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
-    from sventt_tpu_torch.parallel import ring
-
-    for mod in (ntt_mxu, ntt_pallas, inter_step, transpose, ring):
+    for mod in _counted_modules().values():
         mod.reset_counts()
 
 
@@ -633,6 +688,66 @@ def transpose_path(device, rng):
     check(not any(c3["launches"]["transpose"].values()), "a 3-D transpose launched the kernel")
     log("  transpose01_u64 256x256x256 pallas: the torch copy, no launch")
     return c
+
+
+def scheme_path(device, rng):
+    """The u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
+    ``mxu_ntt_lane`` (the JAX package's route to them: its ops-level entry
+    points), then K11 through ``mxu_fused_ntt``, each with the launch counts
+    set to 0 just before and read just after.  Per scheme at m = 256: a
+    forward along the lead axis of (256, 1024) whose columns 0-3 must equal
+    the golden model, its inverse along the lane axis of the transposed
+    result (an exact roundtrip), and a mid forward of (4, 256, 256) with the
+    pair twiddle that must equal s8's (launched after the counts are read).
+    Returns the counts per scheme and for K11."""
+    from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
+    from sventt_tpu_torch.field.golden import GoldenNTT
+    from sventt_tpu_torch.field.limb import FieldConsts, to_numpy
+    from sventt_tpu_torch.ops import ntt_mxu
+
+    flag, _ = moduli()
+    fc = FieldConsts.from_modulus(flag)
+    golden = GoldenNTT(256, flag)
+    x = rand_u64(rng, (256, 1024), device, below=flag.modulus)
+    xm = rand_u64(rng, (4, 256, 256), device, below=flag.modulus)
+    twm = rand_twiddle(rng, (4, 256), flag, "pair", device)
+    s8 = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
+    out = {}
+    for scheme in ("u7", "s8b"):
+        tf, ti = (ntt_mxu.make_mxu_tables(flag, 256, inverse=inv, scheme=scheme, device=device)
+                  for inv in (False, True))
+        reset_counts()
+        f = ntt_mxu.mxu_ntt(x, tf, fc)
+        back = ntt_mxu.mxu_ntt_lane(f.t().contiguous(), ti, fc)
+        mid = ntt_mxu.mxu_ntt_mid(xm, tf, fc, twm)
+        sync(device)
+        out[scheme] = c = counts()
+        xh, fh = to_numpy(x), to_numpy(f)
+        ok = all([int(v) for v in fh[:, col]] == golden.forward([int(v) for v in xh[:, col]])
+                 for col in range(4))
+        err_mid = mismatch(mid, ntt_mxu.mxu_ntt_mid(xm, s8, fc, twm))
+        log(f"  {scheme}: forward columns 0-3 == golden {ok}; lane inverse roundtrip exact "
+            f"{bool((back.t() == x).all())}; mid pair max_abs_err {err_mid} against s8")
+        log(f"    launches {c['launches']['mxu']}, plain calls {c['plain']}")
+        check(ok and bool((back.t() == x).all()) and err_mid == 0, f"{scheme} path: mismatch")
+        check(all(c["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
+              f"{scheme}: an orientation never launched")
+        check(no_plain(c), f"{scheme}: a plain version ran on the card")
+    stack = fused.make_fused_stack(flag, device=device)
+    x128 = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
+    reset_counts()
+    y = fused.mxu_fused_ntt(x128, stack, flag)
+    sync(device)
+    out["fused"] = c = counts()
+    g128 = GoldenNTT(128, flag)
+    xh, yh = to_numpy(x128), to_numpy(y)
+    ok = all([int(v) for v in yh[:, col]] == g128.forward([int(v) for v in xh[:, col]])
+             for col in (0, 1, 32767))
+    log(f"  K11 mxu_fused_ntt 128x32768: columns 0, 1, 32767 == golden {ok}; "
+        f"launches {c['launches']['fused']}, plain calls {c['plain']}")
+    check(ok, "K11 path: != golden")
+    check(c["launches"]["fused"]["fused"] > 0 and no_plain(c), "K11 did not launch, or a plain one ran")
+    return out
 
 
 def logical_mesh(device, D: int, shape=None):
@@ -781,10 +896,19 @@ def bound(bytes_moved: float, ops_time_s: float) -> tuple[float, str]:
     return ops_time_s * 1e3, "operations"
 
 
-def mxu_bound(points: int, m: int, tw_bytes: int) -> tuple[float, str]:
-    """K1/K2/K3: 64*m int8 multiply-adds a point on the tensor cores;
-    8 bytes a point in, 8 out, plus the twiddle table read once."""
-    return bound(16 * points + tw_bytes, 2 * 64 * m * points / INT8_OPS)
+#: int8 multiply-adds a point per unit of m that each plane scheme's own
+#: formulation takes: s8 8 x 8 planes, u7 10 x 10, s8b its banded matrix's
+#: 15 x 8 blocks (the TPU's MXU multiplied the zero blocks too).  Printed
+#: beside the bound, which counts the least of them.
+SCHEME_MACS = {"s8": 64, "u7": 100, "s8b": 120}
+
+
+def mxu_bound(points: int, m: int, tw_bytes: int, macs: int = 64) -> tuple[float, str]:
+    """K1/K2/K3 and K11: every scheme computes the same length-m NTT, and
+    the least work that does it, s8's, is 64 * m int8 multiply-adds a point
+    on the tensor cores (``macs`` another count); 8 bytes a point in, 8 out,
+    plus the twiddle table read once."""
+    return bound(16 * points + tw_bytes, 2 * macs * m * points / INT8_OPS)
 
 
 def butterfly_bound(points: int, m: int, inverse: bool, modmul: str, tw: str | None,
@@ -843,11 +967,58 @@ def inter_step_bound(points: int, tw_points: int, tw: str) -> tuple[float, str]:
     return bound(16 * points + tw_points * (16 if tw == "pair" else 8), imads / IMAD_PER_S)
 
 
+def ab_level(device, fc, out: dict, bounds: dict, own: dict) -> None:
+    """The round-5 A/B harnesses of the JAX package, timed by CUDA events:
+    experimental/r5_s8_ab.py (s8 against u7; the pair twiddle fused into
+    the level against a separate inter-step pass) and r5_banded_ab.py (s8
+    against s8b).  One mid level of 2^22 points, (a, m, b) = (64, 256, 256)
+    (the JAX harnesses' shape), iota data, the flagship modulus, the
+    six-step row twiddles of (a, m).  Each scheme's tables first transform
+    two columns (one of N-1) that must equal the golden model.  Every
+    scheme's tables are built before anything is timed, so an s8b leg at
+    m > 512 would fail up front (the JAX banded harness fails halfway at
+    m = 1024)."""
+    import numpy as np
+    import torch
+
+    from sventt_tpu_torch.field.golden import GoldenNTT
+    from sventt_tpu_torch.field.limb import from_numpy, to_numpy
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu
+    from sventt_tpu_torch.plan.planner import row_twiddles
+
+    flag, _ = moduli()
+    a, m, b = 64, 256, 256
+    tables = {s: ntt_mxu.make_mxu_tables(flag, m, inverse=False, scheme=s, device=device)
+              for s in SCHEME_MACS}
+    xs = np.random.default_rng(5).integers(0, flag.modulus, (m, 2), dtype=np.uint64)
+    xs[:, 1] = flag.modulus - 1
+    golden = GoldenNTT(m, flag)
+    want = [golden.forward([int(v) for v in xs[:, c]]) for c in range(2)]
+    x = torch.arange(a * m * b, dtype=torch.int64, device=device).reshape(a, m, b)
+    tw = row_twiddles(flag, a, m, inverse=False, w_only=False, device=device)
+    tw_bytes = 16 * a * m
+    for scheme, t in tables.items():
+        got = to_numpy(ntt_mxu.mxu_ntt(from_numpy(xs, device), t, fc))
+        check(all([int(v) for v in got[:, c]] == want[c] for c in range(2)),
+              f"A/B {scheme}: != golden")
+        key = f"A/B mid {a}x{m}x{b} {scheme}"
+        out[key] = timed(lambda: ntt_mxu.mxu_ntt_mid(x, t, fc), 3, 10)
+        out[key + " +fused-tw"] = timed(lambda: ntt_mxu.mxu_ntt_mid(x, t, fc, tw), 3, 10)
+        out[key + " +separate-tw"] = timed(
+            lambda: ntt_mxu.mxu_ntt_mid(inter_step.mont_mul_bcast(fc, x, tw), t, fc), 3, 10
+        )
+        for k, twb in ((key, 0), (key + " +fused-tw", tw_bytes), (key + " +separate-tw", tw_bytes)):
+            bounds[k] = mxu_bound(a * m * b, m, twb)
+            own[k] = mxu_bound(a * m * b, m, twb, SCHEME_MACS[scheme])[0]
+    log(f"  A/B level (a, m, b) = ({a}, {m}, {b}): every scheme == golden on 2 columns")
+
+
 def times(device, ntts, rng):
     """CUDA-event medians: transforms, and each kernel vs its plain
     version at the 2^24 plans' shapes; with each kernel's bound."""
     import torch
 
+    from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import inter_step, ntt_mxu
     from sventt_tpu_torch.ops import ntt_pallas as P
@@ -856,7 +1027,7 @@ def times(device, ntts, rng):
     from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
     from sventt_tpu_torch.utils.fill import device_fill
 
-    out, bounds = {}, {}
+    out, bounds, own = {}, {}, {}
     for label, ntt in ntts.items():
         n = ntt.get_m()
         x = device_fill(n, ntt.config.modulus, device)
@@ -868,10 +1039,12 @@ def times(device, ntts, rng):
     fc = FieldConsts.from_modulus(flag)
     n24 = 1 << 24
 
-    def kernel(key, fn, plain, bnd):
+    def kernel(key, fn, plain, bnd, own_ms=None):
         out[key] = timed(fn, 3, 10)
         out[key + " plain"] = timed(plain, 1, 3)
         bounds[key] = bnd
+        if own_ms is not None:
+            own[key] = own_ms
 
     # matrix engine: the 2^24 plan's root row step (lead, transposed
     # twiddle), inner row step (mid, (256, 256) twiddle rows) and the lane
@@ -891,7 +1064,26 @@ def times(device, ntts, rng):
     out["K1 lead 65536x256 between transposes"] = timed(
         lambda: transpose01(ntt_mxu.mxu_ntt(transpose01(xr), t, fc)), 3, 10
     )
-    del xl, twl, xr
+    # the other plane schemes at the same three shapes, and K11 at its own
+    for scheme in ("u7", "s8b"):
+        ts = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, scheme=scheme, device=device)
+        macs = SCHEME_MACS[scheme]
+        kernel(f"K1 lead 256x65536 pair {scheme}", lambda: ntt_mxu.mxu_ntt(xl, ts, fc, twl),
+               lambda: ntt_mxu.mxu_plain(xl, ts, fc, twl), mxu_bound(n24, 256, 16 * n24),
+               mxu_bound(n24, 256, 16 * n24, macs)[0])
+        kernel(f"K2 mid 256x256x256 pair {scheme}", lambda: ntt_mxu.mxu_ntt_mid(xm, ts, fc, twm),
+               lambda: ntt_mxu.mxu_plain(xm, ts, fc, twm, mid=True),
+               mxu_bound(n24, 256, 16 * 65536), mxu_bound(n24, 256, 16 * 65536, macs)[0])
+        kernel(f"K3 lane 65536x256 {scheme}", lambda: ntt_mxu.mxu_ntt_lane(xr, ts, fc),
+               lambda: ntt_mxu.mxu_plain(xr, ts, fc, lane=True), mxu_bound(n24, 256, 0),
+               mxu_bound(n24, 256, 0, macs)[0])
+    stack = fused.make_fused_stack(flag, device=device)
+    x128 = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
+    kernel("K11 fused 128x32768", lambda: fused.mxu_fused_ntt(x128, stack, flag),
+           lambda: fused.mxu_fused_plain(x128, stack, flag), mxu_bound(1 << 22, 128, 0),
+           mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0])
+    del xl, twl, xr, x128
+    ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root
     lt = P.make_leaf_tables(flag, 256, inverse=False, device=device)
     kernel("K4 leaf 256x65536", lambda: P.fused_ntt(xm.view(256, 65536), lt, fc),
@@ -961,7 +1153,7 @@ def times(device, ntts, rng):
             log(f"  {key}{suffix}: CUDA graph capture failed ({e!r}); eager time used")
             out[key + suffix] = out[key + suffix + " eager"]
     bounds[key] = bound(16 * n24, 0.0)
-    return out, bounds
+    return out, bounds, own
 
 
 def breakdown(label: str, run, device, reps: int = 5, top: int = 12) -> None:
@@ -1043,7 +1235,12 @@ def main() -> int:
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
     log("[kernel vs plain] bitwise, tolerance 0")
-    worst = {"mxu": mxu_kernel_cases(device, rng), "pallas": pallas_kernel_cases(device, rng)}
+    worst = {"mxu": mxu_kernel_cases(device, rng)}
+    for scheme in ("u7", "s8b"):
+        worst[f"mxu {scheme}"] = mxu_kernel_cases(device, rng, scheme)
+    worst["fused"] = fused_cases(device, rng)
+    torch.cuda.empty_cache()
+    worst["pallas"] = pallas_kernel_cases(device, rng)
     worst["pallas"].update(grouped_kernel_cases(device, rng))
     worst["transpose"] = transpose_cases(device, rng)
     worst["inter_step"] = inter_step_cases(device, rng)
@@ -1107,6 +1304,10 @@ def main() -> int:
     check(c_tr["launches"]["transpose"]["pair"] > 0 and c_tr["launches"]["transpose"]["plane"] > 0,
           "the blocked transpose never launched")
     check(no_plain(c_tr), "a plain version ran on the card")
+    log("[path schemes] u7 / s8b through mxu_ntt, mxu_ntt_mid, mxu_ntt_lane; K11 through "
+        "mxu_fused_ntt")
+    c_schemes = scheme_path(device, rng)
+    torch.cuda.empty_cache()
     log("[distributed] DistributedNTT on logical shards of this card vs the native oracle, "
         "elementwise")
     T, TG = TEST_MODULUS, TEST_GENERATOR
@@ -1133,11 +1334,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. times
-    ms, bounds = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp}, rng)
+    ms, bounds, own = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp}, rng)
     log(f"[times] median ms by CUDA events on {smi} (distributed: logical shards of this "
         "card, the schedule's cost on one card's memory, not scaling):")
     for k, v in ms.items():
         extra = f"   (bound {bounds[k][0]:.4f} ms, {bounds[k][1]})" if k in bounds else ""
+        if k in own:
+            extra += f"   (the scheme's own products: {own[k]:.4f} ms)"
         log(f"  {k}: {v:.4f}{extra}")
     # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
     nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
@@ -1213,6 +1416,21 @@ def main() -> int:
               "K10 ring 2^24 D=8 8x(512x4096) split 1", "ring.cu",
               "sventt_tpu/parallel/ring.py:104", k10_launches, worst["ring"]),
     ]}
+    for scheme in ("u7", "s8b"):
+        ls, ws = c_schemes[scheme]["launches"]["mxu"], worst[f"mxu {scheme}"]
+        for k, orient, fn, key, line in (
+            ("K1", "lead", "mxu_ntt", "K1 lead 256x65536 pair", 680),
+            ("K2", "mid", "mxu_ntt_mid", "K2 mid 256x256x256 pair", 680),
+            ("K3", "lane", "mxu_ntt_lane", "K3 lane 65536x256", 527),
+        ):
+            record["kernels"].append(entry(
+                f"{k} {scheme} matrix NTT, {orient} ({fn}, make_mxu_tables(scheme={scheme!r}))",
+                f"{key} {scheme}", "ntt_mxu.cu", f"sventt_tpu/ops/ntt_mxu.py:{line}",
+                ls[orient], ws[orient]))
+    record["kernels"].append(entry(
+        "K11 fused u7 prototype, 128 points (mxu_fused_ntt; the u7 lead instantiation)",
+        "K11 fused 128x32768", "ntt_mxu.cu", "experimental/mxu_fused_kernel.py:91",
+        c_schemes["fused"]["launches"]["fused"]["fused"], worst["fused"]))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -5,7 +5,7 @@ functions turn the JAX package's tables, handed over as numpy arrays (the
 caller does the ``np.asarray`` on the JAX side), into the port's tensors:
 
 * a limb pair ``(hi, lo)`` of uint32 arrays -> an int64 tensor;
-* ``MxuDirection.planes`` / ``corr`` -> ``ops.ntt_mxu.MxuDirection``;
+* ``MxuDirection.planes`` / ``corr`` of any scheme -> ``ops.ntt_mxu.MxuDirection``;
 * ``FusedDirection`` (``stage_ls``, ``tw``: per stage the four (rows,
   block_b) arrays w_hi, w_lo, wp_hi, wp_lo; ``scale``: four arrays of the
   broadcast (s, sp) pair, or none) -> ``ops.ntt_pallas.FusedDirection``;
@@ -43,7 +43,7 @@ import torch
 
 from .field.limb import FieldConsts, from_limbs
 from .field.modulus import Modulus
-from .ops.ntt_mxu import MxuDirection
+from .ops.ntt_mxu import SCHEMES, MxuDirection, _mat_dims
 from .ops.ntt_pallas import (
     FusedDirection,
     GroupedDirection,
@@ -69,20 +69,32 @@ def montpair_from_numpy(pair: dict, device=None) -> MontPair:
 
 
 def mxu_direction_from_numpy(
-    mod: Modulus, m: int, inverse: bool, planes: np.ndarray, corr, device=None
+    mod: Modulus, m: int, inverse: bool, planes: np.ndarray, corr, device=None,
+    scheme: str = "s8",
 ) -> MxuDirection:
-    """The JAX ``MxuDirection`` (s8 scheme) as the port's: ``planes`` the
-    (8m, m) int8 array, ``corr`` its (hi, lo) limb pair of shape (1, m)."""
+    """The JAX ``MxuDirection`` of one scheme as the port's: ``planes`` the
+    int8 array of ``_mat_dims(scheme, m)`` ((8m, m) s8, (10m, m) u7, the
+    banded (15m, 8m) s8b), ``corr`` its (hi, lo) limb pair of shape (1, m),
+    or None for u7."""
     device = resolve_device(device)
     planes = np.asarray(planes)
-    if planes.dtype != np.int8 or planes.shape != (8 * m, m):
-        raise ValueError(f"expected (8m, m) int8 planes, got {planes.dtype} {planes.shape}")
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown mxu plane scheme {scheme!r}")
+    dims = _mat_dims(scheme, m)
+    if planes.dtype != np.int8 or planes.shape != dims:
+        raise ValueError(f"expected {dims} int8 {scheme} planes, got {planes.dtype} {planes.shape}")
+    if (corr is None) != (scheme == "u7"):
+        raise ValueError(f"scheme {scheme} {'takes no' if scheme == 'u7' else 'needs a'} corr")
+    if corr is not None:
+        corr = from_limbs(*corr, device)
+        if corr.numel() != m:
+            raise ValueError(f"expected (1, {m}) corr limbs, got {tuple(corr.shape)}")
+        corr = corr.reshape(m)
     N = mod.modulus
     return MxuDirection(
         m, inverse,
         torch.from_numpy(np.array(planes, copy=True)).to(device),
-        from_limbs(*corr, device).reshape(m),
-        N, pow(2, 128, N), pow(N, -1, 1 << 64),
+        corr, N, pow(2, 128, N), pow(N, -1, 1 << 64), scheme,
     )
 
 

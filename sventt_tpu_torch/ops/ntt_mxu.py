@@ -1,25 +1,38 @@
-"""The s8 matrix NTT: small-m NTTs as int8 digit-plane matrix products.
+"""The matrix NTT: small-m NTTs as int8 plane matrix products.
 
-The PyTorch counterpart of ``sventt_tpu/ops/ntt_mxu.py`` (scheme "s8").  A
-length-m NTT (m <= MAX_MXU) is the product with the bit-reversed,
-Montgomery-lifted DFT matrix
+The PyTorch counterpart of ``sventt_tpu/ops/ntt_mxu.py``.  A length-m NTT
+(m <= MAX_MXU) is the product with the bit-reversed, Montgomery-lifted DFT
+matrix
 
   forward:  X[p] = sum_j  M[p, j] * x[j],   M[p, j] = R64 * omega^(bitrev(p)*j)
   inverse:  x[k] = sum_p  Mi[k, p] * y[p],  Mi[k, p] = R64 * s * omega^(-k*bitrev(p))
 
-(s = m^-1 * scale_extra, R64 = 2^64 mod N).  Each matrix entry is lifted to
-its minimal residue and cut into eight balanced base-256 digits d_a in
-[-128, 127]; each data word into eight offset bytes s_b = byte_b - 128.
-The 64 (a, b) products give 15 int32 planes P_t = sum_{a+b=t}, each biased
-non-negative by exactly m << 17 (the worst-case |P_t|); the planes
-recombine into a 192-bit value, the top word folds via 2^128 mod N, a
-Barrett step or conditional subtracts bring the high word below N, and a
-Montgomery REDC (whose R^-1 cancels R64) lands in canonical [0, N).  The
-per-row constant ``corr`` absorbs every byte offset and plane bias.
+(s = m^-1 * scale_extra, R64 = 2^64 mod N), cut into int8 planes by one of
+three schemes (``make_mxu_tables(scheme=...)``), as in the JAX package:
+
+* ``"s8"`` (the default, the one every plan uses): each matrix entry is
+  lifted to its minimal residue and cut into eight balanced base-256
+  digits d_a in [-128, 127]; each data word into eight offset bytes
+  s_b = byte_b - 128.  The 64 (a, b) products give 15 int32 planes
+  P_t = sum_{a+b=t}, each biased non-negative by exactly m << 17 (the
+  worst-case |P_t|); the per-row constant ``corr`` absorbs every byte
+  offset and plane bias.  Planes (8m, m).
+* ``"s8b"``: the same digits stacked into the block-banded (15m, 8m)
+  matrix G, block (t, b) holding digit plane t - b, so that one product
+  with the stacked (8m, B) bytes yields the 15 planes directly.  Same
+  ``corr``; the results are bitwise those of s8.  m <= 512.
+* ``"u7"``: ten unsigned 7-bit planes of the entry and of the data word;
+  the 100 plane products give 19 unsigned planes at bit 7t, each below
+  2^27.4 at m = 1024.  No bias and no ``corr``.  Planes (10m, m).
+
+The planes recombine into a 192-bit value, the top word folds via
+2^128 mod N, a Barrett step or conditional subtracts bring the high word
+below N, and a Montgomery REDC (whose R^-1 cancels R64) lands in canonical
+[0, N).
 
 The kernel (``csrc/ntt_mxu.cu``) replaces the Pallas kernels
 ``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` (body ``_mxu_body``) in both of
-its orientations and ``_mxu_lane_call``:
+its orientations and ``_mxu_lane_call``, under every scheme:
 
 * lead (``mxu_ntt``, K1): the transform runs along axis 0 of (m, B);
 * mid (``mxu_ntt_mid``, K2): along axis 1 of (A, m, B);
@@ -28,7 +41,7 @@ its orientations and ``_mxu_lane_call``:
 All three are one kernel over an (A, m, B) view with strides: the lane
 orientation is the view (1, m, B) of the (B, m) rows with transform stride
 1 and batch stride m, read in place.  An optional inter-step twiddle
-multiply is fused in: before the byte split on the forward, after the
+multiply is fused in: before the plane split on the forward, after the
 REDC on the inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
@@ -61,11 +74,18 @@ from ..field.modulus import MASK32, Modulus
 from ..utils.device import resolve_device
 from .twiddle import MontPair, inter_step_mul, montpair_map
 
+#: Seven-bit planes per u64 for the "u7" scheme (10 * 7 = 70 >= 64 bits).
+NL = 10
+
 #: Balanced-digit planes: 8 signed base-256 matrix digits x 8 data bytes.
 NL_S8 = 8
 
+#: The plane schemes.
+SCHEMES = ("s8", "u7", "s8b")
+
 #: Largest matrix-NTT length (the s8 int32 bound 8 * m * 2^14 < 2^31 holds
-#: to 2048; the JAX package caps at 1024 and so does the port).
+#: to 2048, the u7 bound 10 * m * 127^2 < 2^31 to 1024; the JAX package caps
+#: at 1024 and so does the port).
 MAX_MXU = 1024
 
 _K8 = (1 << 64) // 255  # 0x0101010101010101
@@ -93,25 +113,45 @@ def _balanced8(r: int) -> list[int]:
 class MxuDirection:
     """Prepared tables for one direction at one length, on one device.
 
-    ``planes``: (8m, m) int8, digit plane a of row p at row a*m + p.
-    ``corr``: (m,) int64, the per-output-row offset correction (mod N).
+    ``planes``: int8 ``_mat_dims(scheme, m)``: for s8 (8m, m), digit plane a
+    of row p at row a*m + p; for u7 (10m, m), 7-bit plane a likewise; for
+    s8b the banded (15m, 8m) matrix.  ``corr``: (m,) int64, the
+    per-output-row offset correction (mod N) of s8 and s8b, None for u7.
     ``c128`` / ``nprime``: 2^128 mod N and N^-1 mod 2^64.
+    ``kernel_planes`` (derived, not a field): the planes the kernel reads,
+    ``planes`` itself, or for s8b G's first block column -- block (a, 0) is
+    digit plane a, so that column is the s8 stack and s8b runs the s8
+    kernel.
     """
 
     m: int
     inverse: bool
     planes: torch.Tensor
-    corr: torch.Tensor
+    corr: torch.Tensor | None
     modulus: int
     c128: int
     nprime: int
+    scheme: str = "s8"
+
+    def __post_init__(self):
+        kp = self.planes
+        if self.scheme == "s8b":
+            kp = kp[: NL_S8 * self.m, : self.m].contiguous()
+        object.__setattr__(self, "kernel_planes", kp)
 
 
-@functools.lru_cache(maxsize=None)
-def _host_tables(
-    N: int, g: int, m: int, inverse: bool, scale_extra: int
-) -> tuple[np.ndarray, np.ndarray]:
-    """(planes int8 (8m, m), corr uint64 (m,)) built with exact Python ints."""
+def _mat_dims(scheme: str, m: int) -> tuple[int, int]:
+    """(rows, cols) of the stacked matrix operand for one scheme."""
+    if scheme == "s8b":
+        return 15 * m, NL_S8 * m
+    if scheme == "s8":
+        return NL_S8 * m, m
+    return NL * m, m
+
+
+def _lifted_matrix(N: int, g: int, m: int, inverse: bool, scale_extra: int) -> np.ndarray:
+    """The bit-reversed, Montgomery-lifted DFT matrix, (m, m) exact Python
+    ints in [0, N), of every scheme."""
     mod = Modulus(N, g)
     perm = bitreverse_permutation(m)
     r64 = (1 << 64) % N
@@ -134,6 +174,21 @@ def _host_tables(
             for k in range(m):
                 M[k, p] = v
                 v = v * base % N
+    return M
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables(
+    N: int, g: int, m: int, inverse: bool, scale_extra: int, scheme: str
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """(planes int8 ``_mat_dims(scheme, m)``, corr uint64 (m,) or None for
+    u7) built with exact Python ints."""
+    M = _lifted_matrix(N, g, m, inverse, scale_extra)
+    if scheme == "u7":
+        planes = np.concatenate(
+            [((M >> (7 * i)) & 0x7F).astype(np.int8) for i in range(NL)], axis=0
+        )
+        return planes, None
     R = np.where(M <= C8_PLUS, M, M - N)  # minimal residues, |r| <= 128*K8
     # digit 0 in exact object arithmetic (R reaches just past int64 min);
     # the quotient then fits int64 and the rest is vectorized
@@ -145,7 +200,14 @@ def _host_tables(
         digs.append(d.astype(np.int8))
         r = (r - d) >> 8
     assert not r.any(), "residue outside the 8-digit balanced range"
-    planes = np.concatenate(digs, axis=0)
+    if scheme == "s8b":
+        # block (t, b) of the banded (15m, 8m) matrix holds digit plane t - b
+        planes = np.zeros(_mat_dims(scheme, m), dtype=np.int8)
+        for t in range(15):
+            for b in range(max(0, t - NL_S8 + 1), min(t, NL_S8 - 1) + 1):
+                planes[t * m:(t + 1) * m, b * m:(b + 1) * m] = digs[t - b]
+    else:
+        planes = np.concatenate(digs, axis=0)
     # the per-plane bias m << 17 must equal the kernel's (csrc/ntt_mxu.cu)
     # and _mxu_plain's: it is the exact worst-case |P_t|
     ofs_total = (m << 17) * sum(1 << (8 * t) for t in range(15))
@@ -157,24 +219,30 @@ def _host_tables(
 
 
 def make_mxu_tables(
-    mod: Modulus, m: int, *, inverse: bool, scale_extra: int = 1, device=None
+    mod: Modulus, m: int, *, inverse: bool, scale_extra: int = 1, scheme: str = "s8",
+    device=None,
 ) -> MxuDirection:
-    """The digit-plane matrix and row corrections for one direction.
+    """The plane matrix and row corrections of one scheme for one direction.
 
-    The host build is cached per (modulus, m, inverse, scale_extra); it
-    loops over m^2 Python ints, seconds at m = 1024.  ``device`` None is
+    The host build is cached per (modulus, m, inverse, scale_extra, scheme);
+    it loops over m^2 Python ints, seconds at m = 1024.  ``device`` None is
     the CUDA card.
     """
     device = resolve_device(device)
     if m < 2 or m & (m - 1) or m > MAX_MXU:
         raise ValueError(f"mxu engine supports power-of-two m in [2, {MAX_MXU}]")
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown mxu plane scheme {scheme!r}")
+    if scheme == "s8b" and m > 512:
+        # as in the JAX package, whose banded matrix (120 m^2 bytes) must fit VMEM
+        raise ValueError("scheme 's8b' supports m <= 512")
     N = mod.modulus
-    planes, corr = _host_tables(N, mod.generator, m, inverse, scale_extra)
+    planes, corr = _host_tables(N, mod.generator, m, inverse, scale_extra, scheme)
     return MxuDirection(
         m, inverse,
         torch.from_numpy(planes).to(device),
-        from_numpy(corr, device),
-        N, pow(2, 128, N), pow(N, -1, 1 << 64),
+        None if corr is None else from_numpy(corr, device),
+        N, pow(2, 128, N), pow(N, -1, 1 << 64), scheme,
     )
 
 
@@ -188,36 +256,61 @@ def _reduce_consts(N: int) -> tuple[int, bool]:
     return nsub, False
 
 
+def _plane_products(x: torch.Tensor, t: MxuDirection) -> tuple[list, int, int]:
+    """The int32-exact product planes of the scheme on (A, m, B) data, each
+    (A, m, B) int64; with the bit step between planes and their bias.
+
+    Float64 matmuls are exact here: a sum is at most m * 2^14 <= 2^24 (s8),
+    8 * m * 2^14 <= 2^26 (s8b, m <= 512) or m * 127^2 < 2^24 (u7) in
+    magnitude.
+    """
+    A, m, B = x.shape
+    D = t.planes.to(torch.float64)
+
+    def stack(planes):  # (n, A, m, B) planes -> (n*m, A*B) float64
+        S = torch.stack(planes).permute(0, 2, 1, 3)
+        return S.reshape(len(planes) * m, A * B).to(torch.float64)
+
+    def split(C, n):  # (n*m, A*B) -> n (A, m, B) int64 planes
+        return list(C.to(torch.int64).reshape(n, m, A, B).permute(0, 2, 1, 3))
+
+    if t.scheme == "u7":
+        xs, step, bias = [_shr(x, 7 * i) & 0x7F for i in range(NL)], 7, 0
+    else:
+        # offset bytes s = byte - 128 (the kernel's byte ^ 0x80 as int8)
+        xs, step, bias = [(_shr(x, 8 * b) & 0xFF) - 128 for b in range(NL_S8)], 8, m << 17
+        if t.scheme == "s8b":
+            return split(D @ stack(xs), 15), step, bias
+    out = [None] * (2 * len(xs) - 1)
+    for b, xb in enumerate(xs):
+        for a, C in enumerate(split(D @ stack([xb]), len(xs))):
+            out[a + b] = C if out[a + b] is None else out[a + b] + C
+    return out, step, bias
+
+
 def _mxu_plain(
     x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel on an (A, m, B) tensor.
 
-    ``tw``: None, or a MontPair broadcastable to (A, m, B).  The 64 (digit,
-    byte) products go through float64 matmuls, exact here: each partial sum
-    is at most m * 2^14 <= 2^24 in magnitude.
+    ``tw``: None, or a MontPair broadcastable to (A, m, B).
     """
-    A, m, B = x.shape
+    m = x.shape[1]
     if tw is not None and not t.inverse:
         x = inter_step_mul(fc, x, tw)
-    D = t.planes.to(torch.float64)  # (8m, m)
-    planes = [None] * 15
-    for b in range(NL_S8):
-        # offset byte s = byte - 128 (the kernel's byte ^ 0x80 as int8)
-        s = (_shr(x, 8 * b) & 0xFF) - 128
-        S = s.permute(1, 0, 2).reshape(m, A * B).to(torch.float64)
-        C = (D @ S).to(torch.int64).reshape(NL_S8, m, A, B).permute(0, 2, 1, 3)
-        for a in range(NL_S8):
-            planes[a + b] = C[a] if planes[a + b] is None else planes[a + b] + C[a]
-    # 192-bit accumulate as six 32-bit words held in int64: a biased plane is
-    # < 2^28, shifted by at most 24 it stays < 2^52, four per word < 2^54
+    planes, step, bias = _plane_products(x, t)
+    # 192-bit accumulate as six 32-bit words held in int64.  s8: a biased
+    # plane is < 2^28, shifted by at most 24 it stays < 2^52, four per word
+    # < 2^54.  u7: a plane is < 2^27.4, shifted by at most 31 < 2^58.4, five
+    # per word < 2^61
     words = [torch.zeros_like(x) for _ in range(6)]
-    for tt in range(15):
-        w, sh = divmod(8 * tt, 32)
-        words[w] = words[w] + ((planes[tt] + (m << 17)) << sh)
-    corr = t.corr.reshape(1, m, 1)
-    words[0] = words[0] + (corr & MASK32)
-    words[1] = words[1] + _shr(corr, 32)
+    for tt, P in enumerate(planes):
+        w, sh = divmod(step * tt, 32)
+        words[w] = words[w] + ((P + bias) << sh)
+    if t.corr is not None:
+        corr = t.corr.reshape(1, m, 1)
+        words[0] = words[0] + (corr & MASK32)
+        words[1] = words[1] + _shr(corr, 32)
     L, carry = [], 0
     for w in range(6):
         s = words[w] + carry
@@ -253,13 +346,19 @@ def _mxu_plain(
 
 
 def _check_cuda(t: MxuDirection, x: torch.Tensor, tw: MontPair | None):
-    tensors = [t.planes, t.corr] + ([] if tw is None else [v for v in tw if v is not None])
+    if t.scheme not in SCHEMES:
+        raise ValueError(f"unknown mxu plane scheme {t.scheme!r}")
+    if tuple(t.planes.shape) != _mat_dims(t.scheme, t.m):
+        raise ValueError(f"{t.scheme} planes {tuple(t.planes.shape)} != {_mat_dims(t.scheme, t.m)}")
+    if (t.corr is None) != (t.scheme == "u7"):
+        raise ValueError(f"scheme {t.scheme} {'takes no' if t.scheme == 'u7' else 'needs a'} corr")
+    tensors = [t.planes] + [v for v in (t.corr,) + (() if tw is None else tuple(tw)) if v is not None]
     for v in tensors:
         if v.device != x.device:
             raise ValueError(f"table on {v.device}, data on {x.device}")
-    if x.dtype != torch.int64 or t.corr.dtype != torch.int64:
+    if x.dtype != torch.int64 or (t.corr is not None and t.corr.dtype != torch.int64):
         raise TypeError("data and corr must be int64")
-    if t.planes.dtype != torch.int8 or not t.planes.is_contiguous():
+    if t.planes.dtype != torch.int8 or not t.kernel_planes.is_contiguous():
         raise TypeError("planes must be a contiguous int8 tensor")
     if tw is not None and any(v.dtype != torch.int64 for v in tw if v is not None):
         raise TypeError("twiddles must be int64")
@@ -293,9 +392,10 @@ def _launch(
     nsub, barrett = _reduce_consts(t.modulus)
     N = t.modulus
     rc = lib.sventt_mxu_ntt(
-        x.data_ptr(), out.data_ptr(), t.planes.data_ptr(), t.corr.data_ptr(),
+        x.data_ptr(), out.data_ptr(), t.kernel_planes.data_ptr(),
+        None if t.corr is None else t.corr.data_ptr(),
         w_ptr, wp_ptr, A, m, B, *x.stride(), *ts,
-        mode, int(t.inverse), int(fc.lazy),
+        mode, int(t.inverse), int(fc.lazy), int(t.scheme == "u7"),
         N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse,
         nsub, int(barrett),
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -401,7 +501,7 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_longlong] * 6
-    + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 4
     + [ctypes.c_ulonglong] * 5
     + [ctypes.c_int] * 2
     + [ctypes.c_void_p]
