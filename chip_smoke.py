@@ -21,7 +21,12 @@ Phases, each printing its own lines:
    the grouped kernel (K7 leaf, K8 lane) at max_r 2, 3 and 4 the same way,
    m = 2 and m = 8 included; the blocked transpose (K9a/K9b) at the 2^24
    root-row shapes with three block shapes, int64 and int32; the
-   inter-step multiply kernel of the transpose fallback;
+   inter-step multiply kernel of the transpose fallback; every Solinas
+   branch (``modmul="solinas"``) -- K1/K2's fused twiddle, K4's stages,
+   K5's stages and twiddle, K6's stages and prologue / epilogue, and the
+   inter-step pass -- on the flagship and the Goldilocks modulus, with
+   JAX's corner values of the fold (0, 1, N - 1, N, 2^63, 2^64 - 1)
+   against the twiddle N - 1 and random ones;
 4. paths: the matrix engine (the default, ``engine="auto"``), the
    butterfly engine (``engine="pallas"``) and the grouped butterfly engine
    (``engine="pallas", max_r=3``) at n = 2^17, 2^24 and 2^26 on the
@@ -34,7 +39,11 @@ Phases, each printing its own lines:
    ``transpose_pallas`` on the 2^24 root-row shapes against the torch
    copy; the u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
    ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
-   model, an exact roundtrip and s8.  Each path runs with the launch counts
+   model, an exact roundtrip and s8; the Solinas engine
+   (``modmul="solinas"``) on both engines at 2^17, 2^24 and 2^26, with
+   ``max_r=3`` at 2^24 (radix-2, as in JAX: K7/K8 launch 0 times) and a
+   ``strategy="six_step"`` 2^24 plan whose row subtree runs the
+   inter-step pass.  Each path runs with the launch counts
    set to 0 just before and read just after: every kernel of the path must
    have launched, and no plain version may have run;
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
@@ -44,13 +53,16 @@ Phases, each printing its own lines:
    case), then each distributed path forward and inverse against the same
    oracle with an exact roundtrip -- comm "xla", "ring" and "overlap" at
    2^24, the matrix and grouped engines, the lazy test modulus, 2^26, the
-   (2, 4) ("dcn", "ici") mesh -- and a 2^28 run against the single-device
-   six-step transform on the card, beside its memory budget.  Where the
+   (2, 4) ("dcn", "ici") mesh, the Solinas engine -- and 2^28 runs
+   (comm "ring" and "overlap") against the single-device six-step
+   transform on the card, with the card's allocation read around each
+   step and held to the port's memory budget.  Where the
    machine has two or more cards, the 2^24 ring path over distinct cards;
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
-   least time the card could take -- the u7 and s8b kernels at K1/K2/K3's
+   least time the card could take -- each Solinas kernel beside its
+   Montgomery form at the same shape; the u7 and s8b kernels at K1/K2/K3's
    2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
    with it as a separate pass); the distributed 2^24 forward at D = 4
@@ -509,6 +521,110 @@ def inter_step_cases(device, rng):
     return worst
 
 
+def corner_data(shape, mod, rng):
+    """u64 data of ``shape`` whose leading rows cycle through JAX's corner
+    values of the Solinas fold (0, 1, N - 1, N, 2^63, 2^64 - 1), the rest
+    random full-range words, and (A, m) twiddle rows: N - 1 in the even
+    rows, random below N in the odd ones (the last fold's carry and the
+    min-subtract)."""
+    import numpy as np
+
+    N = mod.modulus
+    corners = np.array([0, 1, N - 1, N, 1 << 63, (1 << 64) - 1], dtype=np.uint64)
+    x = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    flat = x.reshape(-1)
+    k = min(flat.size, 6 * 4096)
+    flat[:k] = np.resize(corners, k)
+    tw = rng.integers(0, N, size=shape[:2], dtype=np.uint64)
+    tw[::2] = N - 1
+    return x, tw
+
+
+def solinas_kernel_cases(device, rng):
+    """Every kernel branch of the Solinas engine vs its plain version,
+    bitwise, on the flagship and the Goldilocks modulus: K1 lead / K2 mid
+    with the fused Solinas twiddle, K4 leaf, K5 mid with it, K6 lane with
+    its prologue (epilogue on the inverse), at the 2^24 plans' shapes, a
+    ragged batch and m = 2, both directions, and the inter-step pass.  The
+    forward prologues and the inter-step pass take ``corner_data``, any
+    u64 (the Solinas multiply accepts it); the inverse inputs are below N.
+    Returns the largest mismatch per kernel."""
+    from sventt_tpu_torch.field.limb import FieldConsts, from_numpy
+    from sventt_tpu_torch.field.modulus import GOLDILOCKS_MODULUS, Modulus
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu
+    from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
+
+    flag, _ = moduli()
+    gold = Modulus(GOLDILOCKS_MODULUS, 7)
+    worst = {k: 0 for k in ("lead", "mid", "leaf", "pallas mid", "lane", "inter_step")}
+    # (kernel, orientation, data shape, on the flagship only); each forward
+    # and inverse.  The 2^24 shapes run on the flagship modulus, the small
+    # ones, which reach every branch, on both.
+    shapes = [
+        ("K1", "lead", (256, 1 << 16), True), ("K2", "mid", (256, 256, 256), True),
+        ("K4", "leaf", (256, 1 << 16), True), ("K5", "pallas mid", (256, 256, 256), True),
+        ("K6", "lane", (1 << 16, 256), True),
+        ("K1", "lead", (64, 300), False), ("K2", "mid", (8, 64, 300), False),
+        ("K1", "lead", (2, 5), False), ("K2", "mid", (3, 2, 5), False),
+        ("K4", "leaf", (64, 300), False),
+        ("K5", "pallas mid", (8, 64, 300), False), ("K6", "lane", (300, 64), False),
+        ("K4", "leaf", (2, 5), False), ("K5", "pallas mid", (3, 2, 5), False),
+        ("K6", "lane", (5, 2), False),
+    ]
+    for mod, tag in ((flag, "flagship"), (gold, "Goldilocks")):
+        fc = FieldConsts.from_modulus(mod, modmul="solinas")
+        check(not fc.lazy and fc.n_form == "high", f"{tag}: not a canonical sparse-high engine")
+        for name, orient, shape, flag_only in shapes:
+            if flag_only and mod is gold:
+                continue
+            m = shape[-1] if orient == "lane" else shape[1] if "mid" in orient else shape[0]
+            for inverse in (False, True):
+                # the twiddles in the data's layout, (A, m) rows for mid
+                xh, twh = corner_data(shape, mod, rng)
+                if inverse or orient == "leaf":  # no prologue: stages take [0, N)
+                    xh %= mod.modulus
+                x = from_numpy(xh, device)
+                tw = None if orient == "leaf" else MontPair(from_numpy(twh, device), None)
+                if orient in ("lead", "mid"):
+                    t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device=device)
+                    fn = ntt_mxu.mxu_ntt_mid if orient == "mid" else ntt_mxu.mxu_ntt
+                    got = fn(x, t, fc, tw)
+                    want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid")
+                elif orient == "lane":
+                    t = P.make_lane_tables(mod, m, inverse=inverse, modmul="solinas", device=device)
+                    got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
+                else:
+                    t = P.make_leaf_tables(mod, m, inverse=inverse, modmul="solinas", device=device)
+                    if orient == "leaf":
+                        got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
+                    else:
+                        got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
+                if orient not in ("lead", "mid"):
+                    check(t.wp is None and (t.scale is None or t.scale[1] is None),
+                          f"{name}: Solinas stage tables carry a companion")
+                sync(device)
+                err = mismatch(got, want)
+                worst[orient] = max(worst[orient], err)
+                label = (f"{name} {orient} {'x'.join(map(str, shape))} solinas "
+                         f"{'inv' if inverse else 'fwd'} {tag}")
+                log(f"  {label}: max_abs_err {err}")
+                check(err <= TOL, f"{label}: kernel != plain")
+                del x, got, want
+        for shape in ((256, 256, 256), (1 << 16, 256), (8, 16, 300)):
+            xh, twh = corner_data(shape, mod, rng)
+            x, w = from_numpy(xh, device), from_numpy(twh, device)
+            got = inter_step.mont_mul_bcast(fc, x, MontPair(w, None))
+            view = shape[:2] + (1,) * (len(shape) - 2)
+            want = inter_step_mul(fc, x, MontPair(w.reshape(view), None))
+            sync(device)
+            err = mismatch(got, want)
+            worst["inter_step"] = max(worst["inter_step"], err)
+            log(f"  inter-step {'x'.join(map(str, shape))} solinas {tag}: max_abs_err {err}")
+            check(err <= TOL, f"inter-step {shape} solinas {tag}: kernel != plain")
+    return worst
+
+
 def ring_cases(device, rng):
     """K10 vs plain on logical shards of the card: D = 1, 2, 3, 4, 8 in both
     orientations, the exchanges of the flagship 2^24 (4096 x 4096) and
@@ -815,10 +931,19 @@ def dist_run(device, paths, oracles: dict):
 
 def dist_2p28(device):
     """The 2^28 flagship transform, ``engine="pallas"``, on 8 logical
-    shards with the ring: its forward equals the single-device six-step
-    transform of the same split on the card (``torch.equal`` after
-    ``normalize``), its roundtrip is exact; beside the memory budget and
-    the card's peak allocation.  Returns the launch counts."""
+    shards with comm "ring" and with "overlap": each forward equals the
+    single-device six-step transform of the same split on the card
+    (``torch.equal`` after ``normalize``), each roundtrip is exact.  The
+    memory budget: per comm, the card's allocation
+    (``torch.cuda.memory_allocated`` held and ``max_memory_allocated`` at
+    peak, above what was allocated before) read after the tables'
+    construction and after each step of the forward and the inverse
+    (``compute_forward(on_step=...)``), with the caller holding only the
+    input of each direction.  Fails if the peak of the construction or of
+    a step exceeds the budget's total for the 8 shards the card holds
+    (making the input, ``device_fill``'s own temporaries included, is the
+    caller's and is read but not held to it).  Returns the ring run's
+    launch counts."""
     import torch
 
     from sventt_tpu_torch.parallel import DistributedNTT, distributed_memory_budget
@@ -826,39 +951,64 @@ def dist_2p28(device):
     from sventt_tpu_torch.utils.fill import device_fill
 
     flag, _ = moduli()
-    n = 1 << 28
+    n, D = 1 << 28, 8
     cfg = NttConfig(flag.modulus, flag.generator, n, strategy="six_step", engine="pallas")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    dntt = DistributedNTT(cfg, logical_mesh(device, 8), comm="ring")
-    x = device_fill(n, flag.modulus, device)
-    shards = dntt.shard(x)
-    reset_counts()
-    fwd = dntt.compute_forward(shards)
-    back = dntt.compute_inverse(fwd)
-    sync(device)
-    c = counts()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    ok_back = torch.equal(torch.cat(dntt.normalize(back)), x)
-    del back, shards
-    got = torch.cat(dntt.normalize(fwd))
-    del fwd, dntt
+    b = distributed_memory_budget(cfg, D)
+    card = b.card_total(D)
+    log(f"  budget per shard {b}: card_total(8) {card} bytes (the JAX rule's part "
+        f"{card - b.step_scratch}, the port's step_scratch {b.step_scratch})")
+
+    def run(comm):
+        sync(device)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        mem = []
+
+        def reading(name):
+            sync(device)
+            mem.append((name, torch.cuda.memory_allocated() - base,
+                        torch.cuda.max_memory_allocated() - base))
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dntt = DistributedNTT(cfg, logical_mesh(device, D), comm=comm)
+        reading("tables")
+        shards = dntt.shard(device_fill(n, flag.modulus, device))
+        reading("input shards")
+        reset_counts()
+        fwd = dntt.compute_forward(shards, on_step=lambda step: reading(f"forward {step}"))
+        del shards
+        reading("forward input dropped")
+        back = dntt.compute_inverse(fwd, on_step=lambda step: reading(f"inverse {step}"))
+        c = counts()
+        secs = time.perf_counter() - t0
+        ok_back = torch.equal(torch.cat(dntt.normalize(back)), device_fill(n, flag.modulus, device))
+        del back
+        got = torch.cat(dntt.normalize(fwd))
+        del fwd, dntt
+        peak = max(p for name, _, p in mem if name != "input shards")
+        log(f"  2^28 D=8 {comm}: roundtrip exact {ok_back} (tables + 2 transforms {secs:.2f} s)")
+        for name, held, top in mem:
+            log(f"    memory {name}: held {held} bytes, peak {top} bytes")
+        log(f"    measured peak {peak} bytes ({100 * peak / card:.1f}% of card_total(8))")
+        log(f"    launches {c['launches']}, plain calls {c['plain']}")
+        check(ok_back, f"2^28 {comm}: roundtrip mismatch")
+        check(no_plain(c), f"2^28 {comm}: a plain version ran")
+        check(peak <= card, f"2^28 {comm}: peak {peak} bytes exceeds the budget's {card} for 8 shards")
+        return got, c
+
+    got_ring, c = run("ring")
+    check(c["launches"]["ring"]["ring"] > 0, "2^28: K10 did not run")
+    got_overlap, _ = run("overlap")
     torch.cuda.empty_cache()
     single = NTT(cfg, enable_inverse=False, device=device)
-    ok_fwd = torch.equal(single.normalize(single.compute_forward(x)), got)
+    want = single.normalize(single.compute_forward(device_fill(n, flag.modulus, device)))
+    ok = {comm: torch.equal(want, got) for comm, got in (("ring", got_ring), ("overlap", got_overlap))}
     sync(device)
-    b = distributed_memory_budget(cfg, 8)
-    card = 8 * (b.coefficients + b.transient + b.directions * b.inter_step_twiddles)
-    card += b.directions * b.leaf_tables
-    log(f"  2^28 D=8 ring: forward == single-device six_step {ok_fwd}, roundtrip exact {ok_back} "
-        f"(tables + 2 transforms {secs:.2f} s); plan {single.plan.m0} x {single.plan.m1}")
-    log(f"    budget per shard {b}: total {b.total} bytes; 8 logical shards on one card "
-        f"{card} bytes; torch.cuda.max_memory_allocated() {peak} bytes")
-    log(f"    launches {c['launches']}, plain calls {c['plain']}")
-    check(ok_fwd and ok_back, "2^28: mismatch")
-    check(c["launches"]["ring"]["ring"] > 0 and no_plain(c), "2^28: K10 did not run, or a plain one did")
-    del single, got, x
+    log(f"  2^28 D=8: forward == single-device six_step {ok}; plan {single.plan.m0} x {single.plan.m1}")
+    check(all(ok.values()), "2^28: forward mismatch")
+    del single, want, got_ring, got_overlap
     torch.cuda.empty_cache()
     return c
 
@@ -911,23 +1061,57 @@ def mxu_bound(points: int, m: int, tw_bytes: int, macs: int = 64) -> tuple[float
     return bound(16 * points + tw_bytes, 2 * macs * m * points / INT8_OPS)
 
 
+def solinas_products(N: int) -> int:
+    """32 x 32-bit products the Solinas multiply (``field.cuh`` solinas_mul)
+    needs by its operands' widths, for N = 2^64 - eps: the 64 x 64 product
+    in full (2 x 2 words), then each fold's high word times eps, the high
+    word's bound after each fold setting its words.  The kernel multiplies
+    full 64-bit words (3 high and 4 low products, 24 of them); this is the
+    least work, as the bound asks.  The flagship: 4 + 2x2 + 2x2 + 1x2 = 14."""
+    eps = (1 << 64) - N
+
+    def words(v: int) -> int:
+        return max(1, -(-v.bit_length() // 32))
+
+    total, hi = 4, (1 << 64) - 1
+    for _ in range(3):
+        total += words(hi) * words(eps)
+        hi = (hi * eps + (1 << 64)) >> 64
+    return total
+
+
+#: 32-bit multiply-adds of one stage multiply per engine, on the flagship
+#: modulus every timed kernel runs: Montgomery two high and one low 64-bit
+#: products, Shoup one high and two low, Solinas ``solinas_products``.
+STAGE_IMADS = {"montgomery": 2 * IMAD_HI + IMAD_LO, "shoup": IMAD_HI + 2 * IMAD_LO,
+               "solinas": solinas_products(2**64 - 1827 * 2**31 + 1)}
+
+
+def tw_cost(tw: str | None, tw_points: int) -> tuple[int, int]:
+    """(32-bit multiply-adds a point, table bytes) of the fused or separate
+    inter-step multiply: "pair" Montgomery with its companion (16 bytes an
+    entry), "w" Montgomery computing it (one low product more, 8 bytes),
+    "solinas" the Solinas multiply (8 bytes)."""
+    if tw is None:
+        return 0, 0
+    if tw == "solinas":
+        return STAGE_IMADS["solinas"], 8 * tw_points
+    return 2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0), tw_points * (16 if tw == "pair" else 8)
+
+
 def butterfly_bound(points: int, m: int, inverse: bool, modmul: str, tw: str | None,
                     tw_points: int) -> tuple[float, str]:
     """K4/K5/K6: per stage, one stage multiply per butterfly (two on the
-    last inverse stage); Montgomery is two high and one low 64-bit
-    products, Shoup one high and two low; the inter-step multiply is
-    Montgomery (mode "w" adds one low product).  Bytes: 8 a point in and 8
-    out, the (tw_points,) inter-step table (8 or 16 bytes an entry) and the
-    two (m-1,) stage tables read once."""
+    last inverse stage) at ``STAGE_IMADS[modmul]``; the inter-step
+    multiply as ``tw_cost`` says.  Bytes: 8 a point in and 8 out, the
+    (tw_points,) inter-step table and the (m-1,) stage tables read once
+    (two of them, one under Solinas)."""
     stages = m.bit_length() - 1
-    mul = 2 * IMAD_HI + IMAD_LO if modmul == "montgomery" else IMAD_HI + 2 * IMAD_LO
     muls = stages * points // 2 + (points // 2 if inverse else 0)
-    imads = muls * mul
-    tw_bytes = 0
-    if tw is not None:
-        imads += points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
-        tw_bytes = tw_points * (16 if tw == "pair" else 8)
-    return bound(16 * points + tw_bytes + 16 * (m - 1), imads / IMAD_PER_S)
+    per_point, tw_bytes = tw_cost(tw, tw_points)
+    imads = muls * STAGE_IMADS[modmul] + points * per_point
+    tables = 8 * (m - 1) * (1 if modmul == "solinas" else 2)
+    return bound(16 * points + tw_bytes + tables, imads / IMAD_PER_S)
 
 
 def grouped_bound(points: int, t, modmul: str, tw: str | None, tw_points: int,
@@ -951,20 +1135,16 @@ def grouped_bound(points: int, t, modmul: str, tw: str | None, tw_points: int,
         else:
             firsts = [j for j in range(m) if j % (2 * h) < h]
             per_col += m // 2 + sum(1 for j in firsts if (j % spec.span) // spec.L)
-    mul = 2 * IMAD_HI + IMAD_LO if modmul == "montgomery" else IMAD_HI + 2 * IMAD_LO
-    imads = per_col * (points // m) * mul
-    tw_bytes = 0
-    if tw is not None:
-        imads += points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
-        tw_bytes = tw_points * (16 if tw == "pair" else 8)
+    per_point, tw_bytes = tw_cost(tw, tw_points)
+    imads = per_col * (points // m) * STAGE_IMADS[modmul] + points * per_point
     return bound(16 * points + tw_bytes + 16 * m * len(t.specs), imads / IMAD_PER_S)
 
 
 def inter_step_bound(points: int, tw_points: int, tw: str) -> tuple[float, str]:
-    """The inter-step multiply: one Montgomery product a point (mode "w"
-    one low product more); 8 bytes a point in, 8 out, the table once."""
-    imads = points * (2 * IMAD_HI + IMAD_LO + (IMAD_LO if tw == "w" else 0))
-    return bound(16 * points + tw_points * (16 if tw == "pair" else 8), imads / IMAD_PER_S)
+    """The inter-step multiply (``tw_cost``): 8 bytes a point in, 8 out,
+    the table once."""
+    per_point, tw_bytes = tw_cost(tw, tw_points)
+    return bound(16 * points + tw_bytes, points * per_point / IMAD_PER_S)
 
 
 def ab_level(device, fc, out: dict, bounds: dict, own: dict) -> None:
@@ -1061,6 +1241,14 @@ def times(device, ntts, rng):
     xr = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
     kernel("K3 lane 65536x256", lambda: ntt_mxu.mxu_ntt_lane(xr, t, fc),
            lambda: ntt_mxu.mxu_plain(xr, t, fc, lane=True), mxu_bound(n24, 256, 0))
+    # the Solinas twiddle of K1/K2 at the same shapes: the plain random
+    # twiddles below N without their companion
+    fcs = FieldConsts.from_modulus(flag, modmul="solinas")
+    twls, twms = MontPair(twl.w, None), MontPair(twm.w, None)
+    kernel("K1 lead 256x65536 solinas", lambda: ntt_mxu.mxu_ntt(xl, t, fcs, twls),
+           lambda: ntt_mxu.mxu_plain(xl, t, fcs, twls), mxu_bound(n24, 256, 8 * n24))
+    kernel("K2 mid 256x256x256 solinas", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fcs, twms),
+           lambda: ntt_mxu.mxu_plain(xm, t, fcs, twms, mid=True), mxu_bound(n24, 256, 8 * 65536))
     out["K1 lead 65536x256 between transposes"] = timed(
         lambda: transpose01(ntt_mxu.mxu_ntt(transpose01(xr), t, fc)), 3, 10
     )
@@ -1082,7 +1270,7 @@ def times(device, ntts, rng):
     kernel("K11 fused 128x32768", lambda: fused.mxu_fused_ntt(x128, stack, flag),
            lambda: fused.mxu_fused_plain(x128, stack, flag), mxu_bound(1 << 22, 128, 0),
            mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0])
-    del xl, twl, xr, x128
+    del xl, twl, twls, xr, x128
     ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root
     lt = P.make_leaf_tables(flag, 256, inverse=False, device=device)
@@ -1098,6 +1286,28 @@ def times(device, ntts, rng):
     kernel("K6 lane 65536x256 pair", lambda: P.fused_ntt_lane(xr, rt, fc, twr),
            lambda: P.lane_plain(xr, rt, fc, twr),
            butterfly_bound(n24, 256, False, "montgomery", "pair", n24))
+    # the Solinas forms of K4/K5/K6 at the same shapes, and K4's inverse
+    # (the companion-free 1/m scale) beside the Montgomery one
+    lts, lis = (P.make_leaf_tables(flag, 256, inverse=inv, modmul="solinas", device=device)
+                for inv in (False, True))
+    lti = P.make_leaf_tables(flag, 256, inverse=True, device=device)
+    kernel("K4 leaf 256x65536 solinas", lambda: P.fused_ntt(xm.view(256, 65536), lts, fcs),
+           lambda: P.leaf_plain(xm.view(256, 65536), lts, fcs),
+           butterfly_bound(n24, 256, False, "solinas", None, 0))
+    kernel("K4 leaf 256x65536 inv", lambda: P.fused_ntt(xm.view(256, 65536), lti, fc),
+           lambda: P.leaf_plain(xm.view(256, 65536), lti, fc),
+           butterfly_bound(n24, 256, True, "montgomery", None, 0))
+    kernel("K4 leaf 256x65536 inv solinas", lambda: P.fused_ntt(xm.view(256, 65536), lis, fcs),
+           lambda: P.leaf_plain(xm.view(256, 65536), lis, fcs),
+           butterfly_bound(n24, 256, True, "solinas", None, 0))
+    kernel("K5 mid 256x256x256 solinas", lambda: P.fused_ntt_mid(xm, lts, fcs, twms),
+           lambda: P.mid_plain(xm, lts, fcs, twms),
+           butterfly_bound(n24, 256, False, "solinas", "solinas", 65536))
+    rts = P.make_lane_tables(flag, 256, inverse=False, modmul="solinas", device=device)
+    twrs = MontPair(twr.w, None)
+    kernel("K6 lane 65536x256 solinas", lambda: P.fused_ntt_lane(xr, rts, fcs, twrs),
+           lambda: P.lane_plain(xr, rts, fcs, twrs),
+           butterfly_bound(n24, 256, False, "solinas", "solinas", n24))
     # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
     # and the inner row's leaf between transposes), the inter-step multiply
     # of that row, the root
@@ -1112,6 +1322,9 @@ def times(device, ntts, rng):
     view = MontPair(twm.w.unsqueeze(2), twm.wp.unsqueeze(2))
     kernel("inter-step 256x256x256 pair", lambda: inter_step.mont_mul_bcast(fc, xm, twm),
            lambda: inter_step_mul(fc, xm, view), inter_step_bound(n24, 65536, "pair"))
+    views = MontPair(twm.w.unsqueeze(2), None)
+    kernel("inter-step 256x256x256 solinas", lambda: inter_step.mont_mul_bcast(fcs, xm, twms),
+           lambda: inter_step_mul(fcs, xm, views), inter_step_bound(n24, 65536, "solinas"))
     # the blocked transpose at the root-row shape: u64 (K9b), u32 plane (K9a)
     plane = xr.view(torch.int32)[:, :256].contiguous()
     for key, fn, x in (("K9b transpose_u64 65536x256 int64",
@@ -1120,7 +1333,7 @@ def times(device, ntts, rng):
         kernel(key, lambda: fn(x), lambda: T.transpose_pallas_plain(x),
                bound(2 * x.numel() * x.element_size(), 0.0))
         out[key + " library"] = timed(lambda: x.t().contiguous(), 3, 10)
-    del xm, xr, twm, twr, plane
+    del xm, xr, twm, twr, twms, twrs, views, plane
     # the distributed 2^24 forward on logical shards of this card, per D
     # and comm mode; then K10 alone at the D = 8 [comm 1] exchange
     from sventt_tpu_torch.parallel import DistributedNTT, ring
@@ -1244,6 +1457,7 @@ def main() -> int:
     worst["pallas"].update(grouped_kernel_cases(device, rng))
     worst["transpose"] = transpose_cases(device, rng)
     worst["inter_step"] = inter_step_cases(device, rng)
+    worst["solinas"] = solinas_kernel_cases(device, rng)
     worst["ring"] = ring_cases(device, rng)
     torch.cuda.empty_cache()
 
@@ -1293,6 +1507,45 @@ def main() -> int:
         check(no_plain(c), "a plain version ran on the card")
     del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"]
     torch.cuda.empty_cache()
+    log("[slice solinas] NTT(modmul='solinas') on the matrix and butterfly engines vs the "
+        "native oracle, elementwise")
+    sol = dict(modmul="solinas")
+    ntts_sol, c_sol = slice_run(
+        device,
+        [(f"mxu solinas 2^{k}", F, G, 1 << k, sol) for k in (17, 24, 26)]
+        + [(f"pallas solinas 2^{k}", F, G, 1 << k, dict(engine="pallas", **sol))
+           for k in (17, 24, 26)],
+        oracles,
+    )
+    log(f"  launches {c_sol['launches']}, plain calls {c_sol['plain']}")
+    ls = c_sol["launches"]
+    check(all(ntt.fc.modmul == "solinas" for ntt in ntts_sol.values()), "modmul != solinas")
+    check(ls["mxu"]["lead"] > 0 and ls["mxu"]["mid"] > 0
+          and all(ls["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
+          "a kernel of the Solinas paths never ran")
+    del ntts_sol["mxu solinas 2^26"], ntts_sol["pallas solinas 2^26"]
+    torch.cuda.empty_cache()
+    log("[slice solinas max_r=3] NTT(engine='pallas', max_r=3, modmul='solinas'): radix-2, "
+        "as in JAX")
+    _, c_sr = slice_run(device, [("grouped solinas 2^24", F, G, 1 << 24,
+                                  dict(engine="pallas", max_r=3, **sol))], oracles)
+    log(f"  launches {c_sr['launches']}, plain calls {c_sr['plain']}")
+    lr = c_sr["launches"]["pallas"]
+    check(lr["grouped"] == 0 and lr["lane_grouped"] == 0, "Solinas max_r=3 launched K7/K8")
+    check(all(lr[k] > 0 for k in ("leaf", "mid", "lane")), "Solinas max_r=3 ran no radix-2")
+    log("[slice solinas six_step] a row subtree (4096 = 16 x 256): the transpose fallback's "
+        "inter-step pass under Solinas")
+    ntts_ss, c_ss = slice_run(device, [("pallas solinas six_step 2^24", F, G, 1 << 24,
+                                        dict(engine="pallas", strategy="six_step", **sol))],
+                              oracles)
+    log(f"  launches {c_ss['launches']}, plain calls {c_ss['plain']}")
+    check(c_ss["launches"]["inter_step"]["inter_step"] > 0, "the Solinas inter-step pass never ran")
+    check("transposed row subtree" in ntts_ss["pallas solinas six_step 2^24"].describe(),
+          "the six_step plan has no row subtree")
+    for c in (c_sol, c_sr, c_ss):
+        check(no_plain(c), "a plain version ran on the card")
+    del ntts_ss
+    torch.cuda.empty_cache()
     log("[path mxu_ntt_lane] K3 on the 2^24 root-row shape vs transpose + K1 + transpose")
     c_lane = lane_path(device, rng)
     log(f"  launches {c_lane['launches']}, plain calls {c_lane['plain']}")
@@ -1323,18 +1576,22 @@ def main() -> int:
         ("pallas 2^26 D=8 ring", F, G, 1 << 26, pal, m8, "ring"),
         ("pallas 2^24 (2, 4) dcn x ici xla", F, G, 1 << 24, pal, logical_mesh(device, 8, (2, 4)),
          "xla"),
+        # equal to the oracle, so to the single-device Solinas transform above
+        ("pallas solinas 2^24 D=4 ring", F, G, 1 << 24, dict(engine="pallas", modmul="solinas"),
+         m4, "ring"),
     ], oracles)
     check(c_dist["mxu 2^24 D=4 ring"]["launches"]["mxu"]["mid"] > 0, "the mxu path ran no K2")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
-    log("[distributed 2^28] 8 logical shards, ring, vs the single-device six_step transform")
+    log("[distributed 2^28] 8 logical shards, ring and overlap, vs the single-device six_step "
+        "transform")
     dist_2p28(device)
     multi_card(oracles)
     del oracles
     torch.cuda.empty_cache()
 
     # 5. times
-    ms, bounds, own = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp}, rng)
+    ms, bounds, own = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp, **ntts_sol}, rng)
     log(f"[times] median ms by CUDA events on {smi} (distributed: logical shards of this "
         "card, the schedule's cost on one card's memory, not scaling):")
     for k, v in ms.items():
@@ -1385,36 +1642,36 @@ def main() -> int:
     k10_launches = c_dist["pallas 2^24 D=8 ring"]["launches"]["ring"]["ring"]
     record = {"kernels": [
         entry("K1 s8 matrix NTT, lead (mxu_ntt)", "K1 lead 256x65536 pair", "ntt_mxu.cu",
-              "sventt_tpu/ops/ntt_mxu.py:574", lm["lead"], wm["lead"]),
+              "sventt_tpu/ops/ntt_mxu.py:680", lm["lead"], wm["lead"]),
         entry("K2 s8 matrix NTT, mid (mxu_ntt_mid)", "K2 mid 256x256x256 pair", "ntt_mxu.cu",
-              "sventt_tpu/ops/ntt_mxu.py:634", lm["mid"], wm["mid"]),
+              "sventt_tpu/ops/ntt_mxu.py:680", lm["mid"], wm["mid"]),
         entry("K3 s8 matrix NTT, lane (mxu_ntt_lane)", "K3 lane 65536x256", "ntt_mxu.cu",
-              "sventt_tpu/ops/ntt_mxu.py:487", lm["lane"], wm["lane"]),
+              "sventt_tpu/ops/ntt_mxu.py:527", lm["lane"], wm["lane"]),
         entry("K4 radix-2 stages, leaf (fused_ntt)", "K4 leaf 256x65536", "ntt_pallas.cu",
-              "sventt_tpu/ops/ntt_pallas.py:1136", lp["leaf"], wp["leaf"]),
+              "sventt_tpu/ops/ntt_pallas.py:1154", lp["leaf"], wp["leaf"]),
         entry("K5 radix-2 stages, mid (fused_ntt_mid)", "K5 mid 256x256x256 pair",
-              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:1167", lp["mid"], wp["mid"]),
+              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:1188", lp["mid"], wp["mid"]),
         entry("K6 radix-2 stages, lane (fused_ntt_lane)", "K6 lane 65536x256 pair",
-              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:891", lp["lane"], wp["lane"]),
+              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:911", lp["lane"], wp["lane"]),
         entry("K7 radix-2^R groups, leaf (fused_ntt_grouped)", "K7 leaf 256x65536 r=3",
-              "ntt_grouped.cu", "sventt_tpu/ops/ntt_pallas.py:679", lp["grouped"],
+              "ntt_grouped.cu", "sventt_tpu/ops/ntt_pallas.py:688", lp["grouped"],
               wp["grouped"]),
         entry("K8 radix-2^R groups, lane (fused_ntt_lane, grouped)",
               "K8 lane 65536x256 r=3 pair", "ntt_grouped.cu",
-              "sventt_tpu/ops/ntt_pallas.py:1107", lp["lane_grouped"], wp["lane_grouped"]),
+              "sventt_tpu/ops/ntt_pallas.py:1124", lp["lane_grouped"], wp["lane_grouped"]),
         entry("K9a blocked transpose, one plane (transpose_pallas)",
               "K9a transpose_pallas 65536x256 int32", "transpose.cu",
-              "sventt_tpu/ops/transpose.py:39", lt["plane"], wt["plane"]),
+              "sventt_tpu/ops/transpose.py:54", lt["plane"], wt["plane"]),
         entry("K9b blocked transpose, u64 (transpose_u64 / transpose01_u64)",
               "K9b transpose_u64 65536x256 int64", "transpose.cu",
-              "sventt_tpu/ops/transpose.py:69", lt["pair"], wt["pair"]),
+              "sventt_tpu/ops/transpose.py:87", lt["pair"], wt["pair"]),
         entry("inter-step multiply of the transpose fallback (an XLA pass there, "
               "not a Pallas kernel)", "inter-step 256x256x256 pair", "inter_step.cu",
               "sventt_tpu/plan/planner.py:376", c_grp["launches"]["inter_step"]["inter_step"],
               worst["inter_step"]),
         entry("K10 ring all-to-all of slabs (ring_all_to_all / canonical_all_to_all)",
               "K10 ring 2^24 D=8 8x(512x4096) split 1", "ring.cu",
-              "sventt_tpu/parallel/ring.py:104", k10_launches, worst["ring"]),
+              "sventt_tpu/parallel/ring.py:113", k10_launches, worst["ring"]),
     ]}
     for scheme in ("u7", "s8b"):
         ls, ws = c_schemes[scheme]["launches"]["mxu"], worst[f"mxu {scheme}"]
@@ -1427,6 +1684,28 @@ def main() -> int:
                 f"{k} {scheme} matrix NTT, {orient} ({fn}, make_mxu_tables(scheme={scheme!r}))",
                 f"{key} {scheme}", "ntt_mxu.cu", f"sventt_tpu/ops/ntt_mxu.py:{line}",
                 ls[orient], ws[orient]))
+    ws, lsol = worst["solinas"], c_sol["launches"]
+    for name, key, src, line, launches, err in (
+        ("K1 s8 matrix NTT, lead, Solinas twiddle (mxu_ntt, modmul='solinas')",
+         "K1 lead 256x65536 solinas", "ntt_mxu.cu", "ntt_mxu.py:680", lsol["mxu"]["lead"], ws["lead"]),
+        ("K2 s8 matrix NTT, mid, Solinas twiddle (mxu_ntt_mid, modmul='solinas')",
+         "K2 mid 256x256x256 solinas", "ntt_mxu.cu", "ntt_mxu.py:680", lsol["mxu"]["mid"], ws["mid"]),
+        ("K4 radix-2 stages, leaf, Solinas (fused_ntt, modmul='solinas')",
+         "K4 leaf 256x65536 solinas", "ntt_pallas.cu", "ntt_pallas.py:1154", lsol["pallas"]["leaf"],
+         ws["leaf"]),
+        ("K5 radix-2 stages, mid, Solinas stages and twiddle (fused_ntt_mid, modmul='solinas')",
+         "K5 mid 256x256x256 solinas", "ntt_pallas.cu", "ntt_pallas.py:1188", lsol["pallas"]["mid"],
+         ws["pallas mid"]),
+        ("K6 radix-2 stages, lane, Solinas stages and prologue (fused_ntt_lane, modmul='solinas')",
+         "K6 lane 65536x256 solinas", "ntt_pallas.cu", "ntt_pallas.py:911", lsol["pallas"]["lane"],
+         ws["lane"]),
+    ):
+        record["kernels"].append(entry(name, key, src, f"sventt_tpu/ops/{line}", launches, err))
+    record["kernels"].append(entry(
+        "inter-step multiply of the transpose fallback, Solinas (an XLA pass there, not a "
+        "Pallas kernel)", "inter-step 256x256x256 solinas", "inter_step.cu",
+        "sventt_tpu/plan/planner.py:376", c_ss["launches"]["inter_step"]["inter_step"],
+        ws["inter_step"]))
     record["kernels"].append(entry(
         "K11 fused u7 prototype, 128 points (mxu_fused_ntt; the u7 lead instantiation)",
         "K11 fused 128x32768", "ntt_mxu.cu", "experimental/mxu_fused_kernel.py:91",

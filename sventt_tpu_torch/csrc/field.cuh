@@ -74,20 +74,45 @@ __device__ __forceinline__ u64 shoup_mul(u64 a, u64 w, u64 wp, u64 N, bool lazy)
   return lazy ? c : u64_min(c, c - N);
 }
 
+// Solinas multiply a*w mod N, canonical [0, N), for a plain w, any a, and
+// a sparse-high N = 2^64 - eps, eps = c*2^s - 1 of at most 42 bits
+// (flagship: c = 1827, s = 31; Goldilocks: c = 1, s = 32) --
+// FieldConsts.solinas_mul.  2^64 === eps (mod N) folds the high word of
+// the 128-bit product: after fold 1 it is <= 2^42, after fold 2 <= 2^20,
+// so fold 3's hi*eps < 2^62 fits one word, and its carry out, one more
+// 2^64 === eps, adds without a new carry (the wrapped sum is < 2^62).
+// Every fold is exact, so this is the bit-identical canonical result of
+// the JAX package's limb chain whatever s is.  No companion: eps = -N.
+__device__ __forceinline__ u64 solinas_mul(u64 a, u64 w, u64 N) {
+  const u64 eps = 0ull - N;
+  u64 c;
+  u64 lo = a * w, hi = __umul64hi(a, w);
+  lo = add_carry(lo, hi * eps, c);
+  hi = __umul64hi(hi, eps) + c;
+  lo = add_carry(lo, hi * eps, c);
+  hi = __umul64hi(hi, eps) + c;
+  u64 r = add_carry(lo, hi * eps, c);
+  r += c ? eps : 0ull;
+  return u64_min(r, r - N);
+}
+
 // Stage-twiddle multiply by the configured engine (MM 0 Montgomery, 1
-// Shoup) -- FieldConsts.twiddle_mul.
+// Shoup, 2 Solinas: wp unread, never lazy) -- FieldConsts.twiddle_mul.
 template <int MM>
 __device__ __forceinline__ u64 twiddle_mul(u64 a, u64 w, u64 wp, u64 N, bool lazy) {
+  if constexpr (MM == 2) return solinas_mul(a, w, N);
   if constexpr (MM == 1) return shoup_mul(a, w, wp, N, lazy);
   return mont_mul(a, w, wp, N, lazy);
 }
 
-// The six-step inter-step multiply of v by twiddle i, always Montgomery:
-// with the companion table wp ("pair") or computing it in flight (wp null,
-// "w") -- ops/twiddle.py::inter_step_mul.
+// The six-step inter-step multiply of v by twiddle i by the engine `mode`:
+// 1 Montgomery with the companion table wp ("pair"), 2 Montgomery
+// computing it in flight ("w"), 3 Solinas on plain twiddles ("w", wp
+// unread) -- ops/twiddle.py::inter_step_mul.
 __device__ __forceinline__ u64 inter_step_mul(u64 v, const long long *w,
-                                              const long long *wp, long long i, u64 N,
-                                              u64 ninv, bool lazy) {
-  if (wp != nullptr) return mont_mul(v, (u64)w[i], (u64)wp[i], N, lazy);
+                                              const long long *wp, long long i, int mode,
+                                              u64 N, u64 ninv, bool lazy) {
+  if (mode == 3) return solinas_mul(v, (u64)w[i], N);
+  if (mode == 1) return mont_mul(v, (u64)w[i], (u64)wp[i], N, lazy);
   return mont_mul_full(v, (u64)w[i], N, ninv, lazy);
 }

@@ -10,12 +10,14 @@
 // inter_step_mul; the two agree bit for bit.
 //
 // out[r * B + b] = x[r * B + b] * tw[r] for the rows r of the (m0 * m1)
-// twiddle matrix and the B batch entries of each, Montgomery with the
-// companion table ("pair") or computing it in flight ("w").  One thread a
+// twiddle matrix and the B batch entries of each, by the engine `mode`:
+// Montgomery with the companion table (1, "pair") or computing it in
+// flight (2, "w"), or Solinas on plain twiddles (3; _mont_mul_bcast's
+// fc.solinas_mul branch, canonical only).  One thread a
 // point, grid-stride: neighbouring threads read neighbouring points, and a
 // row's twiddle is read once per B points (from L1/L2 after the first).
 // Bound on the H100: the bytes -- 16 a point plus 8 or 16 a twiddle --
-// against three or four 64-bit products a point.
+// against three or four 64-bit products a point (Solinas seven).
 
 #include <cuda_runtime.h>
 
@@ -31,11 +33,12 @@ template <bool LAZY>
 __global__ void __launch_bounds__(THREADS)
     inter_step_kernel(const long long *__restrict__ x, long long *__restrict__ out,
                       const long long *__restrict__ w, const long long *__restrict__ wp,
-                      long long total, long long B, int log2b, u64 N, u64 ninv) {
+                      long long total, long long B, int log2b, int mode, u64 N,
+                      u64 ninv) {
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < total; i += stride) {
     const long long r = log2b >= 0 ? i >> log2b : i / B;
-    out[i] = (long long)inter_step_mul((u64)x[i], w, wp, r, N, ninv, LAZY);
+    out[i] = (long long)inter_step_mul((u64)x[i], w, wp, r, mode, N, ninv, LAZY);
   }
 }
 
@@ -43,9 +46,11 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" int sventt_inter_step_mul(const void *x, void *out, const void *w,
                                      const void *wp, long long rows, long long B,
-                                     int lazy, unsigned long long N,
+                                     int mode, int lazy, unsigned long long N,
                                      unsigned long long ninv, void *stream) {
-  if (rows <= 0 || B <= 0 || w == nullptr) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || B <= 0 || w == nullptr || mode < 1 || mode > 3 ||
+      (mode == 1) != (wp != nullptr) || (mode == 3 && lazy))
+    return (int)cudaErrorInvalidValue;
   const long long total = rows * B;
   const int log2b = (B & (B - 1)) == 0 ? 63 - __builtin_clzll((unsigned long long)B) : -1;
   long long blocks = (total + THREADS - 1) / THREADS;
@@ -57,9 +62,9 @@ extern "C" int sventt_inter_step_mul(const void *x, void *out, const void *w,
   cudaStream_t st = (cudaStream_t)stream;
   if (lazy)
     inter_step_kernel<true><<<(unsigned)blocks, THREADS, 0, st>>>(xp, op, wq, wpq, total, B,
-                                                                  log2b, N, ninv);
+                                                                  log2b, mode, N, ninv);
   else
     inter_step_kernel<false><<<(unsigned)blocks, THREADS, 0, st>>>(xp, op, wq, wpq, total,
-                                                                   B, log2b, N, ninv);
+                                                                   B, log2b, mode, N, ninv);
   return (int)cudaGetLastError();
 }

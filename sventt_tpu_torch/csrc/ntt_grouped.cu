@@ -37,7 +37,8 @@
 // holds the inverse 1/m; K8 multiplies every point.  Same residues, and
 // with a lazy modulus each orientation keeps its JAX kernel's bits.  Stage
 // and constant multiplies are Montgomery or Shoup (template MM); the fused
-// inter-step twiddle is always Montgomery (field.cuh inter_step_mul).
+// inter-step twiddle is Montgomery (field.cuh inter_step_mul, tw_mode 1 or
+// 2).  Solinas never reaches this kernel: it forces max_r = 1.
 //
 // What bounds it on the H100: 16 bytes a point (32 with a "pair" twiddle of
 // the data's size, as the lane root step has) against, per point, one
@@ -92,7 +93,8 @@ __global__ void __launch_bounds__(THREADS)
       if (col < B) {
         v = (u64)x[a * sa + j * sm + col * sb];
         if (tw_mode != 0 && !INV)
-          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, N, ninv, LAZY);
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, N, ninv,
+                             LAZY);
       }
       T[j * P + c] = v;
     }
@@ -164,7 +166,8 @@ __global__ void __launch_bounds__(THREADS)
       if (col < B) {
         u64 v = T[j * P + c];
         if (tw_mode != 0 && INV)
-          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, N, ninv, LAZY);
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, N, ninv,
+                             LAZY);
         out[a * sa + j * sm + col * sb] = (long long)v;
       }
     }

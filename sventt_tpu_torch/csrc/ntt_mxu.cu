@@ -24,7 +24,10 @@
 // 10 unsigned 7-bit planes of the matrix times 10 of the data give 19
 // unsigned planes at bit 7t, recombined the same way without bias or corr.
 // The optional inter-step twiddle multiply is fused before the plane split
-// on the forward and after the REDC on the inverse.
+// on the forward and after the REDC on the inverse: Montgomery with the
+// companion ("pair") or without it ("w"), or Solinas on plain twiddles
+// (_tw_mul's fc.solinas_mul branch, canonical moduli only).  The planes
+// and the REDC tail do not depend on the engine.
 //
 // What the TPU schemes were for, and why they buy nothing here.  u7 was the
 // round-4 scheme; s8 replaced it because its recombination tail (15 byte-
@@ -158,13 +161,14 @@ template <int TW, bool LAZY>
 __device__ __forceinline__ u64 twiddle(u64 v, const long long *tw_w,
                                        const long long *tw_wp, long long ti,
                                        const Consts &k) {
+  if (TW == 3) return solinas_mul(v, (u64)tw_w[ti], k.N);
   if (TW == 1) return mont_mul(v, (u64)tw_w[ti], (u64)tw_wp[ti], k.N, LAZY);
   return mont_mul_full(v, (u64)tw_w[ti], k.N, k.ninv, LAZY);
 }
 
 // U7: the plane format (the s8 digit stack, or u7).  TW: 0 none, 1 "pair"
-// (mont_mul), 2 "w" (mont_mul_full).  Matrix plane a of row p starts at
-// planes + (a * m + p) * m.
+// (mont_mul), 2 "w" (mont_mul_full), 3 Solinas "w" (solinas_mul).  Matrix
+// plane a of row p starts at planes + (a * m + p) * m.
 template <bool U7, int TW, bool INV, bool LAZY>
 __global__ void __launch_bounds__(THREADS)
     mxu_ntt_kernel(const long long *__restrict__ x, long long *__restrict__ out,
@@ -280,6 +284,8 @@ cudaError_t dispatch(const Args &g, int tw_mode, int inverse, int lazy) {
       return lazy ? launch<U7, 2, true, true>(g) : launch<U7, 2, true, false>(g);
     return lazy ? launch<U7, 2, false, true>(g) : launch<U7, 2, false, false>(g);
   }
+  if (tw_mode == 3 && !lazy)  // Solinas: canonical only, no companion
+    return inverse ? launch<U7, 3, true, false>(g) : launch<U7, 3, false, false>(g);
   return cudaErrorInvalidValue;
 }
 
@@ -295,7 +301,9 @@ extern "C" int sventt_mxu_ntt(
     unsigned long long N, unsigned long long nprime, unsigned long long c128,
     unsigned long long mu, unsigned long long ninv, int nsub, int barrett,
     void *stream) {
-  if (A <= 0 || B <= 0 || m < 2 || (!u7 && corr == nullptr)) return (int)cudaErrorInvalidValue;
+  if (A <= 0 || B <= 0 || m < 2 || (!u7 && corr == nullptr) ||
+      (tw_mode != 0 && tw_w == nullptr) || (tw_mode == 1) != (tw_wp != nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long gy = A < 65535 ? A : 65535;
   const Args g{dim3((unsigned)((B + TC - 1) / TC), (unsigned)gy),
                (size_t)(u7 ? Planes<true>::IN : Planes<false>::IN) * TC * (((m + 3) & ~3) + 4),

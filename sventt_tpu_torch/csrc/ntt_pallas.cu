@@ -32,11 +32,15 @@
 //            a = x0 * s, b = x1 * sw: (a + b, a - b)
 // The two forward sequences give the same residue but, with a lazy
 // modulus, not always the same [0, 2N) bits; each orientation keeps the
-// bits of the JAX kernel it replaces.  The stage multiply is Montgomery or
-// Shoup (template MM); the fused inter-step twiddle (tw_mode 1 "pair" =
-// mont_mul, 2 "w" = mont_mul_full) is always Montgomery, before the stages
-// on the forward and after them on the inverse.  The ragged batch edge is
-// masked here (the JAX wrappers pad to 256 columns or 64 rows).
+// bits of the JAX kernel it replaces.  The stage multiply is Montgomery,
+// Shoup or Solinas (template MM 0 / 1 / 2).  Solinas (modmul="solinas":
+// _stage_one with aps = 2, apply_pre's solinas_mul) is canonical only, its
+// tables are plain and companion-free: the wp vector and sp are not read,
+// half the stage-table bytes.  The fused inter-step twiddle (tw_mode 1
+// "pair" = mont_mul, 2 "w" = mont_mul_full, 3 Solinas "w" = solinas_mul)
+// runs before the stages on the forward and after them on the inverse.
+// The ragged batch edge is masked here (the JAX wrappers pad to 256
+// columns or 64 rows).
 //
 // What bounds it on the H100: every point is read and written once (16
 // bytes; 32 with a "pair" inter-step twiddle of the data's size, as the
@@ -95,8 +99,8 @@ __global__ void __launch_bounds__(THREADS)
       if (col < B) {
         v = (u64)x[a * sa + j * sm + col * sb];
         if (prologue)
-          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, k.N, k.ninv,
-                             LAZY);
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, k.N,
+                             k.ninv, LAZY);
       }
       T[j * P + c] = v;
     }
@@ -114,7 +118,8 @@ __global__ void __launch_bounds__(THREADS)
         u64 *p0 = T + (((bi - j) << 1) + j) * P + c;
         u64 *p1 = p0 + l * P;
         const u64 x0 = *p0, x1 = *p1;
-        const u64 tw = __ldg(ws + j), twp = __ldg(wps + j);
+        const u64 tw = __ldg(ws + j);
+        const u64 twp = MM == 2 ? 0ull : __ldg(wps + j);
         u64 y0, y1;
         if (!INV) {
           y0 = add_mod(x0, x1, k.N, LAZY);
@@ -143,8 +148,8 @@ __global__ void __launch_bounds__(THREADS)
       if (col < B) {
         u64 v = T[j * P + c];
         if (epilogue)
-          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, k.N, k.ninv,
-                             LAZY);
+          v = inter_step_mul(v, tw_w, tw_wp, a * ta + j * tm + col * tb, tw_mode, k.N,
+                             k.ninv, LAZY);
         out[a * sa + j * sm + col * sb] = (long long)v;
       }
     }
@@ -181,9 +186,13 @@ extern "C" int sventt_butterfly_ntt(
     unsigned long long N, unsigned long long ninv, unsigned long long s,
     unsigned long long sp, void *stream) {
   if (A <= 0 || B <= 0 || log2m < 1 || log2m > 12 || log2c < 0 || log2c > 16 ||
-      first < 0 || first >= last || last > log2m || tw_mode < 0 || tw_mode > 2 ||
+      first < 0 || first >= last || last > log2m || tw_mode < 0 ||
       (tw_mode != 0 && tw_w == nullptr) || ((tw_mode == 1) != (tw_wp != nullptr)) ||
-      modmul < 0 || modmul > 1 || (modmul == 1 && !lazy))
+      modmul < 0 || modmul > 2 || (modmul == 1 && !lazy) ||
+      // Solinas: canonical, companion-free stages, its own inter-step mode;
+      // and only Solinas takes that mode
+      (modmul == 2 && (lazy || wp != nullptr || (tw_mode != 0 && tw_mode != 3))) ||
+      (modmul != 2 && (wp == nullptr || tw_mode == 3)) || tw_mode > 3)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (((size_t)1 << log2c) + 1) * ((size_t)1 << log2m) * sizeof(u64);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
@@ -201,7 +210,9 @@ extern "C" int sventt_butterfly_ntt(
   launch<INV, MM, LAZY>(grid, smem, st, xp, op, wq, wpq, tq, tpq, A, log2m, B, sa, sm, \
                         sb, ta, tm, tb, first, last, log2c, lane, tw_mode, k)
   cudaError_t e;
-  if (modmul == 1)  // Shoup is lazy only (FieldConsts.from_modulus)
+  if (modmul == 2)  // Solinas is canonical only (64-bit moduli)
+    e = inverse ? SVENTT_LAUNCH(true, 2, false) : SVENTT_LAUNCH(false, 2, false);
+  else if (modmul == 1)  // Shoup is lazy only (FieldConsts.from_modulus)
     e = inverse ? SVENTT_LAUNCH(true, 1, true) : SVENTT_LAUNCH(false, 1, true);
   else if (lazy)
     e = inverse ? SVENTT_LAUNCH(true, 0, true) : SVENTT_LAUNCH(false, 0, true);

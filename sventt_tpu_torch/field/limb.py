@@ -17,11 +17,14 @@ The same functions exist as CUDA device code in ``csrc/field.cuh``, where
 ``__umul64hi`` gives ``hi64`` in one instruction.  The (hi, lo) limb pair
 exists only at the test boundary (``from_limbs`` / ``to_limbs``).
 
-The Montgomery and Shoup engines, the lazy and canonical add/sub and the
-radix-2 butterflies are ported; the Solinas engine is not (ROADMAP Queue 1
-item 1).  ``hi64(q*N)`` is the generic product: the sparse-modulus chains
-of the JAX package compute the same value with fewer 32-bit multiplies,
-which a GPU does not need.
+The Montgomery, Shoup and Solinas engines, the lazy and canonical add/sub
+and the radix-2 butterflies are ported.  ``hi64(q*N)`` is the generic
+product: the sparse-modulus chains of the JAX package compute the same
+value with fewer 32-bit multiplies, which a GPU does not need.  The
+Solinas fold multiplies the high word by ``eps`` with 64-bit products
+(``u64_reduce128_sparse_high``), where the JAX package shifts a
+small-constant product across limbs; every fold is exact, so both give
+the same canonical result.
 """
 
 from __future__ import annotations
@@ -136,8 +139,16 @@ def u64_mulhi(a, b) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# sparse-modulus detection (kept for FieldConsts parity with the JAX package)
+# sparse-modulus detection and the Solinas fold
 # ---------------------------------------------------------------------------
+
+
+def solinas_capable(N: int) -> bool:
+    """Whether the Solinas engine supports this modulus: high form
+    N = 2^64 - eps with eps = c*2^s - 1 and bit_width(c) + s <= 42, so
+    that three folds converge (``u64_reduce128_sparse_high``)."""
+    form, c, s = detect_sparse_modulus(N)
+    return form == "high" and c.bit_length() + s <= 42
 
 
 def detect_sparse_modulus(N: int, max_c_bits: int = 20):
@@ -158,6 +169,27 @@ def detect_sparse_modulus(N: int, max_c_bits: int = 20):
     if not candidates:
         return ("generic", 0, 0)
     return min(candidates, key=lambda t: t[1])
+
+
+def _fold_eps(hi, lo, eps: int):
+    """(hi, lo) -> (hi', lo') with hi'*2^64 + lo' = hi*eps + lo, exact."""
+    e = torch.full_like(hi, eps)
+    lo2, carry = u64_add_carry(lo, hi * e)
+    return u64_mulhi(hi, e) + carry, lo2
+
+
+def u64_reduce128_sparse_high(hi, lo, c: int, s: int) -> torch.Tensor:
+    """(hi*2^64 + lo) mod N as a u64 representative in [0, 2^64), for
+    N = 2^64 - eps, eps = c*2^s - 1 of at most 42 bits: 2^64 === eps
+    folds the high word down.  After fold 1 it is <= 2^42, after fold 2
+    <= 2^20, so fold 3's hi*eps < 2^62 fits one word; its carry out is one
+    more 2^64 === eps, added without a new carry (the wrapped sum is below
+    2^62).  ``FieldConsts.solinas_mul`` takes it to [0, N)."""
+    eps = (c << s) - 1
+    hi, lo = _fold_eps(hi, lo, eps)
+    hi, lo = _fold_eps(hi, lo, eps)
+    r, carry = u64_add_carry(lo, hi * eps)
+    return r + carry * eps
 
 
 # ---------------------------------------------------------------------------
@@ -193,13 +225,14 @@ class FieldConsts:
             modmul = "montgomery"
         if modmul not in ("montgomery", "shoup", "solinas"):
             raise ValueError(f"unknown modmul engine {modmul!r}")
-        if modmul == "solinas":
-            raise NotImplementedError(
-                "modmul='solinas' is not ported yet (ROADMAP Queue 1 item 1)"
-            )
         if modmul == "shoup" and not lazy:
             raise ValueError("shoup engine requires lazy mode (bit_width <= 62)")
         form, c, s = detect_sparse_modulus(mod.modulus)
+        if modmul == "solinas" and not solinas_capable(mod.modulus):
+            raise ValueError(
+                "solinas engine requires a sparse-high modulus "
+                "N = 2^64 - (c*2^s - 1) with bit_width(c*2^s) <= 42"
+            )
         return cls(mod.modulus, mod.montgomery_inverse, lazy, modmul, form, c, s)
 
     # -- addition/subtraction ------------------------------------------------
@@ -264,13 +297,25 @@ class FieldConsts:
             return c
         return u64_min(c, c - n)
 
+    def solinas_mul(self, a, w) -> torch.Tensor:
+        """Companion-free direct multiply: a*w mod N, canonical [0, N), for
+        a PLAIN-domain ``w`` and any ``a`` < 2^64.  The 128-bit product is
+        folded by ``u64_reduce128_sparse_high``; one min-subtract finishes,
+        since N > 2^63.  Needs ``n_form == "high"``; a Solinas modulus has
+        64 bits, so this engine is never lazy."""
+        r = u64_reduce128_sparse_high(u64_mulhi(a, w), a * w, self.n_c, self.n_s)
+        return u64_min(r, r - s64(self.modulus))
+
     # -- butterflies ---------------------------------------------------------
 
     def twiddle_mul(self, a, w, wp) -> torch.Tensor:
         """Multiply by a prepared stage-twiddle pair via the configured
-        engine: Montgomery ``(w*R, w*R*N^-1)`` or Shoup ``(w, floor(w*2^64/N))``."""
+        engine: Montgomery ``(w*R, w*R*N^-1)``, Shoup ``(w, floor(w*2^64/N))``
+        or Solinas (``w`` plain canonical, ``wp`` ignored, may be None)."""
         if self.modmul == "shoup":
             return self.shoup_mul(a, w, wp)
+        if self.modmul == "solinas":
+            return self.solinas_mul(a, w)
         return self.mont_mul(a, w, wp)
 
     def butterfly_forward(self, x0, x1, w, wp):
@@ -290,7 +335,8 @@ class FieldConsts:
 
     def butterfly_inverse_scaled(self, x0, x1, s, sp, sw, swp):
         """Last DIT butterfly with 1/m folded in: ``a = x0*s``,
-        ``b = x1*sw`` (``sw = s*w``); ``(a + b, a - b)``."""
+        ``b = x1*sw`` (``sw = s*w``); ``(a + b, a - b)``.  The companions
+        ``sp`` / ``swp`` are None under Solinas."""
         a = self.twiddle_mul(x0, s, sp)
         b = self.twiddle_mul(x1, sw, swp)
         return self.add(a, b), self.sub(a, b)

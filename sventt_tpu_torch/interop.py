@@ -7,17 +7,20 @@ caller does the ``np.asarray`` on the JAX side), into the port's tensors:
 * a limb pair ``(hi, lo)`` of uint32 arrays -> an int64 tensor;
 * ``MxuDirection.planes`` / ``corr`` of any scheme -> ``ops.ntt_mxu.MxuDirection``;
 * ``FusedDirection`` (``stage_ls``, ``tw``: per stage the four (rows,
-  block_b) arrays w_hi, w_lo, wp_hi, wp_lo; ``scale``: four arrays of the
-  broadcast (s, sp) pair, or none) -> ``ops.ntt_pallas.FusedDirection``;
-* ``LaneDirection`` (``stage_ls``, ``tw``: (stages, 4, rows, m),
-  ``scale_scalar``: (s, sp) ints or None) -> ``ops.ntt_pallas.LaneDirection``;
+  block_b) arrays w_hi, w_lo, wp_hi, wp_lo, or under Solinas the two
+  w_hi, w_lo; ``scale``: four (two) arrays of the broadcast (s, sp) pair,
+  or none) -> ``ops.ntt_pallas.FusedDirection``;
+* ``LaneDirection`` (``stage_ls``, ``tw``: (stages, 4, rows, m), under
+  Solinas (stages, 2, rows, m); ``scale_scalar``: (s, sp) ints, sp None
+  under Solinas, or None) -> ``ops.ntt_pallas.LaneDirection``;
 * ``GroupedDirection`` (``specs``; ``tw``: per group the four (m, 256)
   arrays w_hi, w_lo, wp_hi, wp_lo) -> ``ops.ntt_pallas.GroupedDirection``,
   and ``GroupedLaneDirection`` (``specs``; ``tw``: (groups, 4, rows, m))
   -> ``ops.ntt_pallas.GroupedLaneDirection``.  A spec is any object with
   the fields of ``GroupSpec`` (the JAX one as it is); its ``consts``
   become the port's constant tensor;
-* a ``MontPair`` as ``{"w": (hi, lo), "wp": (hi, lo) or None}``;
+* a ``MontPair`` as ``{"w": (hi, lo), "wp": (hi, lo) or None}`` (Solinas
+  row twiddles are plain and companion-free: ``"wp"`` None);
 * a whole ``PlanTables`` as ``{"leaf": {(m, "mxu"): {"planes": ..., "corr":
   (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}
   or {"specs": ..., "tw": ...}}, "lane": {m1: {"stage_ls": ..., "tw": ...,
@@ -98,28 +101,40 @@ def mxu_direction_from_numpy(
     )
 
 
+def _channels(modmul: str) -> int:
+    """Limb arrays a stage table has: w and its companion, or w alone
+    (Solinas)."""
+    return 2 if modmul == "solinas" else 4
+
+
 def _stage_pairs(stage_ls, arrays, device) -> list[MontPair]:
-    """Per stage the compact pair from its four (hi, lo) limb vectors."""
+    """Per stage the compact pair from its (hi, lo) limb vectors: four, or
+    two without a companion."""
     pairs = []
-    for l, (wh, wl, ph, pl) in zip(stage_ls, arrays):
-        pairs.append(MontPair(from_limbs(wh[:l], wl[:l], device), from_limbs(ph[:l], pl[:l], device)))
+    for l, limbs in zip(stage_ls, arrays):
+        w = from_limbs(limbs[0][:l], limbs[1][:l], device)
+        wp = from_limbs(limbs[2][:l], limbs[3][:l], device) if len(limbs) == 4 else None
+        pairs.append(MontPair(w, wp))
     return pairs
 
 
 def fused_direction_from_numpy(
     m: int, inverse: bool, modmul: str, stage_ls, tw, scale, device=None
 ) -> FusedDirection:
-    """The JAX ``FusedDirection`` (radix-2, companioned engine) as the
-    port's: column 0 of each pre-broadcast stage array, first l rows."""
+    """The JAX ``FusedDirection`` (radix-2) as the port's: column 0 of each
+    pre-broadcast stage array, first l rows."""
     device = resolve_device(device)
+    ch = _channels(modmul)
     cols = [[np.asarray(a)[:, 0] for a in stage] for stage in tw]
-    if any(len(stage) != 4 for stage in cols):
-        raise ValueError("expected four arrays per stage (w_hi, w_lo, wp_hi, wp_lo)")
+    if any(len(stage) != ch for stage in cols):
+        raise ValueError(f"expected {ch} arrays per stage under {modmul!r}")
     w, wp = _compact(_stage_pairs(stage_ls, cols, device), stage_ls, m, device)
     sc = None
     if inverse:
-        sh, sl, ph, pl = (int(np.asarray(a).flat[0]) for a in scale)
-        sc = ((sh << 32) | sl, (ph << 32) | pl)
+        limbs = [int(np.asarray(a).flat[0]) for a in scale]
+        if len(limbs) != ch:
+            raise ValueError(f"expected {ch} scale arrays under {modmul!r}")
+        sc = ((limbs[0] << 32) | limbs[1], (limbs[2] << 32) | limbs[3] if ch == 4 else None)
     return FusedDirection(m, inverse, modmul, tuple(stage_ls), w, wp, sc)
 
 
@@ -129,12 +144,13 @@ def lane_direction_from_numpy(
     """The JAX ``LaneDirection`` as the port's: row 0 of each stage's four
     lane vectors, first l lanes."""
     device = resolve_device(device)
+    ch = _channels(modmul)
     tw = np.asarray(tw)
-    if tw.ndim != 4 or tw.shape[1] != 4 or tw.shape[3] != m:
-        raise ValueError(f"expected (stages, 4, rows, {m}) lane tables, got {tw.shape}")
-    rows = [[tw[s, c, 0] for c in range(4)] for s in range(tw.shape[0])]
+    if tw.ndim != 4 or tw.shape[1] != ch or tw.shape[3] != m:
+        raise ValueError(f"expected (stages, {ch}, rows, {m}) lane tables, got {tw.shape}")
+    rows = [[tw[s, c, 0] for c in range(ch)] for s in range(tw.shape[0])]
     w, wp = _compact(_stage_pairs(stage_ls, rows, device), stage_ls, m, device)
-    sc = None if scale_scalar is None else tuple(int(v) for v in scale_scalar)
+    sc = None if scale_scalar is None else tuple(None if v is None else int(v) for v in scale_scalar)
     return LaneDirection(m, inverse, modmul, tuple(stage_ls), w, wp, sc)
 
 

@@ -2,8 +2,9 @@
 
 The counterpart of ``sventt_tpu/plan/planner.py::_mont_mul_bcast``:
 (m0, m1, batch...) data times an (m0, m1) twiddle matrix broadcast over the
-batch, Montgomery whatever the stage engine (``twiddle.inter_step_mul``,
-with the companion table or computing it in flight).  The planner runs it
+batch (``twiddle.inter_step_mul``): Solinas on plain twiddles under the
+Solinas engine, else Montgomery with the companion table or computing it
+in flight.  The planner runs it
 only on its transpose fallback (a grouped inner row step, a row subtree);
 the fused row kernels multiply the twiddle in their own prologue or
 epilogue.  The JAX package leaves this pass to XLA; on the card it is the
@@ -18,7 +19,7 @@ import ctypes
 import torch
 
 from ..field.limb import FieldConsts
-from .twiddle import MontPair, inter_step_mul
+from .twiddle import MontPair, check_companion, inter_step_mul
 
 LAUNCHES = {"inter_step": 0}
 PLAIN_CALLS = {"inter_step": 0}
@@ -42,8 +43,10 @@ def _check(x: torch.Tensor, tw: MontPair) -> None:
 
 def mont_mul_bcast(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tensor:
     """``x`` (m0, m1, batch...) times the (m0, m1) inter-step twiddles
-    ``tw`` (companion optional), broadcast over the batch."""
+    ``tw`` (companion optional; refused under Solinas), broadcast over the
+    batch."""
     _check(x, tw)
+    check_companion(fc, tw)
     rows = x.shape[0] * x.shape[1]
     B = x.numel() // rows
     if x.is_cuda:
@@ -52,10 +55,11 @@ def mont_mul_bcast(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tens
         xc = x.contiguous()
         w = tw.w.contiguous()
         wp = None if tw.wp is None else tw.wp.contiguous()
+        mode = 3 if fc.modmul == "solinas" else (2 if wp is None else 1)
         out = torch.empty_like(xc)
         rc = _build.load().sventt_inter_step_mul(
             xc.data_ptr(), out.data_ptr(), w.data_ptr(), None if wp is None else wp.data_ptr(),
-            rows, B, int(fc.lazy), fc.modulus, fc.montgomery_inverse,
+            rows, B, mode, int(fc.lazy), fc.modulus, fc.montgomery_inverse,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         if rc != 0:
@@ -80,7 +84,7 @@ def reset_counts() -> None:
 _ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_longlong] * 2
-    + [ctypes.c_int]
+    + [ctypes.c_int] * 2
     + [ctypes.c_ulonglong] * 2
     + [ctypes.c_void_p]
 )

@@ -72,7 +72,7 @@ from ..field.limb import (
 )
 from ..field.modulus import MASK32, Modulus
 from ..utils.device import resolve_device
-from .twiddle import MontPair, inter_step_mul, montpair_map
+from .twiddle import MontPair, check_companion, inter_step_mul, montpair_map
 
 #: Seven-bit planes per u64 for the "u7" scheme (10 * 7 = 70 >= 64 bits).
 NL = 10
@@ -375,7 +375,12 @@ def _launch(
     lib = _build.load()
     A, m, B = x.shape
     out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
-    mode = 0 if tw is None else (2 if tw.wp is None else 1)
+    # twiddle mode: 0 none, 1 "pair", 2 "w", 3 Solinas (plain w; the C
+    # entry refuses a companion with it, as _run does)
+    if tw is None:
+        mode = 0
+    else:
+        mode = 3 if fc.modmul == "solinas" else (2 if tw.wp is None else 1)
     if tw is None:
         w_ptr = wp_ptr = None
         ts = (0, 0, 0)
@@ -435,6 +440,7 @@ def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
 
 
 def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
+    check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
         out = _launch(x3, t, fc, tw3)

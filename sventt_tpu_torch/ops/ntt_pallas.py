@@ -17,8 +17,11 @@ Forward stages are DIF (l = m/2 ... 1, bit-reversed output), inverse stages
 DIT (l = 1 ... m/2) with 1/m folded into the last stage.  The tables are
 compact: per direction one (m-1,) vector of stage twiddles, the stage of
 half-width l at [l-1, 2l-1), one of companions beside it, and the inverse
-scale pair (s, sp).  The JAX package pre-broadcasts the same values to its
-(8, 128) vreg tiles; ``interop`` takes them back.
+scale pair (s, sp).  The Solinas engine (``modmul="solinas"``) has plain
+twiddles and no companions: ``wp`` and ``sp`` are None, half the table
+bytes.  The JAX package pre-broadcasts the same values to its (8, 128)
+vreg tiles (2 channels a stage under Solinas, 4 otherwise); ``interop``
+takes them back.
 
 Lazy-mode representatives follow each JAX kernel's own sequence: K4/K5
 bias the forward difference by +2N (``FieldConsts.butterfly_forward``), K6
@@ -37,7 +40,10 @@ kernel (``csrc/ntt_grouped.cu``) in two orientations:
 
 The JAX planner never sends grouped tables to the mid orientation (its
 ``_mid_row`` asks for a ``FusedDirection``): a batched grouped row takes
-the transpose fallback, so ``fused_ntt_mid`` rejects them.  The lazy bits
+the transpose fallback, so ``fused_ntt_mid`` rejects them.  Nor does it
+build them under Solinas: a group's constants and tables are companioned
+pairs, so ``make_leaf_tables`` / ``make_lane_tables`` force ``max_r = 1``
+there, as in the JAX package.  The lazy bits
 of K7 and K8 differ as K4's and K6's do, and in one more place: K7 skips
 the table multiply where the combined exponent is 0, K8 multiplies every
 point by its (then unit) table entry.
@@ -61,6 +67,7 @@ from ..utils.device import resolve_device
 from .twiddle import (
     MontPair,
     _twiddle_pair,
+    check_companion,
     forward_tables,
     inter_step_mul,
     inverse_tables,
@@ -105,7 +112,8 @@ class _StageTables:
     ``stage_ls``: half-widths in run order.  ``w`` / ``wp``: (m-1,) int64,
     the stage of half-width l at [l-1, 2l-1), in the form of ``modmul``;
     on the inverse the last stage holds ``s * w``.  ``scale``: the inverse
-    pair (s, sp) as Python ints, None on the forward.
+    pair (s, sp) as Python ints, None on the forward.  Solinas: ``wp`` and
+    ``sp`` are None.
     """
 
     m: int
@@ -113,11 +121,12 @@ class _StageTables:
     modmul: str
     stage_ls: tuple[int, ...]
     w: torch.Tensor
-    wp: torch.Tensor
-    scale: tuple[int, int] | None
+    wp: torch.Tensor | None
+    scale: tuple[int, int | None] | None
 
-    def stage(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
-        return self.w[l - 1 : 2 * l - 1], self.wp[l - 1 : 2 * l - 1]
+    def stage(self, l: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+        wp = None if self.wp is None else self.wp[l - 1 : 2 * l - 1]
+        return self.w[l - 1 : 2 * l - 1], wp
 
 
 @dataclass(frozen=True)
@@ -148,13 +157,15 @@ def _check_knobs(m: int, tw_layout: str | None, **knobs) -> None:
             raise ValueError(f"{name} must be a positive power of two, got {v}")
 
 
-def _compact(pairs, ls, m: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-stage pairs (run order ``ls``) -> the two (m-1,) vectors."""
+def _compact(pairs, ls, m: int, device) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Per-stage pairs (run order ``ls``) -> the two (m-1,) vectors; no
+    companion vector when the pairs have none (Solinas)."""
     w = torch.zeros(m - 1, dtype=torch.int64, device=device)
-    wp = torch.zeros(m - 1, dtype=torch.int64, device=device)
+    wp = None if pairs[0].wp is None else torch.zeros_like(w)
     for pair, l in zip(pairs, ls):
         w[l - 1 : 2 * l - 1] = pair.w
-        wp[l - 1 : 2 * l - 1] = pair.wp
+        if wp is not None:
+            wp[l - 1 : 2 * l - 1] = pair.wp
     return w, wp
 
 
@@ -167,7 +178,8 @@ def _forward_parts(mod: Modulus, m: int, modmul: str, device):
 def _inverse_parts(mod: Modulus, m: int, scale_extra: int, modmul: str, device):
     tabs = inverse_tables(mod, m, scale_extra, modmul, device)
     ls = tuple(1 << s for s in range(len(tabs.stages)))
-    scale = (int(tabs.scale.w[0]) % (1 << 64), int(tabs.scale.wp[0]) % (1 << 64))
+    s, sp = (None if v is None else int(v[0]) % (1 << 64) for v in tabs.scale)
+    scale = (s, sp)
     return (m, True, modmul, ls, *_compact(tabs.stages, ls, m, device), scale)
 
 
@@ -246,7 +258,8 @@ def _choose_groups(num_stages: int, max_r: int) -> tuple[int, ...]:
 
 
 def _const_pair(mod: Modulus, modmul: str, value: int) -> tuple[int, int]:
-    """(w, wp) scalar ints in engine form for a constant twiddle."""
+    """(w, wp) scalar ints in engine form for a constant twiddle
+    (Montgomery or Shoup: a group's constants carry a companion)."""
     if modmul == "montgomery":
         w = mod.to_montgomery(value % mod.modulus)
         return w, mod.montgomery_precompute(w)
@@ -388,6 +401,8 @@ def _grouped_parts(mod: Modulus, m: int, inverse: bool, modmul: str, max_r: int,
     _check_knobs(m, None)
     if not 1 <= max_r <= MAX_R:
         raise ValueError(f"max_r must be in 1..{MAX_R}, got {max_r}")
+    if modmul not in ("montgomery", "shoup"):
+        raise ValueError(f"grouped tables carry companioned pairs; modmul {modmul!r} has none")
     device = resolve_device(device)
     if inverse:
         specs, tables = _inverse_group_values(mod, m, modmul, scale_extra, max_r)
@@ -429,13 +444,6 @@ def make_lane_grouped_inverse(
     )
 
 
-def _solinas_unported(modmul: str) -> None:
-    if modmul == "solinas":
-        raise NotImplementedError(
-            "modmul='solinas' is not ported yet (ROADMAP Queue 1 item 1)"
-        )
-
-
 def make_leaf_tables(
     mod: Modulus, m: int, *, inverse: bool, modmul: str = "montgomery",
     max_r: int | None = None, block_b: int | None = None, spc: int | None = None,
@@ -443,10 +451,12 @@ def make_leaf_tables(
 ) -> FusedDirection | GroupedDirection:
     """Leaf / mid tables: per-stage radix-2 by default, radix-2^R grouped
     with ``max_r`` > 1 (leaf only; ``block_b`` / ``spc`` / ``tw_layout``
-    are then validated but, as in the JAX package, unused).  ``device``
-    None is the card."""
-    _solinas_unported(modmul)
+    are then validated but, as in the JAX package, unused).  Solinas forces
+    ``max_r = 1`` (the grouped tables are companioned), as in the JAX
+    package.  ``device`` None is the card."""
     tw_layout = tw_layout or "tiled"
+    if modmul == "solinas":
+        max_r = 1
     if max_r is not None and max_r > 1:
         _check_knobs(m, tw_layout, block_b=block_b, spc=spc)
         if inverse:
@@ -468,9 +478,10 @@ def make_lane_tables(
     max_r: int | None = None, rows: int | None = None, device=None,
 ) -> LaneDirection | GroupedLaneDirection:
     """Lane tables: per-stage radix-2 by default, radix-2^R grouped with
-    ``max_r`` > 1 (``rows`` then validated but unused); ``device`` None is
-    the card."""
-    _solinas_unported(modmul)
+    ``max_r`` > 1 (``rows`` then validated but unused; Solinas forces
+    ``max_r = 1``); ``device`` None is the card."""
+    if modmul == "solinas":
+        max_r = 1
     if max_r is not None and max_r > 1:
         _check_knobs(m, None, rows=rows)
         if inverse:
@@ -501,14 +512,14 @@ def _stages_plain(
     for s, l in enumerate(t.stage_ls):
         v = x.reshape(A, m // (2 * l), 2, l, B)
         x0, x1 = v[:, :, 0], v[:, :, 1]
-        w, wp = (a.reshape(1, 1, l, 1) for a in t.stage(l))
+        w, wp = (None if a is None else a.reshape(1, 1, l, 1) for a in t.stage(l))
         if not t.inverse:
             if lane:
                 y0, y1 = fc.add(x0, x1), fc.twiddle_mul(fc.sub(x0, x1), w, wp)
             else:
                 y0, y1 = fc.butterfly_forward(x0, x1, w, wp)
         elif s == last:
-            sc, scp = (torch.full_like(x0, s64(c)) for c in t.scale)
+            sc, scp = (None if c is None else torch.full_like(x0, s64(c)) for c in t.scale)
             y0, y1 = fc.butterfly_inverse_scaled(x0, x1, sc, scp, w, wp)
         else:
             y0, y1 = fc.butterfly_inverse(x0, x1, w, wp)
@@ -674,7 +685,8 @@ def _lane_tw(tw: MontPair, x: torch.Tensor, rows: torch.Tensor) -> MontPair:
 
 
 def _check_cuda(t, fc: FieldConsts, x: torch.Tensor, tw: MontPair | None):
-    tensors = [t.w, t.wp] + ([] if tw is None else [v for v in tw if v is not None])
+    tensors = [v for v in (t.w, t.wp) if v is not None]
+    tensors += [] if tw is None else [v for v in tw if v is not None]
     if isinstance(t, _GroupedTables):
         tensors.append(t.consts)
         if t.const_mask.device != x.device or t.const_mask.dtype != torch.bool:
@@ -705,13 +717,19 @@ def _geometry(x3: torch.Tensor, m: int, lane: bool, cols: int):
     return (A, m, B), x3.stride(), (m, 1, 0), cols.bit_length() - 1
 
 
-def _tw_args(tw3: MontPair | None) -> tuple:
-    """(w pointer, wp pointer, mode): mode 0 none, 1 "pair", 2 "w"."""
+#: The C entries' stage-multiply engines.
+_MODMUL = {"montgomery": 0, "shoup": 1, "solinas": 2}
+
+
+def _tw_args(tw3: MontPair | None, fc: FieldConsts) -> tuple:
+    """(w pointer, wp pointer, mode) of the fused inter-step multiply: mode
+    0 none, 1 "pair" (mont_mul), 2 "w" (mont_mul_full), 3 Solinas "w"
+    (solinas_mul; the C entry refuses a companion with it, as _run does)."""
     if tw3 is None:
         return None, None, 0
-    if tw3.wp is None:
-        return tw3.w.data_ptr(), None, 2
-    return tw3.w.data_ptr(), tw3.wp.data_ptr(), 1
+    wp = None if tw3.wp is None else tw3.wp.data_ptr()
+    mode = 3 if fc.modmul == "solinas" else (2 if wp is None else 1)
+    return tw3.w.data_ptr(), wp, mode
 
 
 def _launch(
@@ -729,12 +747,13 @@ def _launch(
     lib = _build.load()
     out = torch.empty_like(x3)
     s, sp = t.scale if t.scale is not None else (0, 0)
-    w_ptr, wp_ptr, mode = _tw_args(tw3)
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
     rc = lib.sventt_butterfly_ntt(
-        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(), w_ptr, wp_ptr,
+        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
+        None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
         dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        first, last, log2c, int(t.inverse), int(fc.modmul == "shoup"), int(fc.lazy),
-        int(lane), mode, fc.modulus, fc.montgomery_inverse, s, sp,
+        first, last, log2c, int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy),
+        int(lane), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
     if rc != 0:
@@ -756,12 +775,12 @@ def _launch_grouped(
     ranks = sum(spec.R << (4 * g) for g, spec in enumerate(t.specs))
     lib = _build.load()
     out = torch.empty_like(x3)
-    w_ptr, wp_ptr, mode = _tw_args(tw3)
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
     rc = lib.sventt_grouped_ntt(
         x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(),
         t.consts.data_ptr(), t.const_mask.data_ptr(), w_ptr, wp_ptr,
         dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        len(t.specs), ranks, log2c, int(t.inverse), int(fc.modmul == "shoup"),
+        len(t.specs), ranks, log2c, int(t.inverse), _MODMUL[fc.modmul],
         int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
@@ -774,6 +793,7 @@ def _run(
     x3: torch.Tensor, t, fc: FieldConsts, tw3: MontPair | None, orientation: str,
     cols: int | None = None, spc: int | None = None,
 ) -> torch.Tensor:
+    check_companion(fc, tw3)
     lane = orientation.startswith("lane")
     grouped = isinstance(t, _GroupedTables)
     if x3.is_cuda:
@@ -816,8 +836,9 @@ def fused_ntt_mid(
 ) -> torch.Tensor:
     """Length-m NTT along axis 1 of (A, m, batch...) (K5).
 
-    ``tw``: optional (A, m) inter-step MontPair (Montgomery form; the
-    companion may be None), broadcast over the batch and fused: multiplied
+    ``tw``: optional (A, m) inter-step MontPair (Montgomery form, the
+    companion may be None; plain and companion-free under Solinas),
+    broadcast over the batch and fused: multiplied
     before the stages on the forward, after them on the inverse.  Per-stage
     tables only: the planner runs a grouped row by the transpose fallback.
     """

@@ -1,13 +1,15 @@
 """Twiddle tables on int64 tensors.
 
-The PyTorch counterpart of ``sventt_tpu/ops/twiddle.py`` without its
-Solinas tables:
+The PyTorch counterpart of ``sventt_tpu/ops/twiddle.py``:
 
-* inter-step (six-step) twiddles, always Montgomery-form ``w = v * 2^64
-  mod N`` with the companion ``wp = w * N^-1 mod 2^64`` beside them;
+* inter-step (six-step) twiddles, Montgomery-form ``w = v * 2^64 mod N``
+  with the companion ``wp = w * N^-1 mod 2^64`` beside them, or, for the
+  Solinas engine, plain canonical ``w`` without a companion
+  (``sixstep_row_twiddles_plain``, the device generator's Solinas mode);
 * per-stage butterfly twiddles (``forward_tables`` / ``inverse_tables``) in
-  the form of the configured engine: Montgomery as above, or Shoup (``w``
-  plain, ``wp = floor(w * 2^64 / N)``).
+  the form of the configured engine: Montgomery as above, Shoup (``w``
+  plain, ``wp = floor(w * 2^64 / N)``) or Solinas (``w`` plain, no
+  companion: ``wp`` is None, the inverse scale included).
 
 The public builders put their tensors on the CUDA card unless given a
 ``device``; the private helpers take the device they are given.
@@ -39,6 +41,15 @@ def montpair_map(f, tw: MontPair) -> MontPair:
     return MontPair(f(tw.w), None if tw.wp is None else f(tw.wp))
 
 
+def check_companion(fc: FieldConsts, tw: MontPair | None) -> None:
+    """Refuse a companion table under the Solinas engine, whose twiddles
+    are plain: a Montgomery table, the kind a companion comes with,
+    multiplied by ``solinas_mul`` comes out times 2^64 mod N."""
+    if tw is not None and tw.wp is not None and fc.modmul == "solinas":
+        raise ValueError("a companion table under modmul='solinas': its twiddles are plain "
+                         "(wp must be None)")
+
+
 def _powers(base: int, count: int, N: int) -> list[int]:
     out, x = [], 1
     for _ in range(count):
@@ -48,8 +59,13 @@ def _powers(base: int, count: int, N: int) -> list[int]:
 
 
 def inter_step_mul(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tensor:
-    """The inter-step twiddle multiply, Montgomery whatever ``fc.modmul``
-    says: ``mont_mul`` with the companion, ``mont_mul_full`` without it."""
+    """The inter-step twiddle multiply: ``solinas_mul`` of plain twiddles
+    under the Solinas engine (any companion ignored), else Montgomery --
+    ``mont_mul`` with the companion, ``mont_mul_full`` without it -- for
+    Montgomery and Shoup alike.  Montgomery tables need a Montgomery
+    ``fc``: under a Solinas one they come out times 2^64 mod N."""
+    if fc.modmul == "solinas":
+        return fc.solinas_mul(x, tw.w)
     if tw.wp is None:
         return fc.mont_mul_full(x, tw.w)
     return fc.mont_mul(x, tw.w, tw.wp)
@@ -63,26 +79,29 @@ def _mont_pair(mod: Modulus, values_plain: list[int], device) -> MontPair:
 
 def _twiddle_pair(mod: Modulus, values_plain: list[int], modmul: str, device) -> MontPair:
     """Twiddle + companion for the engine ``modmul``: Montgomery
-    ``(w*R mod N, w*R*N^-1 mod 2^64)`` or Shoup ``(w, floor(w*2^64/N))``."""
+    ``(w*R mod N, w*R*N^-1 mod 2^64)``, Shoup ``(w, floor(w*2^64/N))`` or
+    Solinas ``(w, None)``."""
     if modmul == "montgomery":
         return _mont_pair(mod, values_plain, device)
-    if modmul != "shoup":
-        raise NotImplementedError(
-            f"modmul={modmul!r} stage twiddles are not ported yet (ROADMAP Queue 1 item 1)"
-        )
     w = np.array([v % mod.modulus for v in values_plain], dtype=np.uint64)
+    if modmul == "solinas":
+        return MontPair(from_numpy(w, device), None)
     wp = np.array([mod.shoup_precompute(int(v)) for v in w], dtype=np.uint64)
     return MontPair(from_numpy(w, device), from_numpy(wp, device))
 
 
-def _row_twiddles_host(mod: Modulus, n0: int, n1: int, inverse: bool, device) -> MontPair:
+def _row_values(mod: Modulus, n0: int, n1: int, inverse: bool) -> list[int]:
+    """W[p0, j1] = omega_n^(+-bitrev(p0)*j1), row-major, as Python ints."""
     N = mod.modulus
     omega = mod.get_root_forward(n0 * n1)
     if inverse:
         omega = mod.invert(omega)
     perm = bitreverse_permutation(n0)
-    flat = [v for p0 in range(n0) for v in _powers(pow(omega, perm[p0], N), n1, N)]
-    tw = _mont_pair(mod, flat, device)
+    return [v for p0 in range(n0) for v in _powers(pow(omega, perm[p0], N), n1, N)]
+
+
+def _row_twiddles_host(mod: Modulus, n0: int, n1: int, inverse: bool, device) -> MontPair:
+    tw = _mont_pair(mod, _row_values(mod, n0, n1, inverse), device)
     return montpair_map(lambda a: a.reshape(n0, n1), tw)
 
 
@@ -96,44 +115,63 @@ def sixstep_row_twiddles_inverse(mod: Modulus, n0: int, n1: int, device=None) ->
     return _row_twiddles_host(mod, n0, n1, True, resolve_device(device))
 
 
+def sixstep_row_twiddles_plain(
+    mod: Modulus, n0: int, n1: int, *, inverse: bool = False, device=None
+) -> MontPair:
+    """Host-built inter-step twiddles in PLAIN canonical form, companion-
+    free: the Solinas engine's counterpart of ``sixstep_row_twiddles``."""
+    w = np.array(_row_values(mod, n0, n1, inverse), dtype=np.uint64).reshape(n0, n1)
+    return MontPair(from_numpy(w, resolve_device(device)), None)
+
+
+def montgomery_scalar(mod: Modulus, value: int, device=None) -> MontPair:
+    """A single field constant as a broadcastable Montgomery (w, wp) pair."""
+    return _mont_pair(mod, [value % mod.modulus], resolve_device(device))
+
+
 def sixstep_row_twiddles_device(
     mod: Modulus, n0: int, n1: int, *, inverse: bool = False,
     with_companion: bool = True, modmul: str = "montgomery",
-    transposed: bool = False, device=None,
+    transposed: bool = False, columns: tuple[int, int] | None = None, device=None,
 ) -> MontPair:
     """Device-built inter-step twiddle matrix for large transforms.
 
     Same values as ``sixstep_row_twiddles[_inverse]``.  The host computes
-    only the n0 Montgomery-form row bases ``omega_n^(+-bitrev(p0))``; the
-    device doubles the table log2(n1) times, W[:, k + 2^i] = W[:, k] *
-    base^(2^i) for k < 2^i, with the canonical Montgomery multiply -- the
-    same canonical values the JAX package's scan recurrence emits, in
-    log2(n1) vector steps instead of n1.  ``transposed=True`` returns the
-    (n1, n0) matrix W^T, the layout the lead-orientation kernel consumes.
+    only the n0 row bases ``omega_n^(+-bitrev(p0))``; the device doubles
+    the table log2(n1) times, W[:, k + 2^i] = W[:, k] * base^(2^i) for
+    k < 2^i, with the canonical multiply of the engine -- the same
+    canonical values the JAX package's scan recurrence emits, in log2(n1)
+    vector steps instead of n1.  ``modmul="montgomery"`` (Shoup too):
+    Montgomery-form values and the optional companion; ``"solinas"``:
+    plain canonical values from ``solinas_mul``, always companion-free.
+    ``transposed=True`` returns the (n1, n0) matrix W^T, the layout the
+    lead-orientation kernel consumes.  ``columns=(start, count)`` builds
+    only the columns [start, start + count) of W, starting the doubling
+    from ``base^start``: the block a distributed shard holds, without the
+    whole matrix ever being on its device.
     """
-    if modmul != "montgomery":
-        raise NotImplementedError(
-            f"modmul={modmul!r} twiddles are not ported yet (ROADMAP Queue 1 item 1)"
-        )
-    if n1 & (n1 - 1):
-        raise ValueError("n1 must be a power of two")
+    start, count = columns or (0, n1)
+    if count & (count - 1) or count < 1 or not 0 <= start <= n1 - count:
+        raise ValueError(f"columns {columns} must be a power-of-two block of [0, {n1})")
     device = resolve_device(device)
     N = mod.modulus
     omega = mod.get_root_forward(n0 * n1)
     if inverse:
         omega = mod.invert(omega)
     perm = bitreverse_permutation(n0)
-    fc = FieldConsts.from_modulus(mod, lazy=False)
-    bases = np.array(
-        [mod.to_montgomery(pow(omega, p, N)) for p in perm], dtype=np.uint64
-    )
-    step = from_numpy(bases, device)  # base^(2^i), Montgomery form
-    wt = torch.full((1, n0), s64(mod.montgomery_r), dtype=torch.int64, device=device)
-    while wt.shape[0] < n1:
-        wt = torch.cat([wt, fc.mont_mul_full(wt, step[None, :])], dim=0)
-        step = fc.mont_mul_full(step, step)
+    solinas = modmul == "solinas"
+    fc = FieldConsts.from_modulus(mod, lazy=False, modmul="solinas" if solinas else "montgomery")
+    mul = fc.solinas_mul if solinas else fc.mont_mul_full
+    lift = (lambda v: v) if solinas else mod.to_montgomery
+    bases = np.array([lift(pow(omega, p, N)) for p in perm], dtype=np.uint64)
+    step = from_numpy(bases, device)  # base^(2^i), in the engine's form
+    firsts = np.array([lift(pow(omega, p * start, N)) for p in perm], dtype=np.uint64)
+    wt = from_numpy(firsts, device)[None, :]
+    while wt.shape[0] < count:
+        wt = torch.cat([wt, mul(wt, step[None, :])], dim=0)
+        step = mul(step, step)
     w = wt if transposed else wt.t().contiguous()
-    wp = w * s64(mod.montgomery_inverse) if with_companion else None
+    wp = w * s64(mod.montgomery_inverse) if with_companion and not solinas else None
     return MontPair(w, wp)
 
 

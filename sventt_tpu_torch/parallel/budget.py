@@ -4,9 +4,24 @@ The counterpart of ``sventt_tpu/parallel/budget.py``: the per-device byte
 budget of a ``DistributedNTT`` computed WITHOUT building it, so 2^30-class
 plans can be checked anywhere.  8 bytes a point (one int64 word, the JAX
 package's two u32 limbs).  The table bytes are the port's own tables --
-compact stage vectors, (8m, m) int8 planes, (groups, m) grouped tables --
-not the TPU's broadcast tiles.  With logical shards (a mesh that names one
-card D times) the card holds D shards' data and one copy of the tables.
+compact stage vectors (no companion vector under Solinas), (8m, m) int8
+planes, (groups, m) grouped tables -- not the TPU's broadcast tiles.
+
+The data terms follow the JAX rule where the port holds the same buffers:
+the input shard (``coefficients``), and the all-to-all's fresh output
+beside a second buffer (``transient``): the port never donates, so it is
+always two shards.  The eager port also holds, while one shard's local
+transform runs, the intermediates of its kernel chain that XLA would fuse
+away: a transposed copy and the outputs of two kernels beside that
+shard's input and output, two shards' worth (``step_scratch``, the port's
+own term).  ``DistributedNTT`` releases each shard's step input as soon as
+its output exists and builds each shard's inter-step block on its own
+device, so nothing else is held longer than the step that needs it; under
+``comm="overlap"`` a chunk's exchange is joined, and its inputs freed,
+before the next chunk's is launched.  With
+logical shards (a mesh that names one card D times) the card holds D
+shards' data, one copy of the tables and, since its shards run one after
+another, one shard's scratch (``MemoryBudget.card_total``).
 """
 
 from __future__ import annotations
@@ -44,19 +59,22 @@ def _grouped_bytes(m: int, max_r: int) -> int:
     return groups * (2 * m * 8 + lows * 2 * 8 + lows)
 
 
-def _pallas_bytes(m: int, max_r: int | None) -> int:
+def _pallas_bytes(m: int, max_r: int | None, solinas: bool) -> int:
     """Leaf or lane tables of the butterfly engine: two (m-1,) int64 stage
-    vectors (radix-2), or the grouped tables with ``max_r`` > 1."""
+    vectors (radix-2; one under Solinas), or the grouped tables with
+    ``max_r`` > 1 (never under Solinas, which forces radix-2)."""
+    if solinas:
+        return (m - 1) * 8
     if max_r is not None and max_r > 1:
         return _grouped_bytes(m, max_r)
     return 2 * (m - 1) * 8
 
 
-def _leaf_table_bytes(plan, max_r: int | None = None) -> int:
+def _leaf_table_bytes(plan, max_r: int | None = None, solinas: bool = False) -> int:
     """Bytes of every table ``PlanTables`` builds for ``plan`` (replicated
     on every device): leaf tables, the lane tables of pallas rows and the
-    inter-step tables of inner split levels, each once per key as
-    ``PlanTables`` keys them."""
+    inter-step tables of inner split levels (companion-free under
+    Solinas), each once per key as ``PlanTables`` keys them."""
     seen = set()
     total = 0
 
@@ -71,15 +89,16 @@ def _leaf_table_bytes(plan, max_r: int | None = None) -> int:
                 # (8m, m) int8 digit planes and the (m,) int64 correction
                 total += 8 * node.m * node.m + 8 * node.m
             else:
-                total += _pallas_bytes(node.m, max_r)
+                total += _pallas_bytes(node.m, max_r, solinas)
             return
         key = ("split", node.m0, node.m1)
         if key not in seen:
             seen.add(key)
-            total += _split_tw_bytes(node.m0 * node.m1)
+            m = node.m0 * node.m1
+            total += m * BYTES_PER_POINT if solinas else _split_tw_bytes(m)
         if planner._lane_row(node) and ("lane", node.m1) not in seen:
             seen.add(("lane", node.m1))
-            total += _pallas_bytes(node.m1, max_r)
+            total += _pallas_bytes(node.m1, max_r, solinas)
         walk(node.col)
         walk(node.row)
 
@@ -94,18 +113,22 @@ class MemoryBudget:
     n: int
     devices: int
     coefficients: int  # input/output shard
-    transient: int  # non-donated second buffer + all-to-all staging
+    transient: int  # the non-donated input beside the all-to-all's output
     inter_step_twiddles: int  # sharded (n0, n1) matrix, per direction
     leaf_tables: int  # replicated, per direction
     directions: int
+    step_scratch: int  # the port's own: one shard's kernel-chain intermediates
 
     @property
     def total(self) -> int:
-        return (
-            self.coefficients
-            + self.transient
-            + self.directions * (self.inter_step_twiddles + self.leaf_tables)
-        )
+        return self.card_total(1)
+
+    def card_total(self, shards: int) -> int:
+        """Bytes of a device holding ``shards`` logical shards: each one's
+        data and inter-step block, one copy of the replicated tables, and
+        one shard's scratch (a device's shards run one after another)."""
+        per_shard = self.coefficients + self.transient + self.directions * self.inter_step_twiddles
+        return shards * per_shard + self.directions * self.leaf_tables + self.step_scratch
 
     def fits(self, hbm_bytes: int = DEFAULT_HBM_BYTES) -> bool:
         return self.total <= hbm_bytes
@@ -117,10 +140,11 @@ def distributed_memory_budget(
     *,
     enable_forward: bool = True,
     enable_inverse: bool = True,
-    donate_input: bool = False,
 ) -> MemoryBudget:
     """Per-device budget of ``DistributedNTT(config, mesh)`` over
-    ``devices`` shards, without constructing anything."""
+    ``devices`` shards, without constructing anything.  No ``donate_input``:
+    the JAX package's donation is its single-device ``NTT``'s, which the
+    port does not have."""
     n0, n1 = config.split
     if n0 % devices or n1 % devices:
         raise ValueError(f"n0={n0}, n1={n1} must be divisible by mesh size {devices}")
@@ -132,32 +156,31 @@ def distributed_memory_budget(
     if n < W_ONLY_THRESHOLD:
         tw *= 2
     engine = _resolve_engine(config.engine)
-    leaf = _leaf_table_bytes(planner.build_plan(n0, engine), config.max_r) + _leaf_table_bytes(
-        planner.build_plan(n1, engine), config.max_r
+    solinas = config.modmul == "solinas"
+    leaf = sum(
+        _leaf_table_bytes(planner.build_plan(m, engine), config.max_r, solinas) for m in (n0, n1)
     )
     directions = int(enable_forward) + int(enable_inverse)
-    # transient: the all-to-all writes a fresh shard (always), plus the
-    # un-donated input copy when the caller keeps their buffer
-    transient = shard if donate_input else 2 * shard
     return MemoryBudget(
         n=n,
         devices=devices,
         coefficients=shard,
-        transient=transient,
+        transient=2 * shard,
         inter_step_twiddles=tw,
         leaf_tables=leaf,
         directions=directions,
+        step_scratch=2 * shard,
     )
 
 
 def validate_2p30(devices: int = 8) -> MemoryBudget:
     """The row-sharded 2^30 flagship transform over ``devices`` devices must
-    fit one device's memory, one direction at a time with donation.
-    Returns the budget."""
+    fit one device's memory, one direction at a time (the caller's input
+    kept: the port does not donate).  Returns the budget."""
     from ..field.modulus import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS
 
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 30, strategy="six_step")
-    budget = distributed_memory_budget(cfg, devices, enable_inverse=False, donate_input=True)
+    budget = distributed_memory_budget(cfg, devices, enable_inverse=False)
     if not budget.fits():
         raise ValueError(
             f"2^30 over {devices} devices needs {budget.total / 2**30:.1f} GiB "

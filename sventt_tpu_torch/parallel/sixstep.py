@@ -19,7 +19,10 @@ which gives the single-device ``NTT`` wrapper's output, equal mod N, shard
 by shard; the inverse runs the mirror schedule.  The local transforms are
 the port's plans and kernels on each shard's device, the inter-step
 multiply is the kernel ``ops.inter_step.mont_mul_bcast`` and the local
-transposes follow ``NttConfig.transpose``.
+transposes follow ``NttConfig.transpose``.  As in the JAX package, the
+inter-step twiddles are Montgomery under every engine: under Solinas the
+local plans take Solinas tables, and the inter-step multiply has a
+Montgomery ``FieldConsts`` of its own (``tw_fc``).
 
 ``comm`` picks the all-to-all: "xla" the torch-copy exchange
 (``ring.copy_all_to_all``, the counterpart of ``lax.all_to_all``), "ring"
@@ -49,7 +52,7 @@ import torch
 from ..field.limb import FieldConsts, from_numpy
 from ..ops import inter_step
 from ..ops.transpose import transpose01_u64
-from ..ops.twiddle import MontPair, montpair_map
+from ..ops.twiddle import MontPair, montpair_map, sixstep_row_twiddles_device
 from ..plan import planner
 from ..plan.config import NttConfig
 from ..plan.planner import PlanTables, row_twiddles
@@ -147,6 +150,9 @@ class DistributedNTT:
         self.fc = FieldConsts.from_modulus(
             self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
         )
+        #: the inter-step multiply's engine: Montgomery, as the JAX package
+        #: multiplies its Montgomery tables by ``mont_mul`` / ``mont_mul_full``
+        self.tw_fc = FieldConsts.from_modulus(self.mod, lazy=self.fc.lazy)
         engine = _resolve_engine(config.engine)
         self._col_plan = planner.build_plan(n0, engine)
         self._row_plan = planner.build_plan(n1, engine)
@@ -165,11 +171,28 @@ class DistributedNTT:
         for dev in dict.fromkeys(self.devices):
             col[dev] = PlanTables(self._col_plan, self.mod, self.fc, inverse, device=dev, **knobs)
             row[dev] = PlanTables(self._row_plan, self.mod, self.fc, inverse, device=dev, **knobs)
-        full = row_twiddles(
-            self.mod, self.n0, self.n1, inverse=inverse, w_only=cfg.split_w_only,
-            modmul=self.fc.modmul, device=self.devices[0],
-        )
-        return DirectionTables(shard_columns(full, self.devices), col, row)
+        return DirectionTables(self._shard_twiddles(inverse), col, row)
+
+    def _shard_twiddles(self, inverse: bool) -> list[MontPair]:
+        """Each shard's (n0, n1/D) block of the inter-step matrix on its
+        device.  Above DEVICE_TWIDDLE_THRESHOLD each block is generated on
+        its device alone, so no device ever holds the whole matrix (at
+        2^28 the whole matrix and its blocks would be 4 GiB at once)."""
+        n0, n1 = self.n0, self.n1
+        w_only = self.config.split_w_only
+        if n0 * n1 <= planner.DEVICE_TWIDDLE_THRESHOLD:
+            full = row_twiddles(self.mod, n0, n1, inverse=inverse, w_only=w_only, device="cpu")
+            return shard_columns(full, self.devices)
+        if w_only is None:
+            w_only = n0 * n1 >= planner.W_ONLY_THRESHOLD
+        w = n1 // self.D
+        return [
+            sixstep_row_twiddles_device(
+                self.mod, n0, n1, inverse=inverse, with_companion=not w_only,
+                columns=(d * w, w), device=dev,
+            )
+            for d, dev in enumerate(self.devices)
+        ]
 
     # -- public API ---------------------------------------------------------
 
@@ -193,15 +216,21 @@ class DistributedNTT:
     def normalize(self, shards) -> list[torch.Tensor]:
         return [self.fc.normalize(s) for s in shards]
 
-    def compute_forward(self, x) -> list[torch.Tensor]:
+    def compute_forward(self, x, on_step=None) -> list[torch.Tensor]:
+        """The forward transform of the shards ``x``; ``on_step(name)``, if
+        given, is called after each step of the schedule ("comm1",
+        "columns", "comm2", "rows"; "columns+comm2" under overlap)."""
         if self._forward is None:
             raise RuntimeError("forward transform was not enabled")
-        return self._forward_local(self._check(x), self._forward)
+        return self._forward_local(self._check(x), self._forward, on_step)
 
-    def compute_inverse(self, x) -> list[torch.Tensor]:
+    def compute_inverse(self, x, on_step=None) -> list[torch.Tensor]:
+        """The inverse transform; ``on_step`` as in ``compute_forward``
+        ("rows", "comm2", "columns", "comm1"; "comm2+columns" under
+        overlap)."""
         if self._inverse is None:
             raise RuntimeError("inverse transform was not enabled")
-        return self._inverse_local(self._check(x), self._inverse)
+        return self._inverse_local(self._check(x), self._inverse, on_step)
 
     def _check(self, shards) -> list[torch.Tensor]:
         if len(shards) != self.D:
@@ -218,12 +247,16 @@ class DistributedNTT:
 
     # -- per-shard steps ----------------------------------------------------
 
-    def _map(self, f, mats) -> list[torch.Tensor]:
-        """``f(d, mats[d])`` for every shard, with its device current."""
+    def _map(self, f, mats: list) -> list[torch.Tensor]:
+        """``f(d, mats[d])`` for every shard, with its device current,
+        dropping ``mats[d]`` once shard d's output exists: a step holds one
+        shard's input and output beside the lists, not two whole lists.
+        ``mats`` must be the caller's own list (a copy keeps the entries)."""
         out = []
-        for d, m in enumerate(mats):
+        for d in range(len(mats)):
             with _guard(self.devices[d]):
-                out.append(f(d, m))
+                out.append(f(d, mats[d]))
+            mats[d] = None
         return out
 
     def _all_to_all(self, mats, split_axis: int, concat_axis: int) -> list[torch.Tensor]:
@@ -232,7 +265,7 @@ class DistributedNTT:
         return copy_all_to_all(mats, split_axis, concat_axis)
 
     def _tw_mul(self, mat: torch.Tensor, tw: MontPair) -> torch.Tensor:
-        return inter_step.mont_mul_bcast(self.fc, mat, tw)
+        return inter_step.mont_mul_bcast(self.tw_fc, mat, tw)
 
     def _rows(self, mat: torch.Tensor, tables: PlanTables, inverse: bool) -> torch.Tensor:
         """Row NTTs of an (n0/D, n1) shard between two local transposes.
@@ -261,6 +294,10 @@ class DistributedNTT:
     # ways: the [comm 2] exchange of chunk c does not depend on chunk c+1's
     # compute.  On CUDA shards the exchanges run on a side stream of each
     # card, joined to the compute streams by events; on CPU shards in turn.
+    # Chunk c's compute runs while chunk c-1's exchange does; that
+    # exchange is joined, and its inputs freed, before chunk c's is
+    # launched.  The block goes once the last chunk has read it, and each
+    # chunk output as soon as the next list holds its data.
 
     def _side_all_to_all(self, subs, split_axis: int, concat_axis: int):
         """The torch-copy exchange of ``subs`` on the side streams; returns
@@ -298,72 +335,109 @@ class DistributedNTT:
         D, K = self.D, self.overlap_chunks
         h, w2 = self.n0 // D, self.n1 // D
         wK = w2 // K
-        parts, events, inputs = [], [], []
+        parts, in_flight, events = [], [], {}
         for c in range(K):
             sl = slice(c * wK, (c + 1) * wK)
-            subs = self._map(lambda d, m: self._col_fwd(t, d, m, sl), mats)
-            out, ev = self._side_all_to_all(subs, 0, 1)
+            # the last chunk drops each shard's block once it is read
+            subs = self._map(lambda d, m: self._col_fwd(t, d, m, sl),
+                             mats if c == K - 1 else list(mats))
+            self._join(events)  # chunk c-1's exchange has read its inputs
+            in_flight.clear()
+            out, events = self._side_all_to_all(subs, 0, 1)
             parts.append(out)
-            events.append(ev)
-            inputs.append(subs)
-        for ev in events:
-            self._join(ev)
-        del inputs  # read by the side streams, which the joins have ordered
+            in_flight.append(subs)  # kept until that exchange is joined
+        self._join(events)
+        in_flight.clear()
+        del subs
 
         def reasm(d, _):
             # chunk c: (h, D*wK), columns grouped by source shard o; the
             # full layout wants column o*w2 + c*wK + i  ->  (h, D, K, wK)
             s = torch.stack([p[d] for p in parts]).reshape(K, h, D, wK)
+            for p in parts:
+                p[d] = None
             return s.permute(1, 2, 0, 3).reshape(h, self.n1)
 
-        return self._map(reasm, mats)
+        return self._map(reasm, [None] * D)
 
     def _overlap_inv_comm2_col(self, mats, t: DirectionTables) -> list[torch.Tensor]:
         D, K = self.D, self.overlap_chunks
         h, w2 = self.n0 // D, self.n1 // D
         wK = w2 // K
-        chunks = []
-        for c in range(K):
-            picks = self._map(
-                lambda d, m, c=c: m.reshape(h, D, K, wK)[:, :, c, :].reshape(h, D * wK), mats
-            )
-            chunks.append((*self._side_all_to_all(picks, 1, 0), picks))
-        parts = []
-        for c, (subs, ev, _) in enumerate(chunks):
-            self._join(ev)
+        parts, in_flight, events, prev = [], [], {}, None
+
+        def columns(c, subs):
             sl = slice(c * wK, (c + 1) * wK)
             parts.append(self._map(lambda d, m: self._col_inv(t, d, m, sl), subs))
-        del chunks  # the picks were read by the side streams, joined above
-        return self._map(lambda d, _: torch.cat([p[d] for p in parts], dim=1), mats)
+
+        for c in range(K):
+            picks = self._map(
+                lambda d, m: m.reshape(h, D, K, wK)[:, :, c, :].reshape(h, D * wK),
+                mats if c == K - 1 else list(mats),
+            )
+            self._join(events)  # chunk c-1's exchange has read its inputs
+            in_flight.clear()
+            subs, events = self._side_all_to_all(picks, 1, 0)
+            in_flight.append(picks)  # kept until that exchange is joined
+            del picks
+            if prev is not None:
+                columns(c - 1, prev)  # while chunk c's exchange runs
+            prev = subs
+        self._join(events)
+        in_flight.clear()
+        columns(K - 1, prev)
+
+        def cat(d, _):
+            out = torch.cat([p[d] for p in parts], dim=1)
+            for p in parts:
+                p[d] = None
+            return out
+
+        return self._map(cat, [None] * D)
 
     # -- local (per-shard) schedules ---------------------------------------
+    #
+    # ``on_step(name)``, if given, is called after each step (a caller reads
+    # the memory a step holds); each step drops what it has consumed.
 
-    def _forward_local(self, shards, t: DirectionTables) -> list[torch.Tensor]:
+    def _forward_local(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
         n0, n1, D = self.n0, self.n1, self.D
+        note = on_step or (lambda name: None)
         mats = [x.reshape(n0 // D, n1) for x in shards]
         # [comm 1] row shards -> column shards: (n0/D, n1) -> (n0, n1/D)
         mats = self._all_to_all(mats, 1, 0)
+        note("comm1")
         if self.comm == "overlap":
             # column NTTs + twiddle + [comm 2], chunked for overlap
             mats = self._overlap_fwd_col_comm2(mats, t)
+            note("columns+comm2")
         else:
             # column NTTs over the full local leading axis n0, twiddles
             mats = self._map(lambda d, m: self._col_fwd(t, d, m), mats)
+            note("columns")
             # [comm 2] column shards of (n0, n1) -> row shards (n0/D, n1)
             mats = self._all_to_all(mats, 0, 1)
+            note("comm2")
         mats = self._map(lambda d, m: self._rows(m, t.row[self.devices[d]], False), mats)
+        note("rows")
         return [m.reshape(n0 // D * n1) for m in mats]
 
-    def _inverse_local(self, shards, t: DirectionTables) -> list[torch.Tensor]:
+    def _inverse_local(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
         n0, n1, D = self.n0, self.n1, self.D
+        note = on_step or (lambda name: None)
         mats = [x.reshape(n0 // D, n1) for x in shards]
         mats = self._map(lambda d, m: self._rows(m, t.row[self.devices[d]], True), mats)
+        note("rows")
         if self.comm == "overlap":
             # undo [comm 2] + twiddles + column NTTs, chunked for overlap
             mats = self._overlap_inv_comm2_col(mats, t)
+            note("comm2+columns")
         else:
             mats = self._all_to_all(mats, 1, 0)  # undo [comm 2]
+            note("comm2")
             mats = self._map(lambda d, m: self._col_inv(t, d, m), mats)
+            note("columns")
         # undo [comm 1]: column shards -> row shards
         mats = self._all_to_all(mats, 0, 1)
+        note("comm1")
         return [m.reshape(n0 // D * n1) for m in mats]

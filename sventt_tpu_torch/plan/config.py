@@ -131,10 +131,9 @@ class NttConfig:
         if self.modmul not in ("auto", "montgomery", "shoup", "solinas"):
             raise ValueError(f"unknown modmul engine {self.modmul!r}")
         if self.modmul == "solinas":
-            from ..field.limb import detect_sparse_modulus
+            from ..field.limb import solinas_capable
 
-            form, c, s = detect_sparse_modulus(self.modulus)
-            if not (form == "high" and c.bit_length() + s <= 42):
+            if not solinas_capable(self.modulus):
                 raise ValueError(
                     "solinas modmul requires a sparse-high modulus "
                     "N = 2^64 - (c*2^s - 1), bit_width(c*2^s) <= 42"

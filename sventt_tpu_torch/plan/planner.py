@@ -42,6 +42,7 @@ from ..ops.twiddle import (
     sixstep_row_twiddles,
     sixstep_row_twiddles_device,
     sixstep_row_twiddles_inverse,
+    sixstep_row_twiddles_plain,
 )
 from ..utils.device import resolve_device
 
@@ -69,25 +70,30 @@ def row_twiddles(
     w_only: bool | None = None, modmul: str = "montgomery",
     transposed: bool = False, device=None,
 ) -> MontPair:
-    """Inter-step twiddle matrix for one Split level, Montgomery form for
-    every engine but solinas (Shoup applies to stage twiddles only).
+    """Inter-step twiddle matrix for one Split level: Montgomery form for
+    every engine (Shoup applies to stage twiddles only) but Solinas, whose
+    tables are plain canonical values and always companion-free, whatever
+    ``w_only`` says (``ops.twiddle.inter_step_mul`` multiplies them).
 
     ``w_only`` drops the companion; None applies W_ONLY_THRESHOLD.
     ``transposed`` returns the (n1, n0) layout of the lead-axis root step.
     """
-    if modmul == "solinas":
-        raise _not_ported("modmul='solinas'", "Queue 1 item 1")
+    if modmul != "solinas":
+        modmul = "montgomery"
     if w_only is None:
         w_only = n0 * n1 >= W_ONLY_THRESHOLD
     if n0 * n1 > DEVICE_TWIDDLE_THRESHOLD:
         return sixstep_row_twiddles_device(
-            mod, n0, n1, inverse=inverse, with_companion=not w_only,
+            mod, n0, n1, inverse=inverse, with_companion=not w_only, modmul=modmul,
             transposed=transposed, device=device,
         )
-    build = sixstep_row_twiddles_inverse if inverse else sixstep_row_twiddles
-    tw = build(mod, n0, n1, device)
-    if w_only:
-        tw = MontPair(tw.w, None)
+    if modmul == "solinas":
+        tw = sixstep_row_twiddles_plain(mod, n0, n1, inverse=inverse, device=device)
+    else:
+        build = sixstep_row_twiddles_inverse if inverse else sixstep_row_twiddles
+        tw = build(mod, n0, n1, device)
+        if w_only:
+            tw = MontPair(tw.w, None)
     if transposed:
         tw = _transpose_pair(tw)
     return tw

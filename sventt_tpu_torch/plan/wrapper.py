@@ -118,10 +118,17 @@ class NTT:
         Split's row step takes.  ``batched`` describes the schedule for
         inputs with trailing batch dims.
 
-        The pallas lines are the JAX package's wording, its quirk included:
-        a batched pallas row with grouped tables (``max_r`` > 1) reads
-        "mid-axis pallas ... (no transposes)" although it runs the
-        transpose fallback, as in the JAX package."""
+        The leaf and pallas lines are the JAX package's wording, its quirk
+        included: a batched pallas row with grouped tables (``max_r`` > 1)
+        reads "mid-axis pallas ... (no transposes)" although it runs the
+        transpose fallback, as in the JAX package.  The mxu lines are the
+        port's own, on purpose: the JAX ``describe`` has no mxu branch and
+        prints "transposed row leaf m1=X" for every mxu row leaf, where
+        the port prints what runs -- "lead-axis mxu m1=X (fused twiddle,
+        between transposes)" for the unbatched root, "mid-axis mxu m1=X
+        (fused twiddle, no transposes)" for a batched row.  Mapping either
+        of those back to "transposed row leaf m1=X" gives the JAX text
+        line for line."""
         lines = []
 
         def walk(node, depth, batch):

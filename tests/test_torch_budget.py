@@ -2,10 +2,14 @@
 against sventt_tpu's, and its table bytes against the tables the port
 really builds.
 
-The coefficient, transient and inter-step twiddle bytes follow the same
-rule as the JAX package (8 bytes a point); the table bytes are the port's
-own compact tables, held to the ``nbytes`` of the tensors that
-``DistributedNTT`` builds on CPU shards.
+The coefficient and inter-step twiddle bytes and the count of directions
+follow the same rule as the JAX package (8 bytes a point); ``transient``
+is the JAX rule's without donation, which the port does not have, and
+``step_scratch`` the port's own term (its eager kernel chain's
+intermediates); the table bytes are the port's own compact tables, held
+to the ``nbytes`` of the tensors that ``DistributedNTT`` builds on CPU
+shards.  The card check that the measured peak stays within the budget
+is chip_smoke.py's 2^28 phase.
 """
 
 import dataclasses
@@ -48,12 +52,20 @@ def _args(N, g, log2n, n0=None):
     ],
 )
 def test_budget_matches_jax(args, devices, kw):
-    """Coefficient, transient and inter-step twiddle bytes and the count of
-    directions equal the JAX budget's for the same config and D."""
-    got = distributed_memory_budget(NttConfig(**args), devices, **kw)
+    """Coefficient and inter-step twiddle bytes and the count of directions
+    equal the JAX budget's for the same config and D; ``transient`` is the
+    JAX rule's without donation (the port keeps the caller's input), and
+    ``step_scratch`` two shards, the port's own count."""
+    port_kw = {k: v for k, v in kw.items() if k != "donate_input"}
+    got = distributed_memory_budget(NttConfig(**args), devices, **port_kw)
     want = jbudget(JNttConfig(**args), devices, **kw)
-    for name in ("n", "devices", "coefficients", "transient", "inter_step_twiddles", "directions"):
+    for name in ("n", "devices", "coefficients", "inter_step_twiddles", "directions"):
         assert getattr(got, name) == getattr(want, name), name
+    undonated = jbudget(JNttConfig(**args), devices, **port_kw)
+    assert got.transient == undonated.transient == 2 * got.coefficients
+    assert got.step_scratch == 2 * got.coefficients
+    tables = got.directions * (got.inter_step_twiddles + got.leaf_tables)
+    assert got.total == got.coefficients + got.transient + tables + got.step_scratch
 
 
 def _tensor_bytes(obj) -> int:
@@ -81,12 +93,24 @@ def _tensor_bytes(obj) -> int:
         pytest.param(18, 1 << 4, dict(engine="pallas"), id="2^18-row-split-pallas"),
         pytest.param(18, 1 << 4, dict(engine="pallas", max_r=4), id="2^18-row-split-grouped"),
         pytest.param(20, 1 << 4, dict(engine="mxu"), id="2^20-row-split-mxu"),
+    ]
+    + [
+        pytest.param(log2n, n0, dict(kw, modmul="solinas"), id=f"2^{log2n}-{name}-solinas")
+        for log2n, n0, name, kw in (
+            (13, None, "mxu", dict(engine="mxu")),
+            (13, None, "pallas", dict(engine="pallas")),
+            (13, None, "grouped", dict(engine="pallas", max_r=3)),
+            (18, 1 << 4, "row-split-pallas", dict(engine="pallas")),
+        )
     ],
 )
 def test_leaf_tables_match_built_tables(log2n, n0, kw):
     """``leaf_tables`` equals the summed bytes of the tensors the port's
-    PlanTables built for the n0 and n1 plans (one direction, one device)."""
-    cfg = NttConfig(**_args(TEST_MODULUS, TEST_GENERATOR, log2n, n0), **kw)
+    PlanTables built for the n0 and n1 plans (one direction, one device);
+    under Solinas (the flagship modulus) the stage and inner inter-step
+    tables are companion-free and max_r=3 is radix-2."""
+    N, g = (FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR) if kw.get("modmul") else (TEST_MODULUS, TEST_GENERATOR)
+    cfg = NttConfig(**_args(N, g, log2n, n0), **kw)
     dntt = DistributedNTT(cfg, make_ntt_mesh(devices=["cpu"] * 8), enable_inverse=False)
     t = dntt._forward
     built = 0
@@ -105,12 +129,28 @@ def test_validate_2p30_fits_the_h100():
     assert b.inter_step_twiddles == b.coefficients  # companion-free
     assert b.fits() and b.total <= DEFAULT_HBM_BYTES
     assert 70 * (1 << 30) < DEFAULT_HBM_BYTES < 80 * (1 << 30)
-    # one card holds the whole 2^30 transform (40 GiB both ways), not 2^31
-    # with both directions and the caller's buffer kept (80 GiB)
+    # validate_2p30 budgets what the port does: no donation, its scratch
+    assert b.transient == 2 * b.coefficients and b.step_scratch == 2 * b.coefficients
+    assert b.total == 6 * b.coefficients + b.leaf_tables
+    # one card holds the whole 2^30 transform one direction at a time
+    # (48 GiB), not 2^31 even forward only (96 GiB): the port cannot donate
     assert validate_2p30(1).fits()
     cfg = NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 31))
     assert not distributed_memory_budget(cfg, 1).fits()
-    assert distributed_memory_budget(cfg, 1, enable_inverse=False, donate_input=True).fits()
+    assert not distributed_memory_budget(cfg, 1, enable_inverse=False).fits()
+
+
+def test_card_total_counts_logical_shards():
+    """A card holding D logical shards needs D shards' data and inter-step
+    blocks, one copy of the tables and one shard's scratch; the budget the
+    2^28 D = 8 card check holds the measured peak to."""
+    cfg = NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 28), engine="pallas")
+    b = distributed_memory_budget(cfg, 8)
+    per_shard = b.coefficients + b.transient + b.directions * b.inter_step_twiddles
+    assert b.card_total(8) == 8 * per_shard + b.directions * b.leaf_tables + b.step_scratch
+    assert b.card_total(1) == b.total
+    # 2^28: 5 x 2 GiB of data and twiddles, 0.5 GiB of scratch
+    assert b.card_total(8) - b.directions * b.leaf_tables == 5 * (1 << 31) + (1 << 29)
 
 
 def test_budget_rejects_a_mesh_of_3():

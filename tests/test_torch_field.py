@@ -253,11 +253,15 @@ def test_butterflies(rng, N, g, lazy, modmul):
 
 
 def test_engine_choices_match_jax():
-    """Shoup needs lazy mode in both packages; Solinas is not ported."""
+    """Shoup needs lazy mode in both packages; Solinas needs a sparse-high
+    modulus in both, and is canonical (never lazy) where it is taken."""
     for pkg_mod, pkg_limb in ((jmodulus, jlimb), (modulus, limb)):
         with pytest.raises(ValueError):
             pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_FLAG, 3), modmul="shoup")
         with pytest.raises(ValueError):
             pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_FLAG, 3), modmul="karatsuba")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        limb.FieldConsts.from_modulus(modulus.Modulus(N_FLAG, 3), modmul="solinas")
+    for pkg_mod, pkg_limb in ((jmodulus, jlimb), (modulus, limb)):
+        fc = pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_FLAG, 3), modmul="solinas")
+        assert (fc.modmul, fc.lazy, fc.n_form, fc.n_c, fc.n_s) == ("solinas", False, "high", 1827, 31)
+        with pytest.raises(ValueError, match="sparse-high"):
+            pkg_limb.FieldConsts.from_modulus(pkg_mod.Modulus(N_TEST, 3), modmul="solinas")

@@ -109,16 +109,48 @@ def test_describe_and_get_m():
         ntt.compute_inverse(torch.zeros(1 << 14, dtype=torch.int64))
 
 
+#: The port's mxu row lines and the JAX package's text for the same row
+#: (its describe() has no mxu branch): the mapping the port documents.
+_MXU_ROW = re.compile(r"(lead|mid)-axis mxu m1=(\d+) \(fused twiddle, (between|no) transposes\)")
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["unbatched", "batched"])
+@pytest.mark.parametrize("engine", ["mxu", "pallas"])
+def test_describe_against_jax(engine, batched):
+    """describe() of the port and of the JAX package on n = 2^14,
+    max_fused=32, side by side: the pallas and leaf lines are equal; each
+    mxu row line is the port's own (what runs) and maps to JAX's
+    "transposed row leaf m1=32" (ROADMAP Queue 3, kept on purpose)."""
+    kw = dict(max_fused=32, engine=engine)
+    cfg = (FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 14)
+    port = NTT(NttConfig(*cfg, **kw), enable_inverse=False, device="cpu").describe(batched).splitlines()
+    jax_lines = JNTT(JNttConfig(*cfg, **kw), enable_inverse=False).describe(batched).splitlines()
+    if engine == "pallas":
+        assert port == jax_lines
+        return
+    root = "mid-axis mxu m1=32 (fused twiddle, no transposes)" if batched else (
+        "lead-axis mxu m1=32 (fused twiddle, between transposes)")
+    assert port == [
+        f"split 16384 = 512 x 32: {root}",
+        "  split 512 = 16 x 32: mid-axis mxu m1=32 (fused twiddle, no transposes)",
+        "    leaf m=16 engine=mxu",
+    ]
+    assert jax_lines == [
+        "split 16384 = 512 x 32: transposed row leaf m1=32",
+        "  split 512 = 16 x 32: transposed row leaf m1=32",
+        "    leaf m=16 engine=mxu",
+    ]
+    assert [_MXU_ROW.sub(r"transposed row leaf m1=\2", line) for line in port] == jax_lines
+
+
 @pytest.mark.parametrize(
     "kw",
     [
         dict(engine="jnp"),
-        dict(engine="pallas", max_r=3, modmul="solinas"),
         dict(tune=True),
         # six_step is ported; its local plans on the unported jnp engine are not
         pytest.param(dict(strategy="six_step", engine="jnp"), id="strategy=six_step"),
         dict(plan_spec="pallas:64,jnp"),
-        dict(modmul="solinas"),
         dict(plan_spec="jnp:64,mxu"),
     ],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
@@ -126,6 +158,30 @@ def test_describe_and_get_m():
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(engine="pallas", max_r=3, modmul="solinas"), dict(modmul="solinas")],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
+)
+def test_solinas_options_run(rng, kw):
+    """The two Solinas options that raised while the mode was unported now
+    build and run: equal to the native oracle, exact roundtrip; max_r=3
+    under Solinas is radix-2 (K4/K6, no K7/K8), as in JAX."""
+    from sventt_tpu_torch.ops import ntt_pallas
+
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw)
+    ntt = NTT(cfg, device="cpu")
+    assert ntt.fc.modmul == "solinas"
+    x = rng.integers(0, cfg.modulus, cfg.n, dtype=np.uint64)
+    ntt_pallas.reset_counts()
+    fwd = ntt.forward_numpy(x)
+    np.testing.assert_array_equal(fwd, native.golden_forward(x, cfg.modulus, cfg.generator))
+    np.testing.assert_array_equal(ntt.inverse_numpy(fwd), x)
+    calls = ntt_pallas.PLAIN_CALLS
+    assert calls["grouped"] == calls["lane_grouped"] == 0
+    assert (calls["leaf"] > 0 and calls["lane"] > 0) == (cfg.engine == "pallas")
 
 
 def test_config_validation_matches_jax():

@@ -215,8 +215,10 @@ def test_stage_split_and_counts(rng):
 
 
 def test_unported_and_bad_arguments_raise():
-    """Solinas is unported; max_r > 1 gives the grouped tables (ported,
-    see test_torch_ntt_grouped.py); bad knobs raise."""
+    """max_r > 1 gives the grouped tables (ported, see
+    test_torch_ntt_grouped.py), except under Solinas, which forces radix-2
+    companion-free tables as in JAX (grouped tables cannot take it); bad
+    knobs raise."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod)
     grouped = ntt_pallas.make_leaf_tables(mod, 16, inverse=False, max_r=3, device="cpu")
@@ -225,8 +227,12 @@ def test_unported_and_bad_arguments_raise():
     lane = ntt_pallas.make_lane_tables(mod, 16, inverse=False, max_r=2, device="cpu")
     assert isinstance(lane, ntt_pallas.GroupedLaneDirection)
     assert [s.R for s in lane.specs] == [2, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ntt_pallas.make_leaf_tables(mod, 16, inverse=False, modmul="solinas", device="cpu")
+    for build in (ntt_pallas.make_leaf_tables, ntt_pallas.make_lane_tables):
+        sol = build(mod, 16, inverse=True, modmul="solinas", max_r=3, device="cpu")
+        assert type(sol) in (ntt_pallas.FusedDirection, ntt_pallas.LaneDirection)
+        assert sol.wp is None and sol.scale[1] is None and sol.modmul == "solinas"
+    with pytest.raises(ValueError, match="companioned"):
+        ntt_pallas.make_grouped_forward(mod, 16, modmul="solinas", max_r=3, device="cpu")
     with pytest.raises(ValueError):
         ntt_pallas.make_leaf_tables(mod, 16, inverse=False, tw_layout="diagonal", device="cpu")
     with pytest.raises(ValueError):

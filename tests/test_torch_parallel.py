@@ -179,9 +179,75 @@ def test_mesh_and_constructor_checks():
 
 
 def test_solinas_raises():
+    """Solinas on a modulus that is not sparse-high raises, as in JAX; on
+    the flagship the distributed transform builds with Solinas local
+    tables and Montgomery inter-step tables (held against JAX in
+    test_torch_solinas_plan.py)."""
+    with pytest.raises(ValueError, match="sparse-high"):
+        NttConfig(N, G, 1 << 12, **_cfg(1 << 12, modmul="solinas"))
+    with pytest.raises(ValueError, match="sparse-high"):
+        JNttConfig(N, G, 1 << 12, **_cfg(1 << 12, modmul="solinas"))
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **_cfg(1 << 12, modmul="solinas"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedNTT(cfg, make_ntt_mesh(devices=CPU8))
+    dntt = DistributedNTT(cfg, make_ntt_mesh(devices=CPU8))
+    assert (dntt.fc.modmul, dntt.tw_fc.modmul) == ("solinas", "montgomery")
+    assert dntt._forward.tw[0].wp is not None
+
+
+def test_shard_twiddles_built_per_device(monkeypatch):
+    """Above DEVICE_TWIDDLE_THRESHOLD each shard's inter-step block is
+    generated on its own device: the blocks equal the columns of the whole
+    matrix (companion below W_ONLY_THRESHOLD, none from it on), and the
+    transform is the one built from the whole matrix.  The schedule drops
+    only its own lists' entries: the caller's shards stay."""
+    n = 1 << 12
+    cfg = NttConfig(N, G, n, **_cfg(n))
+    mesh = make_ntt_mesh(devices=CPU8)
+    x = _x(n)[0]
+    want = DistributedNTT(cfg, mesh).compute_forward(DistributedNTT(cfg, mesh).shard(x))
+    monkeypatch.setattr(planner, "DEVICE_TWIDDLE_THRESHOLD", 1 << 6)
+    for w_only in (False, True):
+        monkeypatch.setattr(planner, "W_ONLY_THRESHOLD", (1 << 6) if w_only else (1 << 26))
+        dntt = DistributedNTT(cfg, mesh)
+        for inverse, t in ((False, dntt._forward), (True, dntt._inverse)):
+            full = planner.row_twiddles(dntt.mod, dntt.n0, dntt.n1, inverse=inverse,
+                                        w_only=w_only, device="cpu")
+            for d, tw in enumerate(t.tw):
+                cols = slice(d * dntt.n1 // 8, (d + 1) * dntt.n1 // 8)
+                assert torch.equal(tw.w, full.w[:, cols])
+                assert (tw.wp is None) == w_only
+                if not w_only:
+                    assert torch.equal(tw.wp, full.wp[:, cols])
+        shards = dntt.shard(x)
+        got = dntt.compute_forward(shards)
+        assert all(s is not None and s.shape == (n // 8,) for s in shards)
+        for a, b in zip(got, want):
+            assert torch.equal(dntt.fc.normalize(a), dntt.fc.normalize(b))
+
+
+STEPS = {
+    "ring": (["comm1", "columns", "comm2", "rows"], ["rows", "comm2", "columns", "comm1"]),
+    "overlap": (["comm1", "columns+comm2", "rows"], ["rows", "comm2+columns", "comm1"]),
+}
+
+
+@pytest.mark.parametrize("comm", sorted(STEPS))
+def test_on_step_names_the_schedule(comm):
+    """``on_step(name)`` is called after each step of the schedule, in
+    order, and changes nothing: the outputs equal a run without it, the
+    roundtrip is exact, and the caller's shards stay (each step drops only
+    the entries of its own lists)."""
+    n = 1 << 12
+    dntt = DistributedNTT(NttConfig(N, G, n, **_cfg(n)), make_ntt_mesh(devices=CPU8), comm=comm)
+    (x,) = _x(n)
+    shards = dntt.shard(x)
+    seen = {False: [], True: []}
+    fwd = dntt.compute_forward(shards, on_step=seen[False].append)
+    back = dntt.compute_inverse(fwd, on_step=seen[True].append)
+    assert (seen[False], seen[True]) == STEPS[comm]
+    assert all(s is not None for s in shards + fwd)
+    for a, b in zip(fwd, dntt.compute_forward(shards)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(to_numpy(dntt.gather(dntt.normalize(back))), x)
 
 
 def test_cyclic_convolve_distributed():

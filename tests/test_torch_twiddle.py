@@ -59,6 +59,39 @@ def test_device_generator_equals_host_tables():
     np.testing.assert_array_equal(to_numpy(got.wp), to_numpy(want.wp))
 
 
-def test_solinas_twiddles_not_ported():
-    with pytest.raises(NotImplementedError):
-        twiddle.sixstep_row_twiddles_device(MOD, 16, 16, modmul="solinas", device="cpu")
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_solinas_twiddles_match_jax(inverse):
+    """The Solinas inter-step tables: plain canonical values, companion-
+    free, host-built and from the device generator (both orientations),
+    equal JAX's word for word; the companion is dropped whatever
+    ``with_companion`` says."""
+    n0, n1 = 16, 32
+    want = jtw.sixstep_row_twiddles_plain(JMOD, n0, n1, inverse=inverse)
+    _assert_pair(twiddle.sixstep_row_twiddles_plain(MOD, n0, n1, inverse=inverse, device="cpu"), want)
+    for transposed in (False, True):
+        kw = dict(inverse=inverse, modmul="solinas", transposed=transposed)
+        want = jtw.sixstep_row_twiddles_device(JMOD, n0, n1, **kw)
+        _assert_pair(twiddle.sixstep_row_twiddles_device(MOD, n0, n1, device="cpu", **kw), want)
+    _assert_pair(twiddle.montgomery_scalar(MOD, 12345, device="cpu"), jtw.montgomery_scalar(JMOD, 12345))
+
+
+@pytest.mark.parametrize("modmul", ["montgomery", "solinas"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_device_row_twiddle_column_blocks(inverse, modmul):
+    """``columns=(start, count)`` builds exactly those columns of the whole
+    matrix (a distributed shard's block), companion included."""
+    n0, n1 = 16, 64
+    kw = dict(inverse=inverse, modmul=modmul)
+    full = twiddle.sixstep_row_twiddles_device(MOD, n0, n1, device="cpu", **kw)
+    for start, count in ((0, 16), (16, 16), (48, 16), (32, 32), (0, 64)):
+        block = twiddle.sixstep_row_twiddles_device(MOD, n0, n1, columns=(start, count),
+                                                    device="cpu", **kw)
+        cols = slice(start, start + count)
+        np.testing.assert_array_equal(to_numpy(block.w), to_numpy(full.w)[:, cols])
+        if modmul == "solinas":
+            assert block.wp is None
+        else:
+            np.testing.assert_array_equal(to_numpy(block.wp), to_numpy(full.wp)[:, cols])
+    with pytest.raises(ValueError, match="block"):
+        twiddle.sixstep_row_twiddles_device(MOD, n0, n1, columns=(8, 24), device="cpu")
+
