@@ -6,12 +6,18 @@
 Phases, each printing its own lines:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: the CUDA kernels and the native golden oracle, from this checkout;
+2. build: the CUDA kernels and the native golden oracle, from this checkout,
+   with each kernel's -Xptxas -v lines; fails if an instantiation of the
+   tensor-core matrix kernel (csrc/ntt_mxu_tc.cu) spills;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same card tensors, bitwise, at the main paths' shapes --
-   the s8 matrix NTT (K1 lead, K2 mid, K3 lane) with every twiddle mode,
-   both directions, both moduli, a ragged batch and the m = 1024 crafted
-   plane-minimizer input; the radix-2 butterfly kernel (K4 leaf, K5 mid,
+   the s8 matrix NTT (K1 lead and K2 mid on the int8 tensor cores, K3 lane
+   on __dp4a; each case checks which kernel launched) with every twiddle
+   mode, both directions, both moduli, a ragged batch and the m = 1024
+   crafted plane-minimizer input, and for the tensor-core kernel m = 2, 8,
+   32, 64 and 1024, batches that are not a multiple of its block, the
+   2^17 plan's launches with their row split and a mid call with A =
+   70000 > 65535 slices; the radix-2 butterfly kernel (K4 leaf, K5 mid,
    K6 lane) with every twiddle mode, both directions, the flagship and the
    lazy test modulus under Montgomery and Shoup, a ragged batch and m = 2;
    the same matrix cases under the u7 and s8b plane schemes, with K1's
@@ -45,7 +51,9 @@ Phases, each printing its own lines:
    ``strategy="six_step"`` 2^24 plan whose row subtree runs the
    inter-step pass.  Each path runs with the launch counts
    set to 0 just before and read just after: every kernel of the path must
-   have launched, and no plain version may have run;
+   have launched, and no plain version may have run; on the matrix paths
+   every lead / mid launch must have run the tensor-core kernel and none
+   the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``);
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
    shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
    K10 against its plain version first (D = 1, 2, 3, 4, 8, both
@@ -61,13 +69,16 @@ Phases, each printing its own lines:
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
-   least time the card could take -- each Solinas kernel beside its
-   Montgomery form at the same shape; the u7 and s8b kernels at K1/K2/K3's
-   2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
+   least time the card could take -- K1 / K2 (pair, w, Solinas, and the
+   2^17 plan's launches) on the tensor cores timed in turns with the
+   __dp4a kernel at the same call (``ntt_mxu._launch_dp4a_s8``: dp4a, tc,
+   tc, dp4a), with the speedup and the achieved int8 TOP/s; each Solinas
+   kernel beside its Montgomery form at the same shape; the u7 and s8b
+   kernels at K1/K2/K3's 2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
    with it as a separate pass); the distributed 2^24 forward at D = 4
    and 8 per comm mode, as logical shards of one card;
-6. breakdown: the radix-2 and grouped butterfly engines' 2^24 forward
+6. breakdown: the matrix, radix-2 and grouped butterfly engines' 2^24 forward
    transforms, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
    overlap): device time by kernel (torch.profiler) and the device's busy
    share -- informational, no check rests on it.
@@ -260,6 +271,27 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     ]
     if scheme != "s8":
         cases.append(("K1 lead 256x65536 pair fwd", flag, False, "lead", (256, 65536), "pair"))
+    if scheme != "u7":
+        # the tensor-core kernel's geometry (ntt_mxu.tc_geometry): m from
+        # one padded 32-step to m = 1024, batches that are not a multiple of
+        # its 32 (16) columns, the 2^17 plan's launches with their row
+        # split, A above the grid's 65535 slices
+        cases += [
+            ("K1 lead 2x100 pair fwd", flag, False, "lead", (2, 100), "pair"),
+            ("K2 mid 5x8x77 w fwd TEST", test, False, "mid", (5, 8, 77), "w"),
+            ("K1 lead 32x333 pair inv TEST (lazy)", test, True, "lead", (32, 333), "pair"),
+            ("K2 mid 9x64x100 pair fwd", flag, False, "mid", (9, 64, 100), "pair"),
+            ("K1 lead 256x512 w inv (2^17 shape, row split)", flag, True, "lead", (256, 512), "w"),
+            ("K1 lead 512x256 pair inv (2^17 shape, row split)", flag, True, "lead", (512, 256),
+             "pair"),
+            ("K2 mid 70000x2x8 pair inv TEST (lazy, A > 65535)", test, True, "mid", (70000, 2, 8),
+             "pair"),
+        ]
+        if scheme == "s8":  # s8b stops at m = 512, as in JAX
+            cases += [
+                ("K1 lead 1024x1000 w inv (ragged)", flag, True, "lead", (1024, 1000), "w"),
+                ("K2 mid 3x1024x40 pair fwd TEST", test, False, "mid", (3, 1024, 40), "pair"),
+            ]
     worst = {"lead": 0, "mid": 0, "lane": 0}
     calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid}
     tag = "" if scheme == "s8" else f"{scheme} "
@@ -268,6 +300,7 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         m = {"lead": shape[0], "mid": shape[1], "lane": shape[-1]}[orient]
         t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, scheme=scheme, device=device)
         x = rand_u64(rng, shape, device)
+        ntt_mxu.reset_counts()
         if orient == "lane":
             got = ntt_mxu.mxu_ntt_lane(x, t, fc)
             want = ntt_mxu.mxu_plain(x, t, fc, lane=True)
@@ -279,9 +312,12 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
             got = calls[orient](x, t, fc, tw)
             want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid")
         sync(device)
+        route = ntt_mxu.kernel_for(scheme, orient)
+        check(ntt_mxu.KERNEL_LAUNCHES[route] == 1 and sum(ntt_mxu.KERNEL_LAUNCHES.values()) == 1,
+              f"{tag}{name}: launched {ntt_mxu.KERNEL_LAUNCHES}, not the {route} kernel alone")
         err = mismatch(got, want)
         worst[orient] = max(worst[orient], err)
-        log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy})")
+        log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy}; {route})")
         check(err <= TOL, f"{tag}{name}: kernel != plain")
         del x, got, want
     fc = FieldConsts.from_modulus(flag)
@@ -678,11 +714,21 @@ def _counted_modules() -> dict:
 
 
 def counts():
+    from sventt_tpu_torch.ops import ntt_mxu
+
     mods = _counted_modules()
     return {
         "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
+        "mxu_kernels": dict(ntt_mxu.KERNEL_LAUNCHES),
     }
+
+
+def mxu_on_tensor_cores(c) -> bool:
+    """Every s8 lead / mid launch in the counts ``c`` ran the tensor-core
+    kernel (the lane orientation is the only __dp4a one)."""
+    lm, k = c["launches"]["mxu"], c["mxu_kernels"]
+    return k["tensor_core"] == lm["lead"] + lm["mid"] and k["dp4a"] == lm["lane"]
 
 
 def reset_counts() -> None:
@@ -848,6 +894,8 @@ def scheme_path(device, rng):
         check(ok and bool((back.t() == x).all()) and err_mid == 0, f"{scheme} path: mismatch")
         check(all(c["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
               f"{scheme}: an orientation never launched")
+        want_k = {"tensor_core": 0, "dp4a": 3} if scheme == "u7" else {"tensor_core": 2, "dp4a": 1}
+        check(c["mxu_kernels"] == want_k, f"{scheme}: kernel launches {c['mxu_kernels']} != {want_k}")
         check(no_plain(c), f"{scheme}: a plain version ran on the card")
     stack = fused.make_fused_stack(flag, device=device)
     x128 = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
@@ -1207,7 +1255,7 @@ def times(device, ntts, rng):
     from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
     from sventt_tpu_torch.utils.fill import device_fill
 
-    out, bounds, own = {}, {}, {}
+    out, bounds, own, ab = {}, {}, {}, {}
     for label, ntt in ntts.items():
         n = ntt.get_m()
         x = device_fill(n, ntt.config.modulus, device)
@@ -1219,8 +1267,15 @@ def times(device, ntts, rng):
     fc = FieldConsts.from_modulus(flag)
     n24 = 1 << 24
 
-    def kernel(key, fn, plain, bnd, own_ms=None):
-        out[key] = timed(fn, 3, 10)
+    def kernel(key, fn, plain, bnd, own_ms=None, old=None):
+        """``old``: the __dp4a kernel at the same call, timed in turns with
+        ``fn`` (old, new, new, old); each keeps the mean of its two."""
+        if old is None:
+            out[key] = timed(fn, 3, 10)
+        else:
+            o1, n1, n2, o2 = (timed(f, 3, 10) for f in (old, fn, fn, old))
+            out[key], out[key + " dp4a"] = (n1 + n2) / 2, (o1 + o2) / 2
+            ab[key] = (o1, n1, n2, o2)
         out[key + " plain"] = timed(plain, 1, 3)
         bounds[key] = bnd
         if own_ms is not None:
@@ -1228,27 +1283,47 @@ def times(device, ntts, rng):
 
     # matrix engine: the 2^24 plan's root row step (lead, transposed
     # twiddle), inner row step (mid, (256, 256) twiddle rows) and the lane
-    # orientation that could replace the root's transpose sandwich
+    # orientation that could replace the root's transpose sandwich; K1 and
+    # K2 on the tensor cores, each beside the __dp4a kernel
+    dp4a = ntt_mxu._launch_dp4a_s8
     t = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
     xl = rand_u64(rng, (256, 1 << 16), device, below=flag.modulus)
     twl = rand_twiddle(rng, (256, 1 << 16), flag, "pair", device)
     kernel("K1 lead 256x65536 pair", lambda: ntt_mxu.mxu_ntt(xl, t, fc, twl),
-           lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), mxu_bound(n24, 256, 16 * n24))
+           lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), mxu_bound(n24, 256, 16 * n24),
+           old=lambda: dp4a(xl, t, fc, twl))
     xm = rand_u64(rng, (256, 256, 256), device, below=flag.modulus)
     twm = rand_twiddle(rng, (256, 256), flag, "pair", device)
     kernel("K2 mid 256x256x256 pair", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twm),
-           lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), mxu_bound(n24, 256, 16 * 65536))
+           lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), mxu_bound(n24, 256, 16 * 65536),
+           old=lambda: dp4a(xm, t, fc, twm, mid=True))
+    # the companion-free twiddles of the "w" and Solinas modes
+    twls, twms = MontPair(twl.w, None), MontPair(twm.w, None)
+    kernel("K1 lead 256x65536 w", lambda: ntt_mxu.mxu_ntt(xl, t, fc, twls),
+           lambda: ntt_mxu.mxu_plain(xl, t, fc, twls), mxu_bound(n24, 256, 8 * n24),
+           old=lambda: dp4a(xl, t, fc, twls))
+    kernel("K2 mid 256x256x256 w", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twms),
+           lambda: ntt_mxu.mxu_plain(xm, t, fc, twms, mid=True), mxu_bound(n24, 256, 8 * 65536),
+           old=lambda: dp4a(xm, t, fc, twms, mid=True))
     xr = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
     kernel("K3 lane 65536x256", lambda: ntt_mxu.mxu_ntt_lane(xr, t, fc),
            lambda: ntt_mxu.mxu_plain(xr, t, fc, lane=True), mxu_bound(n24, 256, 0))
     # the Solinas twiddle of K1/K2 at the same shapes: the plain random
     # twiddles below N without their companion
     fcs = FieldConsts.from_modulus(flag, modmul="solinas")
-    twls, twms = MontPair(twl.w, None), MontPair(twm.w, None)
     kernel("K1 lead 256x65536 solinas", lambda: ntt_mxu.mxu_ntt(xl, t, fcs, twls),
-           lambda: ntt_mxu.mxu_plain(xl, t, fcs, twls), mxu_bound(n24, 256, 8 * n24))
+           lambda: ntt_mxu.mxu_plain(xl, t, fcs, twls), mxu_bound(n24, 256, 8 * n24),
+           old=lambda: dp4a(xl, t, fcs, twls))
     kernel("K2 mid 256x256x256 solinas", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fcs, twms),
-           lambda: ntt_mxu.mxu_plain(xm, t, fcs, twms, mid=True), mxu_bound(n24, 256, 8 * 65536))
+           lambda: ntt_mxu.mxu_plain(xm, t, fcs, twms, mid=True), mxu_bound(n24, 256, 8 * 65536),
+           old=lambda: dp4a(xm, t, fcs, twms, mid=True))
+    # the 2^17 plan's two launches (the row split fills the card)
+    for m17, shape in ((256, (256, 512)), (512, (512, 256))):
+        t17 = ntt_mxu.make_mxu_tables(flag, m17, inverse=False, device=device)
+        x17 = rand_u64(rng, shape, device, below=flag.modulus)
+        kernel(f"K1 lead {shape[0]}x{shape[1]} (2^17)", lambda: ntt_mxu.mxu_ntt(x17, t17, fc),
+               lambda: ntt_mxu.mxu_plain(x17, t17, fc), mxu_bound(1 << 17, m17, 0),
+               old=lambda: dp4a(x17, t17, fc))
     out["K1 lead 65536x256 between transposes"] = timed(
         lambda: transpose01(ntt_mxu.mxu_ntt(transpose01(xr), t, fc)), 3, 10
     )
@@ -1366,7 +1441,7 @@ def times(device, ntts, rng):
             log(f"  {key}{suffix}: CUDA graph capture failed ({e!r}); eager time used")
             out[key + suffix] = out[key + suffix + " eager"]
     bounds[key] = bound(16 * n24, 0.0)
-    return out, bounds, own
+    return out, bounds, own, ab
 
 
 def breakdown(label: str, run, device, reps: int = 5, top: int = 12) -> None:
@@ -1415,6 +1490,7 @@ def main() -> int:
         import numpy as np
 
         from sventt_tpu_torch import _build, native
+        from sventt_tpu_torch.ops import ntt_mxu
         from sventt_tpu_torch.field.modulus import (
             FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS,
         )
@@ -1441,9 +1517,18 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
+    entry, tc_entries = None, 0
     for line in kernel_build["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line
+            tc_entries += "mxu_tc_kernel" in line
+        elif "spill" in line and entry is not None and "mxu_tc_kernel" in entry:
+            check("0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"the tensor-core kernel spills: {entry.strip()}: {line.strip()}")
+    check(tc_entries > 0 or kernel_build["log"] == "(cached)",
+          "no -Xptxas -v line of the tensor-core kernel in the build log")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
@@ -1471,6 +1556,10 @@ def main() -> int:
     log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
     check(c_mxu["launches"]["mxu"]["lead"] > 0 and c_mxu["launches"]["mxu"]["mid"] > 0,
           "an mxu orientation of the path never ran")
+    log(f"  mxu kernels: {c_mxu['mxu_kernels']} (tensor_core: csrc/ntt_mxu_tc.cu; dp4a: "
+        "csrc/ntt_mxu.cu)")
+    check(mxu_on_tensor_cores(c_mxu) and c_mxu["mxu_kernels"]["dp4a"] == 0,
+          "the mxu path launched the __dp4a kernel")
     del ntts_mxu["mxu 2^26"]
     torch.cuda.empty_cache()
     log("[slice pallas] NTT(engine='pallas') vs the native oracle, elementwise")
@@ -1523,6 +1612,8 @@ def main() -> int:
     check(ls["mxu"]["lead"] > 0 and ls["mxu"]["mid"] > 0
           and all(ls["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a kernel of the Solinas paths never ran")
+    check(mxu_on_tensor_cores(c_sol) and c_sol["mxu_kernels"]["dp4a"] == 0,
+          "the mxu Solinas path launched the __dp4a kernel")
     del ntts_sol["mxu solinas 2^26"], ntts_sol["pallas solinas 2^26"]
     torch.cuda.empty_cache()
     log("[slice solinas max_r=3] NTT(engine='pallas', max_r=3, modmul='solinas'): radix-2, "
@@ -1581,6 +1672,9 @@ def main() -> int:
          m4, "ring"),
     ], oracles)
     check(c_dist["mxu 2^24 D=4 ring"]["launches"]["mxu"]["mid"] > 0, "the mxu path ran no K2")
+    check(mxu_on_tensor_cores(c_dist["mxu 2^24 D=4 ring"])
+          and c_dist["mxu 2^24 D=4 ring"]["mxu_kernels"]["dp4a"] == 0,
+          "the distributed mxu path launched the __dp4a kernel")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
     log("[distributed 2^28] 8 logical shards, ring and overlap, vs the single-device six_step "
@@ -1591,7 +1685,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. times
-    ms, bounds, own = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp, **ntts_sol}, rng)
+    ms, bounds, own, ab = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp, **ntts_sol}, rng)
     log(f"[times] median ms by CUDA events on {smi} (distributed: logical shards of this "
         "card, the schedule's cost on one card's memory, not scaling):")
     for k, v in ms.items():
@@ -1599,6 +1693,16 @@ def main() -> int:
         if k in own:
             extra += f"   (the scheme's own products: {own[k]:.4f} ms)"
         log(f"  {k}: {v:.4f}{extra}")
+    log("[A/B] the s8 matrix NTT on the int8 tensor cores (csrc/ntt_mxu_tc.cu) against "
+        "the __dp4a kernel (csrc/ntt_mxu.cu), timed in turns dp4a, tc, tc, dp4a:")
+    for k, (o1, n1, n2, o2) in ab.items():
+        m = 512 if k.startswith("K1 lead 512") else 256
+        points = 1 << (17 if "(2^17)" in k else 24)
+        tops = [2 * 64 * m * points / (v * 1e-3) / 1e12 for v in (ms[k], ms[k + " dp4a"])]
+        log(f"  {k}: dp4a {o1:.4f} / {o2:.4f} ms, tensor cores {n1:.4f} / {n2:.4f} ms: "
+            f"{ms[k + ' dp4a'] / ms[k]:.2f}x; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
+            f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound) "
+            f"against {tops[1]:.1f}")
     # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
     nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
     log(f"  K10 2^24 D=8 across 8 cards: bound {nvlink:.4f} ms by NVLink bytes "
@@ -1609,8 +1713,8 @@ def main() -> int:
     from sventt_tpu_torch.utils.fill import device_fill
 
     runs = {}
-    for label in ("pallas 2^24", "grouped 2^24"):
-        ntt = {**ntts_pal, **ntts_grp}[label]
+    for label in ("mxu 2^24", "pallas 2^24", "grouped 2^24"):
+        ntt = {**ntts_mxu, **ntts_pal, **ntts_grp}[label]
         x = device_fill(ntt.get_m(), F, device)
         runs[label] = lambda ntt=ntt, x=x: ntt.compute_forward(x)
     cfg24 = NttConfig(F, G, 1 << 24, strategy="six_step", engine="pallas")
@@ -1641,10 +1745,10 @@ def main() -> int:
     wm, wp, wt = worst["mxu"], worst["pallas"], worst["transpose"]
     k10_launches = c_dist["pallas 2^24 D=8 ring"]["launches"]["ring"]["ring"]
     record = {"kernels": [
-        entry("K1 s8 matrix NTT, lead (mxu_ntt)", "K1 lead 256x65536 pair", "ntt_mxu.cu",
-              "sventt_tpu/ops/ntt_mxu.py:680", lm["lead"], wm["lead"]),
-        entry("K2 s8 matrix NTT, mid (mxu_ntt_mid)", "K2 mid 256x256x256 pair", "ntt_mxu.cu",
-              "sventt_tpu/ops/ntt_mxu.py:680", lm["mid"], wm["mid"]),
+        entry("K1 s8 matrix NTT, lead, int8 tensor cores (mxu_ntt)", "K1 lead 256x65536 pair",
+              "ntt_mxu_tc.cu", "sventt_tpu/ops/ntt_mxu.py:680", lm["lead"], wm["lead"]),
+        entry("K2 s8 matrix NTT, mid, int8 tensor cores (mxu_ntt_mid)", "K2 mid 256x256x256 pair",
+              "ntt_mxu_tc.cu", "sventt_tpu/ops/ntt_mxu.py:680", lm["mid"], wm["mid"]),
         entry("K3 s8 matrix NTT, lane (mxu_ntt_lane)", "K3 lane 65536x256", "ntt_mxu.cu",
               "sventt_tpu/ops/ntt_mxu.py:527", lm["lane"], wm["lane"]),
         entry("K4 radix-2 stages, leaf (fused_ntt)", "K4 leaf 256x65536", "ntt_pallas.cu",
@@ -1680,16 +1784,20 @@ def main() -> int:
             ("K2", "mid", "mxu_ntt_mid", "K2 mid 256x256x256 pair", 680),
             ("K3", "lane", "mxu_ntt_lane", "K3 lane 65536x256", 527),
         ):
+            tc = ntt_mxu.kernel_for(scheme, orient) == "tensor_core"
+            src = "ntt_mxu_tc.cu" if tc else "ntt_mxu.cu"
             record["kernels"].append(entry(
                 f"{k} {scheme} matrix NTT, {orient} ({fn}, make_mxu_tables(scheme={scheme!r}))",
-                f"{key} {scheme}", "ntt_mxu.cu", f"sventt_tpu/ops/ntt_mxu.py:{line}",
+                f"{key} {scheme}", src, f"sventt_tpu/ops/ntt_mxu.py:{line}",
                 ls[orient], ws[orient]))
     ws, lsol = worst["solinas"], c_sol["launches"]
     for name, key, src, line, launches, err in (
         ("K1 s8 matrix NTT, lead, Solinas twiddle (mxu_ntt, modmul='solinas')",
-         "K1 lead 256x65536 solinas", "ntt_mxu.cu", "ntt_mxu.py:680", lsol["mxu"]["lead"], ws["lead"]),
+         "K1 lead 256x65536 solinas", "ntt_mxu_tc.cu", "ntt_mxu.py:680", lsol["mxu"]["lead"],
+         ws["lead"]),
         ("K2 s8 matrix NTT, mid, Solinas twiddle (mxu_ntt_mid, modmul='solinas')",
-         "K2 mid 256x256x256 solinas", "ntt_mxu.cu", "ntt_mxu.py:680", lsol["mxu"]["mid"], ws["mid"]),
+         "K2 mid 256x256x256 solinas", "ntt_mxu_tc.cu", "ntt_mxu.py:680", lsol["mxu"]["mid"],
+         ws["mid"]),
         ("K4 radix-2 stages, leaf, Solinas (fused_ntt, modmul='solinas')",
          "K4 leaf 256x65536 solinas", "ntt_pallas.cu", "ntt_pallas.py:1154", lsol["pallas"]["leaf"],
          ws["leaf"]),

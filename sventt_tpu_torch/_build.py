@@ -117,6 +117,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             for fn, argtypes in (
                 (lib.sventt_mxu_ntt, ntt_mxu._ARGTYPES),
+                (lib.sventt_mxu_ntt_tc, ntt_mxu._TC_ARGTYPES),
                 (lib.sventt_butterfly_ntt, ntt_pallas._ARGTYPES),
                 (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_ARGTYPES),
                 (lib.sventt_inter_step_mul, inter_step._ARGTYPES),

@@ -49,47 +49,50 @@
 // bytes out -- at m = 256 about 1000 MACs per byte moved, above the ~300
 // int8 MACs per byte at which even the tensor cores (1979 TOP/s against
 // 3.35 TB/s) stop waiting on memory, so the products bound it, not the
-// bytes.  This first version is simple and right rather than fast: it
-// computes the products with __dp4a (4 MACs per instruction on the CUDA
-// cores), not the int8 tensor cores, and its block streams the whole plane
-// matrix from L2 for every 8 columns.  A block loads its 8 columns once,
-// splits them into byte (7-bit) planes in shared memory, and walks over all
-// m output rows, so x and the twiddles are read once; each thread keeps 4
-// columns x 15 int32 plane sums in registers (u7: 2 x 19).  The ragged edge of
-// the batch is masked here (the JAX wrapper pads B to 128 instead).
-// wgmma / mma.sync tiles, TMA and a digit-plane layout for them are the
-// work of later changes.
+// bytes.  This kernel is simple and right rather than fast: it computes
+// the products with __dp4a (4 MACs per instruction on the CUDA cores), not
+// the int8 tensor cores, and its block streams the whole plane matrix from
+// L2 for every 8 columns.  A block loads its 8 columns once, splits them
+// into byte (7-bit) planes in shared memory, and walks over all m output
+// rows, so x and the twiddles are read once; each thread keeps 4 columns x
+// 15 int32 plane sums in registers (u7: 2 x 19).  The ragged edge of the
+// batch is masked here (the JAX wrapper pads B to 128 instead).
+//
+// Where it runs now.  The s8 (and s8b) lead and mid orientations, K1 and
+// K2 on every plan's path, run on the int8 tensor cores in
+// csrc/ntt_mxu_tc.cu; this kernel's s8 lead / mid instantiations are
+// reached only by ops/ntt_mxu.py::_launch_dp4a_s8, the A/B point that
+// chip_smoke.py times beside it.  The lane orientation (K3), the u7 plane
+// format (K1-K3 u7) and K11 still run here.  The recombination tail and
+// the twiddle multiply are csrc/mxu_tail.cuh, shared with that kernel.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "field.cuh"
+#include "mxu_tail.cuh"
 
 namespace {
 
 constexpr int TC = 8;        // batch columns per block
 constexpr int THREADS = 256;
 
-// The plane format: s8 and s8b take 8 signed digit / offset-byte planes and
-// give 15 planes at bit 8t; u7 takes 10 unsigned 7-bit planes and gives 19
-// at bit 7t.  CPT columns a thread: u7 keeps 2, since 4 x 19 accumulators
-// need ~140 registers (one block per SM) or spill under a 128-register
-// bound, and ran ~3% slower than 2 at the 2^24 shapes on the H100.
+// The plane format (csrc/mxu_tail.cuh) and its thread layout: CPT columns
+// a thread.  u7 keeps 2, since 4 x 19 accumulators need ~140 registers
+// (one block per SM) or spill under a 128-register bound, and ran ~3%
+// slower than 2 at the 2^24 shapes on the H100.
 template <bool U7>
-struct Planes {
-  static constexpr int IN = U7 ? 10 : 8;   // data planes = matrix planes
-  static constexpr int OUT = 2 * IN - 1;   // product planes
-  static constexpr int STEP = U7 ? 7 : 8;  // bits between product planes
+struct Planes : mxu::PlaneFormat<U7> {
   static constexpr int CPT = U7 ? 2 : 4;   // columns per thread
   static constexpr int COL_GROUPS = TC / CPT;
   static constexpr int ROWS_PER_PASS = THREADS / COL_GROUPS;
 };
 
-struct Consts {
-  u64 N, nprime, c128, mu, ninv;
-  int nsub, barrett;
-};
+using mxu::Consts;
+using mxu::data_plane;
+using mxu::recombine;
+using mxu::twiddle;
 
 // Four consecutive int8 digits d[0..3] of one matrix row, packed for __dp4a;
 // digits past the row's end (only when m < 4) read as 0.
@@ -99,71 +102,6 @@ __device__ __forceinline__ int load_digits(const signed char *d, int j, int m) {
   for (int i = 0; i < 4; ++i)
     if (j + i < m) v |= (unsigned)(unsigned char)d[j + i] << (8 * i);
   return (int)v;
-}
-
-// Plane i of a data word: s8 the offset byte (byte ^ 0x80 as int8 == byte -
-// 128), u7 the unsigned 7-bit field at bit 7i (i = 9 holds bit 63 alone).
-template <bool U7>
-__device__ __forceinline__ signed char data_plane(u64 v, int i) {
-  if (U7) return (signed char)((v >> (7 * i)) & 0x7F);
-  return (signed char)(((v >> (8 * i)) & 0xFF) ^ 0x80);
-}
-
-// The product planes (+ corr) -> canonical residue (_mxu_plain's tail).
-template <bool U7>
-__device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
-                                         const Consts &k) {
-  using PL = Planes<U7>;
-  const long long bias = U7 ? 0 : (long long)m << 17;  // == make_mxu_tables'
-  u64 w[6] = {0, 0, 0, 0, 0, 0};
-#pragma unroll
-  for (int t = 0; t < PL::OUT; ++t) {
-    // s8: a biased plane is < 2^28, shifted by <= 24 it is < 2^52, and at
-    // most 4 land in a word: < 2^54.  u7: a plane is unsigned and at most
-    // 10 * m * 127^2 < 2^27.4 at m = 1024, shifted by <= 31 it is < 2^58.4,
-    // and at most 5 (bits 7t in a 32-bit window) land in a word: < 2^61.
-    const u64 v = U7 ? (u64)(unsigned)P[t] : (u64)((long long)P[t] + bias);
-    w[(PL::STEP * t) >> 5] += v << ((PL::STEP * t) & 31);
-  }
-  if (!U7) {
-    w[0] += corr & 0xFFFFFFFFull;
-    w[1] += corr >> 32;
-  }
-  u64 L[6];
-  u64 carry = 0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    u64 s = w[i] + carry;
-    L[i] = s & 0xFFFFFFFFull;
-    carry = s >> 32;
-  }
-  u64 T_lo = (L[1] << 32) | L[0];
-  u64 T_hi = (L[3] << 32) | L[2];
-  u64 top = (L[5] << 32) | L[4];
-  // fold: value === top*2^128 + T_hi*2^64 + T_lo; a carry out of T_hi has
-  // weight 2^128 === c128 and folds back at weight 1
-  u64 c0, c1, c2, c3;
-  u64 T_lo2 = add_carry(T_lo, top * k.c128, c0);
-  u64 s1 = add_carry(T_hi, __umul64hi(top, k.c128), c1);
-  u64 s2 = add_carry(s1, c0, c2);
-  T_lo2 = add_carry(T_lo2, (c1 | c2) ? k.c128 : 0ull, c3);
-  T_hi = s2 + c3;
-  if (k.barrett) T_hi -= __umul64hi(T_hi, k.mu) * k.N;
-  for (int i = 0; i < k.nsub; ++i) T_hi = T_hi < k.N ? T_hi : T_hi - k.N;
-  // subtractive Montgomery REDC of T_hi*2^64 + T_lo2
-  u64 qn1 = __umul64hi(T_lo2 * k.nprime, k.N);
-  u64 d = T_hi - qn1;
-  u64 res = T_hi < qn1 ? d + k.N : d;
-  return res < k.N ? res : res - k.N;
-}
-
-template <int TW, bool LAZY>
-__device__ __forceinline__ u64 twiddle(u64 v, const long long *tw_w,
-                                       const long long *tw_wp, long long ti,
-                                       const Consts &k) {
-  if (TW == 3) return solinas_mul(v, (u64)tw_w[ti], k.N);
-  if (TW == 1) return mont_mul(v, (u64)tw_w[ti], (u64)tw_wp[ti], k.N, LAZY);
-  return mont_mul_full(v, (u64)tw_w[ti], k.N, k.ninv, LAZY);
 }
 
 // U7: the plane format (the s8 digit stack, or u7).  TW: 0 none, 1 "pair"

@@ -30,24 +30,27 @@ The planes recombine into a 192-bit value, the top word folds via
 below N, and a Montgomery REDC (whose R^-1 cancels R64) lands in canonical
 [0, N).
 
-The kernel (``csrc/ntt_mxu.cu``) replaces the Pallas kernels
+Two CUDA kernels replace the Pallas kernels
 ``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` (body ``_mxu_body``) in both of
-its orientations and ``_mxu_lane_call``, under every scheme:
+its orientations and ``_mxu_lane_call``:
 
 * lead (``mxu_ntt``, K1): the transform runs along axis 0 of (m, B);
 * mid (``mxu_ntt_mid``, K2): along axis 1 of (A, m, B);
 * lane (``mxu_ntt_lane``, K3): along the last axis of (B, m), no twiddle.
 
-All three are one kernel over an (A, m, B) view with strides: the lane
+Each is one kernel over an (A, m, B) view with strides: the lane
 orientation is the view (1, m, B) of the (B, m) rows with transform stride
-1 and batch stride m, read in place.  An optional inter-step twiddle
-multiply is fused in: before the plane split on the forward, after the
-REDC on the inverse.
+1 and batch stride m, read in place.  ``kernel_for`` routes a call: the
+s8 and s8b schemes in the lead and mid orientations run on the int8
+tensor cores (``csrc/ntt_mxu_tc.cu``, launch geometry ``tc_geometry``);
+the lane orientation and the u7 scheme run on ``__dp4a``
+(``csrc/ntt_mxu.cu``).  An optional inter-step twiddle multiply is fused
+in: before the plane split on the forward, after the REDC on the inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` plain-version calls, per
-orientation.
+orientation; ``KERNEL_LAUNCHES`` counts the launches per kernel.
 """
 
 from __future__ import annotations
@@ -96,6 +99,9 @@ C8_PLUS = 127 * _K8
 LAUNCHES = {"lead": 0, "mid": 0, "lane": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
+#: Kernel launches per kernel: "tensor_core" csrc/ntt_mxu_tc.cu, "dp4a"
+#: csrc/ntt_mxu.cu (K11 counts its own).
+KERNEL_LAUNCHES = {"tensor_core": 0, "dp4a": 0}
 
 
 def _balanced8(r: int) -> list[int]:
@@ -118,10 +124,12 @@ class MxuDirection:
     s8b the banded (15m, 8m) matrix.  ``corr``: (m,) int64, the
     per-output-row offset correction (mod N) of s8 and s8b, None for u7.
     ``c128`` / ``nprime``: 2^128 mod N and N^-1 mod 2^64.
-    ``kernel_planes`` (derived, not a field): the planes the kernel reads,
-    ``planes`` itself, or for s8b G's first block column -- block (a, 0) is
-    digit plane a, so that column is the s8 stack and s8b runs the s8
-    kernel.
+    ``kernel_planes`` (derived, not a field): the planes the __dp4a kernel
+    reads, ``planes`` itself, or for s8b G's first block column -- block
+    (a, 0) is digit plane a, so that column is the s8 stack and s8b runs
+    the s8 kernels.  ``tc_planes`` (derived, s8 / s8b tables on a CUDA
+    device, else None): that stack in the tensor-core kernel's ring-tile
+    layout, ``tc_plane_tiles``.
     """
 
     m: int
@@ -138,6 +146,10 @@ class MxuDirection:
         if self.scheme == "s8b":
             kp = kp[: NL_S8 * self.m, : self.m].contiguous()
         object.__setattr__(self, "kernel_planes", kp)
+        tiles = None
+        if self.scheme != "u7" and kp.is_cuda:
+            tiles = tc_plane_tiles(kp, self.m)
+        object.__setattr__(self, "tc_planes", tiles)
 
 
 def _mat_dims(scheme: str, m: int) -> tuple[int, int]:
@@ -364,19 +376,17 @@ def _check_cuda(t: MxuDirection, x: torch.Tensor, tw: MontPair | None):
         raise TypeError("twiddles must be int64")
 
 
-def _launch(
-    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
-) -> torch.Tensor:
-    """Launch the CUDA kernel on a dense (A, m, B) view (any strides; the
-    output takes the same layout); raise on any error."""
-    from .. import _build
-
+def _kernel_args(
+    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None, planes: torch.Tensor
+):
+    """(output, the C entries' arguments before and after their own) for a
+    dense (A, m, B) view (any strides; the output takes the same layout)
+    and the kernel's form of the planes, after ``_check_cuda``."""
     _check_cuda(t, x, tw)
-    lib = _build.load()
     A, m, B = x.shape
     out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
     # twiddle mode: 0 none, 1 "pair", 2 "w", 3 Solinas (plain w; the C
-    # entry refuses a companion with it, as _run does)
+    # entries refuse a companion with it, as _run does)
     if tw is None:
         mode = 0
     else:
@@ -396,18 +406,128 @@ def _launch(
             wp_ptr = wp.data_ptr()
     nsub, barrett = _reduce_consts(t.modulus)
     N = t.modulus
-    rc = lib.sventt_mxu_ntt(
-        x.data_ptr(), out.data_ptr(), t.kernel_planes.data_ptr(),
+    head = (
+        x.data_ptr(), out.data_ptr(), planes.data_ptr(),
         None if t.corr is None else t.corr.data_ptr(),
-        w_ptr, wp_ptr, A, m, B, *x.stride(), *ts,
-        mode, int(t.inverse), int(fc.lazy), int(t.scheme == "u7"),
-        N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse,
-        nsub, int(barrett),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        w_ptr, wp_ptr, A, m, B, *x.stride(), *ts, mode, int(t.inverse), int(fc.lazy),
+    )
+    tail = (N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse, nsub, int(barrett))
+    return out, head, tail
+
+
+def _launch(
+    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
+) -> torch.Tensor:
+    """Launch the __dp4a kernel (csrc/ntt_mxu.cu) on a dense (A, m, B)
+    view; raise on any error."""
+    from .. import _build
+
+    out, head, tail = _kernel_args(x, t, fc, tw, t.kernel_planes)
+    rc = _build.load().sventt_mxu_ntt(
+        *head, int(t.scheme == "u7"), *tail, torch.cuda.current_stream(x.device).cuda_stream
     )
     if rc != 0:
         raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
     return out
+
+
+@dataclass(frozen=True)
+class TcGeometry:
+    """The tensor-core kernel's launch geometry (csrc/ntt_mxu_tc.cu).
+
+    ``nt`` batch columns a block; ``kp`` the transform length padded to the
+    mma depth of 32; ``rs`` the byte-plane row stride in shared memory
+    (``kp`` + 16: ldmatrix reads 8 rows in 8 bank groups); ``rg`` rows a row
+    group (the 8 warps tile it 16 rows x 8 columns); ``split`` the row
+    groups' split across blocks (gridDim.z); ``smem`` the dynamic shared
+    memory: the 8 byte planes of the block's columns and a 3-stage ring of
+    the 8 digit planes' (rg, 32) tiles.  The grid is (ceil(B / nt),
+    min(A, 65535), split).
+    """
+
+    nt: int
+    kp: int
+    rs: int
+    rg: int
+    split: int
+    smem: int
+
+
+#: The tensor-core kernel's constants (csrc/ntt_mxu_tc.cu).
+TC_WARPS, TC_WARP_COLS, TC_KSTEP, TC_STAGES = 8, 8, 32, 3
+
+
+def tc_geometry(m: int, B: int, A: int = 1, sms: int = 132) -> TcGeometry:
+    """Launch geometry of the tensor-core kernel for an (A, m, B) call on
+    a card of ``sms`` SMs: 32 columns a block at m <= 512, 16 above (the
+    byte planes under 135 KB; two blocks share an SM at m <= 256); where
+    the grid has fewer than two blocks an SM, the row groups are split
+    across up to that many blocks (each splits the same columns into
+    planes and writes its own rows)."""
+    if not 2 <= m <= MAX_MXU:
+        raise ValueError(f"tensor-core kernel takes 2 <= m <= {MAX_MXU}, got {m}")
+    nt = 32 if m <= 512 else 16
+    kp = -(-m // TC_KSTEP) * TC_KSTEP
+    rs = kp + 16
+    rg = 16 * (TC_WARPS // (nt // TC_WARP_COLS))
+    smem = NL_S8 * nt * rs + TC_STAGES * NL_S8 * rg * TC_KSTEP
+    n_rg = -(-m // rg)
+    blocks = -(-B // nt) * A
+    split = 1 if blocks >= 2 * sms else min(n_rg, -(-2 * sms // blocks))
+    split = -(-n_rg // -(-n_rg // split))  # no block without a row group
+    return TcGeometry(nt, kp, rs, rg, split, smem)
+
+
+def tc_plane_tiles(planes: torch.Tensor, m: int) -> torch.Tensor:
+    """The s8 digit stack (8m, m) in the tensor-core kernel's ring-tile
+    layout: one contiguous tile of (8 planes, rg rows, 32 points) per (row
+    group, 32-point step), in that order, zero past m, each 32-byte row's
+    two 16-byte halves swapped in rows 4-7 of every 8 (the kernel's
+    ``a_slot`` swizzle, against ldmatrix bank conflicts).  int8, flat."""
+    g = tc_geometry(m, 1)
+    n_rg = -(-m // g.rg)
+    D = torch.zeros(NL_S8, n_rg * g.rg, g.kp, dtype=torch.int8, device=planes.device)
+    D[:, :m, :m] = planes.reshape(NL_S8, m, m)
+    # (plane, row group, row, step, half, 16) -> (row group, step, plane, row, half, 16)
+    T = D.reshape(NL_S8, n_rg, g.rg, g.kp // TC_KSTEP, 2, 16).permute(1, 3, 0, 2, 4, 5)
+    swap = ((torch.arange(g.rg, device=planes.device) >> 2) & 1).bool()
+    T = torch.where(swap.reshape(1, 1, 1, g.rg, 1, 1), T.flip(4), T)
+    return T.contiguous().reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_tc(
+    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
+) -> torch.Tensor:
+    """Launch the int8 tensor-core kernel (csrc/ntt_mxu_tc.cu) on a dense
+    (A, m, B) view of s8 / s8b tables; raise on any error."""
+    from .. import _build
+
+    if t.scheme == "u7" or t.tc_planes is None:
+        raise ValueError("the tensor-core kernel takes s8 / s8b tables built on a CUDA device")
+    out, head, tail = _kernel_args(x, t, fc, tw, t.tc_planes)
+    A, m, B = x.shape
+    geo = tc_geometry(m, B, A, _sm_count(x.device.index))
+    rc = _build.load().sventt_mxu_ntt_tc(
+        *head, *tail, geo.nt, geo.split, geo.smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mxu tensor-core kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def kernel_for(scheme: str, orientation: str) -> str:
+    """The kernel a CUDA call runs: "tensor_core" for the s8 digit stack
+    (schemes s8 and s8b) in the lead and mid orientations, "dp4a" for the
+    lane orientation and the u7 planes."""
+    if scheme not in SCHEMES or orientation not in LAUNCHES:
+        raise ValueError(f"unknown mxu scheme / orientation {scheme!r} / {orientation!r}")
+    return "tensor_core" if scheme != "u7" and orientation != "lane" else "dp4a"
 
 
 def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
@@ -443,8 +563,10 @@ def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
     check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
-        out = _launch(x3, t, fc, tw3)
+        kernel = kernel_for(t.scheme, orientation)
+        out = (_launch_tc if kernel == "tensor_core" else _launch)(x3, t, fc, tw3)
         LAUNCHES[orientation] += 1
+        KERNEL_LAUNCHES[kernel] += 1
         return back(out)
     if x.device.type != "cpu":
         raise ValueError(f"mxu engine runs on cpu or cuda tensors, got {x.device}")
@@ -495,20 +617,38 @@ def mxu_plain(
     return back(_mxu_plain(x3, tables, fc, tw3))
 
 
+def _launch_dp4a_s8(
+    x: torch.Tensor, tables: MxuDirection, fc: FieldConsts,
+    tw: MontPair | None = None, mid: bool = False,
+) -> torch.Tensor:
+    """``mxu_ntt`` (``mid=True``: ``mxu_ntt_mid``) of s8 / s8b tables on
+    the __dp4a kernel, which no path runs in these orientations: the A/B
+    point ``chip_smoke.py`` times beside the tensor-core kernel.  CUDA
+    tensors only; counted under ``KERNEL_LAUNCHES["dp4a"]`` alone."""
+    if tables.scheme == "u7" or not x.is_cuda:
+        raise ValueError("the dp4a A/B point takes s8 / s8b tables and a CUDA tensor")
+    check_companion(fc, tw)
+    x3, tw3, back = _as3(x, tw, tables.m, "mid" if mid else "lead")
+    out = _launch(x3, tables, fc, tw3)
+    KERNEL_LAUNCHES["dp4a"] += 1
+    return back(out)
+
+
 def reset_counts() -> None:
     """Set every launch and plain-call count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES):
         for k in d:
             d[k] = 0
 
 
-# ctypes signature of the C entry in csrc/ntt_mxu.cu
-_ARGTYPES = (
+# ctypes signatures of the C entries in csrc/ntt_mxu.cu (with u7) and
+# csrc/ntt_mxu_tc.cu (without it, with nt, split and the shared memory)
+_HEAD = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_longlong] * 6
-    + [ctypes.c_int] * 4
-    + [ctypes.c_ulonglong] * 5
-    + [ctypes.c_int] * 2
-    + [ctypes.c_void_p]
+    + [ctypes.c_int] * 3
 )
+_TAIL = [ctypes.c_ulonglong] * 5 + [ctypes.c_int] * 2
+_ARGTYPES = _HEAD + [ctypes.c_int] + _TAIL + [ctypes.c_void_p]
+_TC_ARGTYPES = _HEAD + _TAIL + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]

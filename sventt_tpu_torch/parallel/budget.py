@@ -5,7 +5,11 @@ budget of a ``DistributedNTT`` computed WITHOUT building it, so 2^30-class
 plans can be checked anywhere.  8 bytes a point (one int64 word, the JAX
 package's two u32 limbs).  The table bytes are the port's own tables --
 compact stage vectors (no companion vector under Solinas), (8m, m) int8
-planes, (groups, m) grouped tables -- not the TPU's broadcast tiles.
+planes, (groups, m) grouped tables -- not the TPU's broadcast tiles.  Not
+counted: the copy of each mxu table's digit planes that CUDA tables also
+hold in the tensor-core kernel's tile layout (``MxuDirection.tc_planes``,
+8 x m x kp bytes, m rounded up to its row groups: at most 8 MiB, at
+m = 1024), negligible beside a shard's data.
 
 The data terms follow the JAX rule where the port holds the same buffers:
 the input shard (``coefficients``), and the all-to-all's fresh output
