@@ -64,7 +64,9 @@ Phases, each printing its own lines:
    (2, 4) ("dcn", "ici") mesh, the Solinas engine -- and 2^28 runs
    (comm "ring" and "overlap") against the single-device six-step
    transform on the card, with the card's allocation read around each
-   step and held to the port's memory budget.  Where the
+   step and held to the port's memory budget; each distributed path's
+   CUDA tables hold exactly the bytes the budget counts (``leaf_tables``,
+   the tensor-core tile copy of the mxu digit planes included).  Where the
    machine has two or more cards, the 2^24 ring path over distinct cards;
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
@@ -72,14 +74,19 @@ Phases, each printing its own lines:
    least time the card could take -- K1 / K2 (pair, w, Solinas, and the
    2^17 plan's launches) on the tensor cores timed in turns with the
    __dp4a kernel at the same call (``ntt_mxu._launch_dp4a_s8``: dp4a, tc,
-   tc, dp4a), with the speedup and the achieved int8 TOP/s; each Solinas
-   kernel beside its Montgomery form at the same shape; the u7 and s8b
+   tc, dp4a), with the speedup and the achieved int8 TOP/s; K7 / K8 on the
+   grouped register kernel in turns with the rank-by-rank one
+   (``ntt_pallas._launch_grouped_ranks``: ranks, registers, registers,
+   ranks) at the 2^24 shapes (max_r 3 both directions, max_r 2 and 4 at
+   the leaf) and the 2^17 ones, as CUDA-graph replays (device time), with
+   the bound and the share of it; each Solinas kernel beside its
+   Montgomery form at the same shape; the u7 and s8b
    kernels at K1/K2/K3's 2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
    with it as a separate pass); the distributed 2^24 forward at D = 4
    and 8 per comm mode, as logical shards of one card;
 6. breakdown: the matrix, radix-2 and grouped butterfly engines' 2^24 forward
-   transforms, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
+   transforms and the grouped 2^17 one, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
    overlap): device time by kernel (torch.profiler) and the device's busy
    share -- informational, no check rests on it.
 
@@ -440,18 +447,31 @@ def pallas_kernel_cases(device, rng):
 
 
 def grouped_kernel_cases(device, rng):
-    """K7/K8 vs plain at the grouped plans' shapes and the edge cases;
-    returns the largest mismatch per orientation."""
+    """K7/K8 (the register kernel) vs plain at the grouped plans' shapes
+    and the edges of its geometry; each case must launch the register
+    kernel and never the rank-by-rank one.  Returns the largest mismatch
+    per orientation."""
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import ntt_pallas as P
 
     flag, test = moduli()
-    # (name, modulus, modmul, max_r, inverse, orientation, data shape, twiddle)
+    # (name, modulus, modmul, max_r, inverse, orientation, data shape, twiddle);
+    # a leaf shape of three axes is an (A, m, B) call of the kernel itself
     cases = [
         *[(f"K7 leaf 256x65536 r={r} {d}", flag, "montgomery", r, d == "inv", "leaf",
            (256, 65536), None) for r in (2, 3, 4) for d in ("fwd", "inv")],
         ("K8 lane 65536x256 r=3 pair fwd", flag, "montgomery", 3, False, "lane", (65536, 256), "pair"),
         ("K8 lane 65536x256 r=3 pair inv", flag, "montgomery", 3, True, "lane", (65536, 256), "pair"),
+        # every max_r at m = 256 and 512, both directions and orientations
+        *[(f"K7 leaf 512x4096 r={r} {d}", flag, "montgomery", r, d == "inv", "leaf",
+           (512, 4096), None) for r in (2, 3, 4) for d in ("fwd", "inv")],
+        *[(f"K8 lane 4096x{m} r={r} pair {d}", flag, "montgomery", r, d == "inv", "lane",
+           (4096, m), "pair") for m in (256, 512) for r in (2, 3, 4) for d in ("fwd", "inv")],
+        # the 2^17 plan's launches (the geometry's small tiles)
+        ("K7 leaf 256x512 r=3 fwd (2^17)", flag, "montgomery", 3, False, "leaf", (256, 512), None),
+        ("K7 leaf 256x512 r=3 inv (2^17)", flag, "montgomery", 3, True, "leaf", (256, 512), None),
+        ("K8 lane 256x512 r=3 pair fwd (2^17)", flag, "montgomery", 3, False, "lane", (256, 512), "pair"),
+        ("K8 lane 256x512 r=3 pair inv (2^17)", flag, "montgomery", 3, True, "lane", (256, 512), "pair"),
         ("K8 lane 4096x128 r=3 w fwd", flag, "montgomery", 3, False, "lane", (4096, 128), "w"),
         ("K8 lane 4096x128 r=3 w inv", flag, "montgomery", 3, True, "lane", (4096, 128), "w"),
         ("K8 lane 4096x256 r=4 none fwd", flag, "montgomery", 4, False, "lane", (4096, 256), None),
@@ -460,30 +480,57 @@ def grouped_kernel_cases(device, rng):
         ("K7 leaf 256x4096 r=3 inv TEST mont", test, "montgomery", 3, True, "leaf", (256, 4096), None),
         ("K7 leaf 256x4096 r=3 fwd TEST shoup", test, "shoup", 3, False, "leaf", (256, 4096), None),
         ("K7 leaf 256x4096 r=4 inv TEST shoup", test, "shoup", 4, True, "leaf", (256, 4096), None),
+        ("K7 leaf 512x1024 r=2 inv TEST mont", test, "montgomery", 2, True, "leaf", (512, 1024), None),
         ("K8 lane 4096x256 r=3 pair fwd TEST shoup", test, "shoup", 3, False, "lane", (4096, 256), "pair"),
         ("K8 lane 4096x256 r=2 pair inv TEST shoup", test, "shoup", 2, True, "lane", (4096, 256), "pair"),
         ("K8 lane 4096x256 r=3 w fwd TEST mont", test, "montgomery", 3, False, "lane", (4096, 256), "w"),
         ("K8 lane 4096x256 r=4 w inv TEST mont", test, "montgomery", 4, True, "lane", (4096, 256), "w"),
-        # ragged batches, m = 2, m = 8
+        ("K8 lane 1000x512 r=4 pair inv TEST mont", test, "montgomery", 4, True, "lane", (1000, 512), "pair"),
+        # ragged batches (not a multiple of a tile), m = 2, 4, 8 and 4096
         ("K7 leaf 64x300 r=3 inv (ragged)", flag, "montgomery", 3, True, "leaf", (64, 300), None),
+        ("K7 leaf 256x1000 r=3 fwd (ragged)", flag, "montgomery", 3, False, "leaf", (256, 1000), None),
+        ("K8 lane 1001x256 r=3 pair fwd (ragged)", flag, "montgomery", 3, False, "lane", (1001, 256), "pair"),
         ("K8 lane 300x64 r=3 pair fwd TEST shoup (ragged)", test, "shoup", 3, False, "lane",
          (300, 64), "pair"),
         ("K7 leaf 2x5 r=2 fwd", flag, "montgomery", 2, False, "leaf", (2, 5), None),
         ("K8 lane 5x2 r=2 pair inv TEST", test, "montgomery", 2, True, "lane", (5, 2), "pair"),
+        ("K7 leaf 4x33 r=2 inv TEST shoup", test, "shoup", 2, True, "leaf", (4, 33), None),
+        ("K8 lane 77x4 r=2 w fwd", flag, "montgomery", 2, False, "lane", (77, 4), "w"),
         ("K7 leaf 8x1000 r=4 inv TEST shoup", test, "shoup", 4, True, "leaf", (8, 1000), None),
         ("K8 lane 1000x8 r=3 w fwd", flag, "montgomery", 3, False, "lane", (1000, 8), "w"),
+        ("K7 leaf 4096x100 r=3 fwd", flag, "montgomery", 3, False, "leaf", (4096, 100), None),
+        ("K7 leaf 4096x100 r=2 inv TEST mont", test, "montgomery", 2, True, "leaf", (4096, 100), None),
+        ("K8 lane 100x4096 r=4 pair fwd", flag, "montgomery", 4, False, "lane", (100, 4096), "pair"),
+        ("K8 lane 100x4096 r=3 pair inv", flag, "montgomery", 3, True, "lane", (100, 4096), "pair"),
+        # (A, m, B) calls with A > 1: contiguous, strided (the batch axis
+        # outermost in memory), and A = 70000 > 65535 slices
+        ("K7 (A, m, B) 3x256x100 r=3 fwd", flag, "montgomery", 3, False, "leaf", (3, 256, 100), None),
+        ("K7 (A, m, B) 5x64x33 r=4 inv TEST shoup, strided", test, "shoup", 4, True, "leaf",
+         (5, 64, 33), "strided"),
+        ("K7 (A, m, B) 70000x8x3 r=2 inv", flag, "montgomery", 2, True, "leaf", (70000, 8, 3), None),
     ]
     worst = {"grouped": 0, "lane_grouped": 0}
     for name, mod, modmul, max_r, inverse, orient, shape, mode in cases:
         fc = FieldConsts.from_modulus(mod, modmul=modmul)
-        x = rand_u64(rng, shape, device, below=mod.modulus)
         kw = dict(inverse=inverse, modmul=modmul, max_r=max_r, device=device)
+        before = dict(P.KERNEL_LAUNCHES)
         if orient == "lane":
+            x = rand_u64(rng, shape, device, below=mod.modulus)
             t = P.make_lane_tables(mod, shape[1], **kw)
             tw = None if mode is None else rand_twiddle(rng, shape, mod, mode, device)
             got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_grouped_plain(x, t, fc, tw)
             key = "lane_grouped"
+        elif len(shape) == 3:
+            A, m, B = shape
+            if mode == "strided":  # (A, m, B) with strides (m, 1, A m)
+                x = rand_u64(rng, (B, A, m), device, below=mod.modulus).permute(1, 2, 0)
+            else:
+                x = rand_u64(rng, shape, device, below=mod.modulus)
+            t = P.make_leaf_tables(mod, m, **kw)
+            got, want = P._launch_grouped(x, t, fc, None, False), P._groups_plain(x, t, fc, False)
+            key = "grouped"
         else:
+            x = rand_u64(rng, shape, device, below=mod.modulus)
             t = P.make_leaf_tables(mod, shape[0], **kw)
             got, want = P.fused_ntt(x, t, fc), P.grouped_plain(x, t, fc)
             key = "grouped"
@@ -492,8 +539,15 @@ def grouped_kernel_cases(device, rng):
         err = mismatch(got, want)
         worst[key] = max(worst[key], err)
         groups = [spec.R for spec in t.specs]
-        log(f"  {name}: max_abs_err {err} (groups {groups}, lazy={fc.lazy})")
+        A_, B_ = (shape[0], shape[2]) if len(shape) == 3 else (1, x.numel() // t.m)
+        tw_words = {"pair": 2, "w": 1}.get(mode, 0) if orient == "lane" else 0
+        geo = P.grouped_geometry(t.m, t.specs, B_, orient == "lane", A_, tw_words)
+        log(f"  {name}: max_abs_err {err} (groups {groups}, lazy={fc.lazy}; tile {geo.cols} x "
+            f"{geo.tpc} threads, {geo.smem} bytes)")
         check(err <= TOL, f"{name}: kernel != plain")
+        check(P.KERNEL_LAUNCHES["registers"] == before["registers"] + 1
+              and P.KERNEL_LAUNCHES["ranks"] == before["ranks"], f"{name}: not the register kernel")
+        del x, got, want
     return worst
 
 
@@ -721,6 +775,7 @@ def counts():
         "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
         "mxu_kernels": dict(ntt_mxu.KERNEL_LAUNCHES),
+        "grouped_kernels": dict(mods["pallas"].KERNEL_LAUNCHES),
     }
 
 
@@ -935,7 +990,7 @@ def dist_run(device, paths, oracles: dict):
     import torch
 
     from sventt_tpu_torch.field.limb import from_numpy, to_numpy
-    from sventt_tpu_torch.parallel import DistributedNTT
+    from sventt_tpu_torch.parallel import DistributedNTT, distributed_memory_budget
     from sventt_tpu_torch.plan import NttConfig
     from sventt_tpu_torch.utils.fill import host_fill
 
@@ -967,6 +1022,15 @@ def dist_run(device, paths, oracles: dict):
             "incl. first-call set-up)")
         log(f"    launches {c['launches']}, plain calls {c['plain']}")
         check(bad == [0, 0, 0], f"{label}: mismatch")
+        # the budget's table bytes against the CUDA tables built (one
+        # direction, one card: every shard's tables are on it)
+        dev = dntt.devices[0]
+        built = table_bytes([getattr(tables, k) for tables in (dntt._forward.col[dev],
+                                                                dntt._forward.row[dev])
+                             for k in ("leaf", "lane", "split_tw", "split_tw_t")])
+        want_b = distributed_memory_budget(dntt.config, dntt.D).leaf_tables
+        log(f"    budget leaf_tables {want_b} bytes, built CUDA tables {built} bytes")
+        check(built == want_b, f"{label}: the budget's table bytes != the built tables'")
         k10 = c["launches"]["ring"]["ring"]
         check(k10 > 0 if comm == "ring" else k10 == 0, f"{label}: K10 launches {k10}")
         check(c["launches"]["inter_step"]["inter_step"] > 0, f"{label}: no inter-step launch")
@@ -975,6 +1039,31 @@ def dist_run(device, paths, oracles: dict):
         del dntt
         torch.cuda.empty_cache()
     return out
+
+
+def table_bytes(obj) -> int:
+    """Bytes of the tensors that a table object holds: its fields, its
+    items, and what an mxu table derives on a CUDA device -- its
+    tensor-core tile copy ``tc_planes``, and ``kernel_planes`` where it is
+    not ``planes`` itself (s8b)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        parts = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+        parts.append(getattr(obj, "tc_planes", None))
+        kp = getattr(obj, "kernel_planes", None)
+        parts.append(None if kp is getattr(obj, "planes", None) else kp)
+    elif isinstance(obj, dict):
+        parts = list(obj.values())
+    elif isinstance(obj, (tuple, list)):
+        parts = list(obj)
+    else:
+        return 0
+    return sum(table_bytes(v) for v in parts)
 
 
 def dist_2p28(device):
@@ -1267,15 +1356,28 @@ def times(device, ntts, rng):
     fc = FieldConsts.from_modulus(flag)
     n24 = 1 << 24
 
-    def kernel(key, fn, plain, bnd, own_ms=None, old=None):
-        """``old``: the __dp4a kernel at the same call, timed in turns with
-        ``fn`` (old, new, new, old); each keeps the mean of its two."""
+    def kernel(key, fn, plain, bnd, own_ms=None, old=None, old_name="dp4a", graph=False):
+        """``old``: the earlier kernel at the same call (``old_name``: the
+        __dp4a matrix kernel, or the rank-by-rank grouped one), timed in
+        turns with ``fn`` (old, new, new, old); each keeps the mean of its
+        two.  ``graph``: time one CUDA-graph replay of each: the device time, without the tens of
+        microseconds of the wrapper's Python work that an eager call's
+        events also enclose (at the 2^17 shapes more than the kernel)."""
+
+        def timer(f):
+            if graph:
+                try:
+                    return timed_graph(f, 3, 10)
+                except RuntimeError as e:  # a measurement only: the eager time stands in
+                    log(f"  {key}: CUDA graph capture failed ({e!r}); eager time used")
+            return timed(f, 3, 10)
+
         if old is None:
-            out[key] = timed(fn, 3, 10)
+            out[key] = timer(fn)
         else:
-            o1, n1, n2, o2 = (timed(f, 3, 10) for f in (old, fn, fn, old))
-            out[key], out[key + " dp4a"] = (n1 + n2) / 2, (o1 + o2) / 2
-            ab[key] = (o1, n1, n2, o2)
+            o1, n1, n2, o2 = (timer(f) for f in (old, fn, fn, old))
+            out[key], out[f"{key} {old_name}"] = (n1 + n2) / 2, (o1 + o2) / 2
+            ab[key] = (old_name, o1, n1, n2, o2)
         out[key + " plain"] = timed(plain, 1, 3)
         bounds[key] = bnd
         if own_ms is not None:
@@ -1385,15 +1487,44 @@ def times(device, ntts, rng):
            butterfly_bound(n24, 256, False, "solinas", "solinas", n24))
     # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
     # and the inner row's leaf between transposes), the inter-step multiply
-    # of that row, the root
-    gt = P.make_leaf_tables(flag, 256, inverse=False, max_r=3, device=device)
-    kernel("K7 leaf 256x65536 r=3", lambda: P.fused_ntt(xm.view(256, 65536), gt, fc),
-           lambda: P.grouped_plain(xm.view(256, 65536), gt, fc),
-           grouped_bound(n24, gt, "montgomery", None, 0, False))
-    gr = P.make_lane_tables(flag, 256, inverse=False, max_r=3, device=device)
-    kernel("K8 lane 65536x256 r=3 pair", lambda: P.fused_ntt_lane(xr, gr, fc, twr),
-           lambda: P.lane_grouped_plain(xr, gr, fc, twr),
-           grouped_bound(n24, gr, "montgomery", "pair", n24, True))
+    # of that row, the root; each on the register kernel in turns with the
+    # rank-by-rank one (ntt_pallas._launch_grouped_ranks), whose output is
+    # first held to the plain version's; then max_r 2 and 4 at the leaf,
+    # both directions, and the 2^17 plan's two launches
+    ranks = P._launch_grouped_ranks
+    for name, r, inv, lane, shape, tw_ in (
+        ("K7 leaf 256x65536 r=3", 3, False, False, (256, 65536), None),
+        ("K7 leaf 256x65536 r=3 inv", 3, True, False, (256, 65536), None),
+        ("K7 leaf 256x65536 r=2", 2, False, False, (256, 65536), None),
+        ("K7 leaf 256x65536 r=4", 4, False, False, (256, 65536), None),
+        ("K8 lane 65536x256 r=3 pair", 3, False, True, (65536, 256), twr),
+        ("K8 lane 65536x256 r=3 pair inv", 3, True, True, (65536, 256), twr),
+        ("K7 leaf 256x512 r=3 (2^17)", 3, False, False, (256, 512), None),
+        ("K7 leaf 256x512 r=3 inv (2^17)", 3, True, False, (256, 512), None),
+        ("K8 lane 256x512 r=3 pair (2^17)", 3, False, True, (256, 512), "pair"),
+        ("K8 lane 256x512 r=3 pair inv (2^17)", 3, True, True, (256, 512), "pair"),
+    ):
+        m, make = (shape[1], P.make_lane_tables) if lane else (shape[0], P.make_leaf_tables)
+        gt = make(flag, m, inverse=inv, max_r=r, device=device)
+        xg = xm.view(shape) if shape[0] * shape[1] == n24 else rand_u64(
+            rng, shape, device, below=flag.modulus)
+        if tw_ == "pair":
+            tw_ = rand_twiddle(rng, shape, flag, "pair", device)
+        if lane:
+            new = lambda xg=xg, gt=gt, tw_=tw_: P.fused_ntt_lane(xg, gt, fc, tw_)
+            plain = lambda xg=xg, gt=gt, tw_=tw_: P.lane_grouped_plain(xg, gt, fc, tw_)
+        else:
+            new = lambda xg=xg, gt=gt: P.fused_ntt(xg, gt, fc)
+            plain = lambda xg=xg, gt=gt: P.grouped_plain(xg, gt, fc)
+        old = lambda xg=xg, gt=gt, tw_=tw_: ranks(xg, gt, fc, tw_)
+        want = plain()
+        err = max(mismatch(new(), want), mismatch(old(), want))
+        check(err <= TOL, f"{name}: a grouped kernel != plain")
+        points = shape[0] * shape[1]
+        bnd = grouped_bound(points, gt, "montgomery", "pair" if lane else None,
+                            points if lane else 0, lane)
+        kernel(name, new, plain, bnd, old=old, old_name="ranks", graph=True)
+        del xg, want
     view = MontPair(twm.w.unsqueeze(2), twm.wp.unsqueeze(2))
     kernel("inter-step 256x256x256 pair", lambda: inter_step.mont_mul_bcast(fc, xm, twm),
            lambda: inter_step_mul(fc, xm, view), inter_step_bound(n24, 65536, "pair"))
@@ -1517,18 +1648,27 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
-    entry, tc_entries = None, 0
+    # the redesigned kernels: the tensor-core matrix kernel and the grouped
+    # register kernel (36 instantiations: INV x {Montgomery, lazy
+    # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
+    # 3 or 4 ranks) must not spill
+    entry, entries = None, {"mxu_tc_kernel": 0, "grouped_reg_kernel": 0}
     for line in kernel_build["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
         if "Compiling entry" in line:
             entry = line
-            tc_entries += "mxu_tc_kernel" in line
-        elif "spill" in line and entry is not None and "mxu_tc_kernel" in entry:
+            for k in entries:
+                entries[k] += k in line
+        elif "spill" in line and entry is not None and any(k in entry for k in entries):
             check("0 bytes spill stores, 0 bytes spill loads" in line,
-                  f"the tensor-core kernel spills: {entry.strip()}: {line.strip()}")
-    check(tc_entries > 0 or kernel_build["log"] == "(cached)",
+                  f"a redesigned kernel spills: {entry.strip()}: {line.strip()}")
+    cached = kernel_build["log"] == "(cached)"
+    check(cached or entries["mxu_tc_kernel"] > 0,
           "no -Xptxas -v line of the tensor-core kernel in the build log")
+    check(cached or entries["grouped_reg_kernel"] == 36,
+          f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
+          "not 36")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
@@ -1592,6 +1732,11 @@ def main() -> int:
           and lg["inter_step"]["inter_step"] > 0, "a kernel of the grouped path never ran")
     check(not any(lg["pallas"][k] for k in ("leaf", "mid", "lane")),
           "the grouped path ran a radix-2 kernel")
+    log(f"  grouped kernels: {c_grp['grouped_kernels']} (registers: grouped_reg_kernel; ranks: "
+        "grouped_ranks_kernel, csrc/ntt_grouped.cu)")
+    check(c_grp["grouped_kernels"]["registers"] == lg["pallas"]["grouped"]
+          + lg["pallas"]["lane_grouped"] and c_grp["grouped_kernels"]["ranks"] == 0,
+          "the grouped path launched the rank-by-rank kernel")
     for c in (c_mxu, c_pal, c_grp):
         check(no_plain(c), "a plain version ran on the card")
     del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"]
@@ -1677,6 +1822,8 @@ def main() -> int:
           "the distributed mxu path launched the __dp4a kernel")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
+    check(c_dist["grouped 2^24 D=8 ring"]["grouped_kernels"]["ranks"] == 0,
+          "the distributed grouped path launched the rank-by-rank kernel")
     log("[distributed 2^28] 8 logical shards, ring and overlap, vs the single-device six_step "
         "transform")
     dist_2p28(device)
@@ -1695,7 +1842,9 @@ def main() -> int:
         log(f"  {k}: {v:.4f}{extra}")
     log("[A/B] the s8 matrix NTT on the int8 tensor cores (csrc/ntt_mxu_tc.cu) against "
         "the __dp4a kernel (csrc/ntt_mxu.cu), timed in turns dp4a, tc, tc, dp4a:")
-    for k, (o1, n1, n2, o2) in ab.items():
+    for k, (old_name, o1, n1, n2, o2) in ab.items():
+        if old_name != "dp4a":
+            continue
         m = 512 if k.startswith("K1 lead 512") else 256
         points = 1 << (17 if "(2^17)" in k else 24)
         tops = [2 * 64 * m * points / (v * 1e-3) / 1e12 for v in (ms[k], ms[k + " dp4a"])]
@@ -1703,6 +1852,15 @@ def main() -> int:
             f"{ms[k + ' dp4a'] / ms[k]:.2f}x; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
             f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound) "
             f"against {tops[1]:.1f}")
+    log("[A/B] the grouped kernel K7 / K8 (csrc/ntt_grouped.cu): the register kernel against "
+        "the rank-by-rank one, CUDA-graph replays in turns ranks, registers, registers, ranks:")
+    for k, (old_name, o1, n1, n2, o2) in ab.items():
+        if old_name != "ranks":
+            continue
+        b_ms, b_by = bounds[k]
+        log(f"  {k}: ranks {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
+            f"{ms[k + ' ranks'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
+            f"{100 * b_ms / ms[k]:.1f}% of it, ranks {100 * b_ms / ms[k + ' ranks']:.1f}%")
     # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
     nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
     log(f"  K10 2^24 D=8 across 8 cards: bound {nvlink:.4f} ms by NVLink bytes "
@@ -1713,7 +1871,7 @@ def main() -> int:
     from sventt_tpu_torch.utils.fill import device_fill
 
     runs = {}
-    for label in ("mxu 2^24", "pallas 2^24", "grouped 2^24"):
+    for label in ("mxu 2^24", "pallas 2^24", "grouped 2^24", "grouped 2^17"):
         ntt = {**ntts_mxu, **ntts_pal, **ntts_grp}[label]
         x = device_fill(ntt.get_m(), F, device)
         runs[label] = lambda ntt=ntt, x=x: ntt.compute_forward(x)

@@ -74,7 +74,7 @@ from ..field.limb import (
     u64_select,
 )
 from ..field.modulus import MASK32, Modulus
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, sm_count
 from .twiddle import MontPair, check_companion, inter_step_mul, montpair_map
 
 #: Seven-bit planes per u64 for the "u7" scheme (10 * 7 = 70 >= 64 bits).
@@ -495,9 +495,11 @@ def tc_plane_tiles(planes: torch.Tensor, m: int) -> torch.Tensor:
     return T.contiguous().reshape(-1)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def tc_plane_tile_bytes(m: int) -> int:
+    """Bytes of ``tc_plane_tiles(planes, m)`` without building it: the 8
+    digit planes, m rounded up to whole row groups, times ``kp``."""
+    g = tc_geometry(m, 1)
+    return NL_S8 * -(-m // g.rg) * g.rg * g.kp
 
 
 def _launch_tc(
@@ -511,7 +513,7 @@ def _launch_tc(
         raise ValueError("the tensor-core kernel takes s8 / s8b tables built on a CUDA device")
     out, head, tail = _kernel_args(x, t, fc, tw, t.tc_planes)
     A, m, B = x.shape
-    geo = tc_geometry(m, B, A, _sm_count(x.device.index))
+    geo = tc_geometry(m, B, A, sm_count(x.device.index))
     rc = _build.load().sventt_mxu_ntt_tc(
         *head, *tail, geo.nt, geo.split, geo.smem,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -38,6 +38,12 @@ kernel (``csrc/ntt_grouped.cu``) in two orientations:
 * lane (``fused_ntt_lane`` on a ``GroupedLaneDirection``, K8
   ``_lane_grouped_call``), the inter-step twiddle fused as for K6.
 
+Each thread of that kernel holds one group's 2^R points of a butterfly set
+in registers and runs the group's R ranks there; the sets meet in shared
+memory once per group boundary (``grouped_geometry`` gives the launch
+geometry).  The first port's rank-by-rank schedule of the same file is
+kept as the A/B point ``_launch_grouped_ranks``, which no path calls.
+
 The JAX planner never sends grouped tables to the mid orientation (its
 ``_mid_row`` asks for a ``FusedDirection``): a batched grouped row takes
 the transpose fallback, so ``fused_ntt_mid`` rejects them.  Nor does it
@@ -50,12 +56,14 @@ point by its (then unit) table entry.
 
 On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
-kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation.
+kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation;
+``KERNEL_LAUNCHES`` which grouped kernel ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,7 +71,7 @@ import torch
 
 from ..field.limb import FieldConsts, from_numpy, s64
 from ..field.modulus import Modulus
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, sm_count
 from .twiddle import (
     MontPair,
     _twiddle_pair,
@@ -103,6 +111,17 @@ MAX_SMEM = 232448
 LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0, "grouped": 0, "lane_grouped": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+#: Grouped launches per kernel: "registers" (every K7 / K8 call), "ranks"
+#: (the rank-by-rank A/B point, ``_launch_grouped_ranks`` only).
+KERNEL_LAUNCHES = {"registers": 0, "ranks": 0}
+
+#: The register kernel's largest block (its ``__launch_bounds__``).
+GROUPED_THREADS = 256
+#: Constant slots of a group in the grouped tables: MAX_R x MAX_LOWS.
+GROUP_CONSTS = MAX_R * MAX_LOWS
+#: Shared memory a block may take and still share an SM with two others: a
+#: third of the SM's 233,472 bytes less the 1 KB the card reserves per block.
+SMEM_THREE_BLOCKS = 233472 // 3 - 1024
 
 
 @dataclass(frozen=True)
@@ -444,6 +463,77 @@ def make_lane_grouped_inverse(
     )
 
 
+@dataclass(frozen=True)
+class GroupedGeometry:
+    """The register kernel's launch geometry (csrc/ntt_grouped.cu).
+
+    ``cols``: batch entries (leaf columns, lane rows) a block tile;
+    ``tpc``: threads a batch entry, each owning butterfly sets ``q``,
+    ``q + tpc``, ... of a group (leaf: lanes along the columns, thread
+    ``q * cols + c``; lane: lanes along the sets, thread ``c * tpc + q``);
+    ``threads`` = cols * tpc.  Shared memory, in order: the tile of
+    ``tile_words`` u64 (cols x m), one more for each word of a fused
+    twiddle, one span of each group's combined table as (w, wp) pairs
+    (``tab_entries``), each group's GROUP_CONSTS constant pairs and its
+    32-bit mask; ``smem`` their bytes.
+    """
+
+    cols: int
+    tpc: int
+    threads: int
+    tile_words: int
+    tab_entries: int
+    smem: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=1024)
+def grouped_geometry(
+    m: int, specs, B: int, lane: bool, A: int = 1, tw_words: int = 0, sms: int = 132
+) -> GroupedGeometry:
+    """Launch geometry of the register kernel for an (A, m, B) call of the
+    groups ``specs`` with a fused twiddle of ``tw_words`` words a point (0
+    none, 1 "w", 2 "pair").  ``tpc`` is at most the widest group's set
+    count m / 2^R (every thread has a set in every group).  The leaf starts
+    at 32 columns a tile with GROUPED_THREADS // 32 threads each; the lane
+    at ``tpc`` = that set count, as many rows as fill GROUPED_THREADS.  No
+    more batch entries than B has; then the tile halves while its shared
+    memory exceeds SMEM_THREE_BLOCKS, and while the grid has fewer than two
+    blocks an SM (leaf down to 4 columns, a 32-byte sector a point)."""
+    if m < 2 or m & (m - 1) or m > MAX_LEAF:
+        raise ValueError(f"grouped kernel takes power-of-two m in [2, {MAX_LEAF}], got {m}")
+    if sum(spec.R for spec in specs) != m.bit_length() - 1:
+        raise ValueError("the groups' ranks do not add up to log2 m")
+    if tw_words not in (0, 1, 2):
+        raise ValueError(f"a fused twiddle has 0, 1 or 2 words a point, not {tw_words}")
+    nsets = m >> max(spec.R for spec in specs)
+    tab_entries = sum(spec.span for spec in specs)
+    fixed = 16 * tab_entries + len(specs) * (16 * GROUP_CONSTS + 4)
+
+    def smem(cols: int) -> int:
+        return 8 * cols * m * (1 + tw_words) + fixed
+
+    if lane:
+        tpc = min(nsets, GROUPED_THREADS)
+        cols, floor = GROUPED_THREADS // tpc, 1
+    else:
+        cols, floor = 32, 4
+        tpc = min(nsets, GROUPED_THREADS // cols)
+    cols = min(cols, _pow2_at_least(B))
+    while cols > 1 and (
+        smem(cols) > SMEM_THREE_BLOCKS or (cols > floor and -(-B // cols) * A < 2 * sms)
+    ):
+        cols //= 2
+        if not lane:
+            tpc = min(nsets, GROUPED_THREADS // cols)
+    if smem(cols) > MAX_SMEM:
+        raise ValueError(f"grouped kernel at m = {m} needs {smem(cols)} bytes of shared memory")
+    return GroupedGeometry(cols, tpc, cols * tpc, cols * m, tab_entries, smem(cols))
+
+
 def make_leaf_tables(
     mod: Modulus, m: int, *, inverse: bool, modmul: str = "montgomery",
     max_r: int | None = None, block_b: int | None = None, spc: int | None = None,
@@ -702,19 +792,23 @@ def _check_cuda(t, fc: FieldConsts, x: torch.Tensor, tw: MontPair | None):
         raise ValueError(f"tables built for {t.modmul!r}, field engine is {fc.modmul!r}")
 
 
-def _geometry(x3: torch.Tensor, m: int, lane: bool, cols: int):
+def _view(x3: torch.Tensor, lane: bool):
     """The kernels' (A, m, B) view of the contiguous ``x3``: (dims, element
-    strides, inter-step twiddle strides, log2 cols).  ``lane`` (x3 is
-    (rows, m, 1)): the rows are B = rows batch entries of stride m,
-    transform stride 1, so a block reads whole rows; otherwise the
-    twiddle is (A, m, 1), broadcast over the batch.  Each block takes
-    ``cols`` batch entries."""
+    strides, inter-step twiddle strides).  ``lane`` (x3 is (rows, m, 1)):
+    the rows are B = rows batch entries of stride m, transform stride 1;
+    otherwise the twiddle is (A, m, 1), broadcast over the batch."""
+    A, m, B = x3.shape
+    if lane:
+        return (1, m, A), (0, 1, m), (0, 1, m)
+    return (A, m, B), x3.stride(), (m, 1, 0)
+
+
+def _geometry(x3: torch.Tensor, m: int, lane: bool, cols: int):
+    """``_view`` and log2 cols of the shared-memory tile kernels, a block
+    taking ``cols`` batch entries (in the lane orientation whole rows)."""
     if (cols + 1) * m * 8 > MAX_SMEM:
         raise ValueError(f"a tile of {cols} x {m} points exceeds shared memory")
-    A, _, B = x3.shape
-    if lane:
-        return (1, m, A), (0, 1, m), (0, 1, m), cols.bit_length() - 1
-    return (A, m, B), x3.stride(), (m, 1, 0), cols.bit_length() - 1
+    return (*_view(x3, lane), cols.bit_length() - 1)
 
 
 #: The C entries' stage-multiply engines.
@@ -762,31 +856,77 @@ def _launch(
 
 
 def _launch_grouped(
-    x3: torch.Tensor, t: _GroupedTables, fc: FieldConsts, tw3: MontPair | None,
-    lane: bool, cols: int,
+    x3: torch.Tensor, t: _GroupedTables, fc: FieldConsts, tw3: MontPair | None, lane: bool
 ) -> torch.Tensor:
-    """One launch of the grouped kernel on every group of ``t`` (K7, or K8
-    with ``lane``), the view as in ``_launch``."""
+    """One launch of the register kernel on every group of ``t`` (K7, or
+    K8 with ``lane``) along axis 1 of the contiguous (A, m, B) tensor
+    ``x3`` (see ``_view``), in ``grouped_geometry``'s geometry."""
     from .. import _build
 
     _check_cuda(t, fc, x3, tw3)
     m = t.m
-    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
+    dims, strides, tw_strides = _view(x3, lane)
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+    tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
+    geo = grouped_geometry(
+        m, t.specs, dims[2], lane, dims[0], tw_words, sm_count(x3.device.index)
+    )
     ranks = sum(spec.R << (4 * g) for g, spec in enumerate(t.specs))
     lib = _build.load()
     out = torch.empty_like(x3)
-    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
     rc = lib.sventt_grouped_ntt(
         x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(),
         t.consts.data_ptr(), t.const_mask.data_ptr(), w_ptr, wp_ptr,
         dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        len(t.specs), ranks, log2c, int(t.inverse), _MODMUL[fc.modmul],
+        len(t.specs), ranks, geo.cols.bit_length() - 1, geo.tpc.bit_length() - 1, geo.smem,
+        int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy), int(lane), mode, fc.modulus,
+        fc.montgomery_inverse, torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["registers"] += 1
+    return out
+
+
+def _launch_grouped_ranks(
+    x: torch.Tensor, tables: _GroupedTables, fc: FieldConsts, pre_tw: MontPair | None = None
+) -> torch.Tensor:
+    """``fused_ntt`` (``fused_ntt_lane`` on lane tables, ``pre_tw`` as
+    there) of grouped tables on the first port's rank-by-rank kernel, which
+    no path runs: the A/B point ``chip_smoke.py`` times beside the register
+    kernel.  CUDA tensors only; counted under ``KERNEL_LAUNCHES["ranks"]``
+    alone."""
+    from .. import _build
+
+    if not isinstance(tables, _GroupedTables) or not x.is_cuda:
+        raise ValueError("the rank-by-rank A/B point takes grouped tables and a CUDA tensor")
+    check_companion(fc, pre_tw)
+    m = tables.m
+    lane = isinstance(tables, GroupedLaneDirection)
+    if lane:
+        rows = _lane_rows(x, m)
+        x3, tw3 = rows.unsqueeze(2), None if pre_tw is None else _lane_tw(pre_tw, x, rows)
+    elif pre_tw is not None:
+        raise ValueError("the leaf orientation takes no inter-step twiddle")
+    else:
+        x3, tw3 = _leaf_view(x, m), None
+    _check_cuda(tables, fc, x3, tw3)
+    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, max(1, TILE_POINTS // m))
+    ranks = sum(spec.R << (4 * g) for g, spec in enumerate(tables.specs))
+    out = torch.empty_like(x3)
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+    rc = _build.load().sventt_grouped_ntt_ranks(
+        x3.data_ptr(), out.data_ptr(), tables.w.data_ptr(), tables.wp.data_ptr(),
+        tables.consts.data_ptr(), tables.const_mask.data_ptr(), w_ptr, wp_ptr,
+        dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
+        len(tables.specs), ranks, log2c, int(tables.inverse), _MODMUL[fc.modmul],
         int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
-    return out
+        raise RuntimeError(f"grouped rank kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["ranks"] += 1
+    return out.reshape(x.shape)
 
 
 def _run(
@@ -799,7 +939,7 @@ def _run(
     if x3.is_cuda:
         cols = cols or max(1, TILE_POINTS // t.m)
         if grouped:
-            x3 = _launch_grouped(x3, t, fc, tw3, lane, cols)
+            x3 = _launch_grouped(x3, t, fc, tw3, lane)
             LAUNCHES[orientation] += 1
             return x3
         n = len(t.stage_ls)
@@ -873,12 +1013,13 @@ def fused_ntt_lane(
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 # ctypes signatures of the C entries in csrc/ntt_pallas.cu and csrc/ntt_grouped.cu
+# (the register kernel's, then the rank-by-rank one's)
 _ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
@@ -893,6 +1034,15 @@ _GROUPED_ARGTYPES = (
     + [ctypes.c_longlong] * 6
     + [ctypes.c_int, ctypes.c_ulonglong]
     + [ctypes.c_int] * 6
+    + [ctypes.c_ulonglong] * 2
+    + [ctypes.c_void_p]
+)
+_GROUPED_REG_ARGTYPES = (
+    [ctypes.c_void_p] * 8
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    + [ctypes.c_longlong] * 6
+    + [ctypes.c_int, ctypes.c_ulonglong]
+    + [ctypes.c_int] * 8
     + [ctypes.c_ulonglong] * 2
     + [ctypes.c_void_p]
 )

@@ -5,11 +5,12 @@ budget of a ``DistributedNTT`` computed WITHOUT building it, so 2^30-class
 plans can be checked anywhere.  8 bytes a point (one int64 word, the JAX
 package's two u32 limbs).  The table bytes are the port's own tables --
 compact stage vectors (no companion vector under Solinas), (8m, m) int8
-planes, (groups, m) grouped tables -- not the TPU's broadcast tiles.  Not
-counted: the copy of each mxu table's digit planes that CUDA tables also
-hold in the tensor-core kernel's tile layout (``MxuDirection.tc_planes``,
-8 x m x kp bytes, m rounded up to its row groups: at most 8 MiB, at
-m = 1024), negligible beside a shard's data.
+planes, (groups, m) grouped tables -- not the TPU's broadcast tiles.  Tables
+built on a CUDA device (``device="cuda"``, the default) also hold each mxu
+leaf's digit planes a second time, in the tensor-core kernel's tile layout
+(``MxuDirection.tc_planes``, ``ntt_mxu.tc_plane_tile_bytes``: 8 x m x kp
+bytes, m rounded up to its row groups, at most 8 MiB at m = 1024); CPU
+tables (``device="cpu"``) have no such copy.
 
 The data terms follow the JAX rule where the port holds the same buffers:
 the input shard (``coefficients``), and the all-to-all's fresh output
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..ops import ntt_pallas
+from ..ops import ntt_mxu, ntt_pallas
 from ..plan import planner
 from ..plan.config import NttConfig
 from ..plan.planner import W_ONLY_THRESHOLD
@@ -74,11 +75,14 @@ def _pallas_bytes(m: int, max_r: int | None, solinas: bool) -> int:
     return 2 * (m - 1) * 8
 
 
-def _leaf_table_bytes(plan, max_r: int | None = None, solinas: bool = False) -> int:
+def _leaf_table_bytes(
+    plan, max_r: int | None = None, solinas: bool = False, cuda: bool = True
+) -> int:
     """Bytes of every table ``PlanTables`` builds for ``plan`` (replicated
     on every device): leaf tables, the lane tables of pallas rows and the
     inter-step tables of inner split levels (companion-free under
-    Solinas), each once per key as ``PlanTables`` keys them."""
+    Solinas), each once per key as ``PlanTables`` keys them; ``cuda``: an
+    mxu leaf also holds its tensor-core tile copy."""
     seen = set()
     total = 0
 
@@ -92,6 +96,8 @@ def _leaf_table_bytes(plan, max_r: int | None = None, solinas: bool = False) -> 
             if node.engine == "mxu":
                 # (8m, m) int8 digit planes and the (m,) int64 correction
                 total += 8 * node.m * node.m + 8 * node.m
+                if cuda:
+                    total += ntt_mxu.tc_plane_tile_bytes(node.m)
             else:
                 total += _pallas_bytes(node.m, max_r, solinas)
             return
@@ -144,11 +150,16 @@ def distributed_memory_budget(
     *,
     enable_forward: bool = True,
     enable_inverse: bool = True,
+    device: str = "cuda",
 ) -> MemoryBudget:
     """Per-device budget of ``DistributedNTT(config, mesh)`` over
-    ``devices`` shards, without constructing anything.  No ``donate_input``:
-    the JAX package's donation is its single-device ``NTT``'s, which the
-    port does not have."""
+    ``devices`` shards, without constructing anything.  ``device``: the
+    type of device the tables will live on, "cuda" (the port's default)
+    or "cpu"; nothing is built, so no card is needed.  No
+    ``donate_input``: the JAX package's donation is its single-device
+    ``NTT``'s, which the port does not have."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     n0, n1 = config.split
     if n0 % devices or n1 % devices:
         raise ValueError(f"n0={n0}, n1={n1} must be divisible by mesh size {devices}")
@@ -162,7 +173,8 @@ def distributed_memory_budget(
     engine = _resolve_engine(config.engine)
     solinas = config.modmul == "solinas"
     leaf = sum(
-        _leaf_table_bytes(planner.build_plan(m, engine), config.max_r, solinas) for m in (n0, n1)
+        _leaf_table_bytes(planner.build_plan(m, engine), config.max_r, solinas, device == "cuda")
+        for m in (n0, n1)
     )
     directions = int(enable_forward) + int(enable_inverse)
     return MemoryBudget(

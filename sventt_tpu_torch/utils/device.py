@@ -7,6 +7,8 @@ version.  Asking for a card where there is none raises ``RuntimeError``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -24,3 +26,9 @@ def resolve_device(device=None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index`` (launch geometry)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

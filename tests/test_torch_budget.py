@@ -8,8 +8,11 @@ is the JAX rule's without donation, which the port does not have, and
 ``step_scratch`` the port's own term (its eager kernel chain's
 intermediates); the table bytes are the port's own compact tables, held
 to the ``nbytes`` of the tensors that ``DistributedNTT`` builds on CPU
-shards.  The card check that the measured peak stays within the budget
-is chip_smoke.py's 2^28 phase.
+shards (``device="cpu"``); CUDA tables (the default) add each mxu leaf's
+tensor-core tile copy, ``ntt_mxu.tc_plane_tile_bytes``, held here to the
+tile layout's own size.  The card checks -- the measured peak within the
+budget, and the CUDA budget's table bytes equal to the built CUDA tables'
+-- are chip_smoke.py's distributed phases.
 """
 
 import dataclasses
@@ -25,6 +28,7 @@ from sventt_tpu_torch.field.modulus import (
     TEST_GENERATOR,
     TEST_MODULUS,
 )
+from sventt_tpu_torch.ops import ntt_mxu
 from sventt_tpu_torch.parallel import (
     DistributedNTT,
     distributed_memory_budget,
@@ -116,7 +120,7 @@ def test_leaf_tables_match_built_tables(log2n, n0, kw):
     built = 0
     for tables in (t.col[torch.device("cpu")], t.row[torch.device("cpu")]):
         built += sum(_tensor_bytes(getattr(tables, k)) for k in ("leaf", "lane", "split_tw", "split_tw_t"))
-    budget = distributed_memory_budget(cfg, 8, enable_inverse=False)
+    budget = distributed_memory_budget(cfg, 8, enable_inverse=False, device="cpu")
     assert budget.leaf_tables == built
     assert budget.directions == 1
     # the sharded inter-step matrix: the per-device figure times D
@@ -168,3 +172,43 @@ def test_companion_threshold_reflected():
     assert mid.inter_step_twiddles == 2 * mid.coefficients
     big = distributed_memory_budget(NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30)), 8)
     assert big.inter_step_twiddles == big.coefficients
+
+
+@pytest.mark.parametrize("m", [1 << k for k in range(1, 11)] + [3, 48, 96, 200, 1000])
+def test_tc_plane_tile_bytes_match_the_layout(m):
+    """``tc_plane_tile_bytes(m)`` is the size of the tile copy that
+    ``tc_plane_tiles`` builds, without building it."""
+    planes = torch.zeros(ntt_mxu.NL_S8 * m, m, dtype=torch.int8)
+    tiles = ntt_mxu.tc_plane_tiles(planes, m)
+    assert ntt_mxu.tc_plane_tile_bytes(m) == tiles.numel() * tiles.element_size()
+
+
+@pytest.mark.parametrize(
+    "log2n,n0,kw",
+    [
+        pytest.param(13, None, dict(engine="mxu"), id="2^13-mxu"),
+        pytest.param(20, 1 << 4, dict(engine="mxu"), id="2^20-row-split-mxu"),
+        pytest.param(13, None, dict(engine="mxu", modmul="solinas"), id="2^13-mxu-solinas"),
+        pytest.param(13, None, dict(engine="pallas", max_r=3), id="2^13-grouped"),
+    ],
+)
+def test_cuda_budget_counts_the_tile_copy(log2n, n0, kw):
+    """The "cuda" budget exceeds the "cpu" one by the tile copy of each
+    distinct mxu leaf the built tables hold, once per length, as
+    ``PlanTables`` keys them; a pallas plan has no mxu leaf."""
+    N, g = (FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR) if kw.get("modmul") else (TEST_MODULUS, TEST_GENERATOR)
+    cfg = NttConfig(**_args(N, g, log2n, n0), **kw)
+    dntt = DistributedNTT(cfg, make_ntt_mesh(devices=["cpu"] * 8), enable_inverse=False)
+    t = dntt._forward
+    mxu_ms = set()
+    for tables in (t.col[torch.device("cpu")], t.row[torch.device("cpu")]):
+        for d in tables.leaf.values():
+            if isinstance(d, ntt_mxu.MxuDirection):
+                assert d.tc_planes is None  # CPU tables hold no tile copy
+                mxu_ms.add(d.m)
+    cuda = distributed_memory_budget(cfg, 8, enable_inverse=False)
+    cpu = distributed_memory_budget(cfg, 8, enable_inverse=False, device="cpu")
+    assert cuda.leaf_tables - cpu.leaf_tables == sum(map(ntt_mxu.tc_plane_tile_bytes, mxu_ms))
+    assert bool(mxu_ms) == (kw["engine"] == "mxu")
+    with pytest.raises(ValueError, match="device"):
+        distributed_memory_budget(cfg, 8, device="tpu")
