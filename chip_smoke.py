@@ -7,8 +7,10 @@ Phases, each printing its own lines:
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: the CUDA kernels and the native golden oracle, from this checkout,
-   with each kernel's -Xptxas -v lines; fails if an instantiation of the
-   tensor-core matrix kernel (csrc/ntt_mxu_tc.cu) spills;
+   with each kernel's -Xptxas -v lines; fails if an instantiation of one
+   of the three redesigned kernels (the tensor-core matrix kernel
+   csrc/ntt_mxu_tc.cu, the grouped and the radix-2 register kernels
+   csrc/ntt_grouped.cu, csrc/ntt_radix2.cu) spills;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same card tensors, bitwise, at the main paths' shapes --
    the s8 matrix NTT (K1 lead and K2 mid on the int8 tensor cores, K3 lane
@@ -17,9 +19,13 @@ Phases, each printing its own lines:
    crafted plane-minimizer input, and for the tensor-core kernel m = 2, 8,
    32, 64 and 1024, batches that are not a multiple of its block, the
    2^17 plan's launches with their row split and a mid call with A =
-   70000 > 65535 slices; the radix-2 butterfly kernel (K4 leaf, K5 mid,
-   K6 lane) with every twiddle mode, both directions, the flagship and the
-   lazy test modulus under Montgomery and Shoup, a ragged batch and m = 2;
+   70000 > 65535 slices; the radix-2 butterfly kernels (K4 leaf and K5 mid
+   on the register kernel, csrc/ntt_radix2.cu, each case also on the first
+   port's stage-by-stage kernel, the A/B point ``_launch_stages``; K6 lane
+   on that one) with every twiddle mode, both directions, the flagship and
+   the lazy test modulus under Montgomery and Shoup, a ragged batch, m = 2
+   and 4096, the 2^17 and 2^26 plans' launches, spc / block_b splits, a
+   strided (A, m, B) view and A = 70000 slices;
    the same matrix cases under the u7 and s8b plane schemes, with K1's
    2^24 shape and, for u7, the m = 1024 all-ones input (against the golden
    model too); K11 (the fused u7 prototype) at (128, 32768), with columns
@@ -53,7 +59,10 @@ Phases, each printing its own lines:
    set to 0 just before and read just after: every kernel of the path must
    have launched, and no plain version may have run; on the matrix paths
    every lead / mid launch must have run the tensor-core kernel and none
-   the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``);
+   the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly
+   paths (flagship, TEST, Solinas, distributed) every leaf / mid launch
+   the register kernel and every lane launch the stage-by-stage one
+   (``ntt_pallas.KERNEL_LAUNCHES``);
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
    shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
    K10 against its plain version first (D = 1, 2, 3, 4, 8, both
@@ -79,16 +88,22 @@ Phases, each printing its own lines:
    (``ntt_pallas._launch_grouped_ranks``: ranks, registers, registers,
    ranks) at the 2^24 shapes (max_r 3 both directions, max_r 2 and 4 at
    the leaf) and the 2^17 ones, as CUDA-graph replays (device time), with
-   the bound and the share of it; each Solinas kernel beside its
+   the bound and the share of it; K4 / K5 on the radix-2 register kernel in
+   turns with the stage-by-stage one (stages, registers, registers,
+   stages) as CUDA-graph replays at the 2^24 shapes (both directions,
+   Montgomery, Shoup on the test modulus, Solinas), the 2^17 ones and a
+   2^26 one, with the bound, the share of it and the Montgomery product
+   floor; K6 as a graph replay; each Solinas kernel beside its
    Montgomery form at the same shape; the u7 and s8b
    kernels at K1/K2/K3's 2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
    with it as a separate pass); the distributed 2^24 forward at D = 4
    and 8 per comm mode, as logical shards of one card;
-6. breakdown: the matrix, radix-2 and grouped butterfly engines' 2^24 forward
-   transforms and the grouped 2^17 one, the distributed 2^24 forward (D = 4 and 8 ring, D = 4
-   overlap): device time by kernel (torch.profiler) and the device's busy
-   share -- informational, no check rests on it.
+6. breakdown: the matrix, radix-2 and grouped butterfly engines' 2^24
+   forward transforms and the radix-2 and grouped 2^17 ones, the
+   distributed 2^24 forward (D = 4 and 8 ring, D = 4 overlap): device
+   time by kernel (torch.profiler) and the device's busy share --
+   informational, no check rests on it.
 
 The tolerance of every comparison is zero: the arithmetic is exact.  Any
 failed check raises, so the script exits non-zero.  The line before the
@@ -117,6 +132,10 @@ IMAD_PER_S = 16.75e12
 #: 32-bit multiply-adds a 64-bit product needs at least: its four (high
 #: word) or three (low word) 32 x 32 partial products.
 IMAD_HI, IMAD_LO = 4, 3
+#: The Montgomery product's measured rate on the H100 (products a second,
+#: low and high of two runs; tools/grouped_ablation.py): the butterfly
+#: kernels' product floor, printed beside their byte bound.
+MONT_RATE = (0.692e12, 0.721e12)
 
 
 def log(msg: str) -> None:
@@ -382,9 +401,28 @@ def fused_cases(device, rng):
     return err
 
 
+def radix2_ab_point(x, t, fc, tw, orient: str, want) -> int:
+    """K4 / K5's A/B point, the stage-by-stage kernel
+    (``ntt_pallas._launch_stages``), against the plain version's ``want``:
+    its mismatch; it launches once per stage range and nothing else."""
+    from sventt_tpu_torch.ops import ntt_pallas as P
+
+    before = dict(P.KERNEL_LAUNCHES)
+    old = P._launch_stages(x, t, fc, tw, mid=orient != "leaf")
+    sync(x.device)
+    n = len(t.stage_ls)
+    ranges = -(-n // (t.spc or n))
+    check(P.KERNEL_LAUNCHES["radix2_stages"] == before["radix2_stages"] + ranges
+          and P.KERNEL_LAUNCHES["radix2_registers"] == before["radix2_registers"],
+          "the A/B point launched another kernel")
+    return mismatch(old, want)
+
+
 def pallas_kernel_cases(device, rng):
-    """K4/K5/K6 vs plain at the main path's shapes and the edge cases;
-    returns the largest mismatch per orientation."""
+    """K4/K5 (the register kernel, and the stage-by-stage A/B point) and K6
+    vs plain at the main path's shapes and the edge cases; each K4 / K5
+    call must launch the register kernel once per stage range and K6 the
+    stage-by-stage kernel.  Returns the largest mismatch per orientation."""
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import ntt_pallas as P
 
@@ -420,6 +458,27 @@ def pallas_kernel_cases(device, rng):
          dict(spc=3, block_b=64)),
         ("K6 lane 1000x256 pair fwd rows=64", flag, "montgomery", False, "lane", (1000, 256), "pair",
          dict(rows=64)),
+        # the register kernel's geometry: the fused twiddle in a split mid
+        # (prologue in the first range, epilogue in the last), the 2^17
+        # plan's small grids, a 2^26 plan's launches, m = 4096 (12 stages,
+        # one column a tile), a tile wider than a block, A > 65535 slices
+        ("K5 mid 5x256x100 pair fwd spc=3", flag, "montgomery", False, "mid", (5, 256, 100), "pair",
+         dict(spc=3)),
+        ("K5 mid 5x256x100 w inv spc=3 TEST shoup", test, "shoup", True, "mid", (5, 256, 100), "w",
+         dict(spc=3)),
+        ("K5 mid 32x64x64 pair fwd (2^17)", flag, "montgomery", False, "mid", (32, 64, 64), "pair", {}),
+        ("K5 mid 32x64x64 pair inv (2^17)", flag, "montgomery", True, "mid", (32, 64, 64), "pair", {}),
+        ("K4 leaf 64x65536 inv", flag, "montgomery", True, "leaf", (64, 65536), None, {}),
+        ("K5 mid 4096x128x128 pair fwd (2^26)", flag, "montgomery", False, "mid", (4096, 128, 128),
+         "pair", {}),
+        ("K5 mid 4096x128x128 pair inv (2^26)", flag, "montgomery", True, "mid", (4096, 128, 128),
+         "pair", {}),
+        ("K4 leaf 4096x100 fwd", flag, "montgomery", False, "leaf", (4096, 100), None, {}),
+        ("K4 leaf 4096x100 inv TEST mont", test, "montgomery", True, "leaf", (4096, 100), None, {}),
+        ("K4 leaf 32x3000 inv TEST shoup block_b=512", test, "shoup", True, "leaf", (32, 3000), None,
+         dict(block_b=512)),
+        ("K5 mid 70000x2x8 pair inv TEST (A > 65535)", test, "montgomery", True, "mid", (70000, 2, 8),
+         "pair", {}),
     ]
     worst = {"leaf": 0, "mid": 0, "lane": 0}
     for name, mod, modmul, inverse, orient, shape, mode, knobs in cases:
@@ -429,20 +488,39 @@ def pallas_kernel_cases(device, rng):
         tw = None
         if mode is not None:
             tw = rand_twiddle(rng, shape[:2] if orient == "mid" else shape, mod, mode, device)
+        before = dict(P.KERNEL_LAUNCHES)
         if orient == "lane":
             t = P.make_lane_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
             got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
+            kernel, launches = "radix2_stages", 1
         else:
             t = P.make_leaf_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
             if orient == "mid":
                 got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
             else:
                 got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
+            kernel, launches = "radix2_registers", -(-len(t.stage_ls) // (t.spc or len(t.stage_ls)))
         sync(device)
+        check(all(P.KERNEL_LAUNCHES[k] == before[k] + (launches if k == kernel else 0)
+                  for k in before), f"{name}: launched {P.KERNEL_LAUNCHES}, not {kernel} alone")
         err = mismatch(got, want)
+        err_old = 0 if orient == "lane" else radix2_ab_point(x, t, fc, tw, orient, want)
         worst[orient] = max(worst[orient], err)
-        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy})")
-        check(err <= TOL, f"{name}: kernel != plain")
+        old = "" if orient == "lane" else f"; stage-by-stage {err_old}"
+        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy}; {kernel}{old})")
+        check(err <= TOL and err_old <= TOL, f"{name}: kernel != plain")
+        del x, got, want
+    # an (A, m, B) view with the batch axis outermost in memory, strides
+    # (m, 1, A m), on the register kernel itself
+    fc = FieldConsts.from_modulus(test, modmul="shoup")
+    t = P.make_leaf_tables(test, 64, inverse=True, modmul="shoup", device=device)
+    x = rand_u64(rng, (33, 5, 64), device, below=test.modulus).permute(1, 2, 0)
+    got, want = P._launch_regs(x, t, fc, None, 0, 6), P._stages_plain(x.contiguous(), t, fc, False)
+    sync(device)
+    err = mismatch(got.contiguous(), want)
+    worst["leaf"] = max(worst["leaf"], err)
+    log(f"  K4 (A, m, B) 5x64x33 inv TEST shoup, strided: max_abs_err {err}")
+    check(err <= TOL, "K4 strided: kernel != plain")
     return worst
 
 
@@ -633,7 +711,8 @@ def corner_data(shape, mod, rng):
 def solinas_kernel_cases(device, rng):
     """Every kernel branch of the Solinas engine vs its plain version,
     bitwise, on the flagship and the Goldilocks modulus: K1 lead / K2 mid
-    with the fused Solinas twiddle, K4 leaf, K5 mid with it, K6 lane with
+    with the fused Solinas twiddle, K4 leaf, K5 mid with it (each also on
+    the stage-by-stage A/B point), K6 lane with
     its prologue (epilogue on the inverse), at the 2^24 plans' shapes, a
     ragged batch and m = 2, both directions, and the inter-step pass.  The
     forward prologues and the inter-step pass take ``corner_data``, any
@@ -690,6 +769,8 @@ def solinas_kernel_cases(device, rng):
                         got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
                     else:
                         got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
+                    err = radix2_ab_point(x, t, fc, tw, orient, want)
+                    check(err <= TOL, f"{name} {orient} {shape} solinas: stage-by-stage != plain")
                 if orient not in ("lead", "mid"):
                     check(t.wp is None and (t.scale is None or t.scale[1] is None),
                           f"{name}: Solinas stage tables carry a companion")
@@ -775,7 +856,7 @@ def counts():
         "launches": {k: dict(v.LAUNCHES) for k, v in mods.items()},
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
         "mxu_kernels": dict(ntt_mxu.KERNEL_LAUNCHES),
-        "grouped_kernels": dict(mods["pallas"].KERNEL_LAUNCHES),
+        "pallas_kernels": dict(mods["pallas"].KERNEL_LAUNCHES),
     }
 
 
@@ -784,6 +865,14 @@ def mxu_on_tensor_cores(c) -> bool:
     kernel (the lane orientation is the only __dp4a one)."""
     lm, k = c["launches"]["mxu"], c["mxu_kernels"]
     return k["tensor_core"] == lm["lead"] + lm["mid"] and k["dp4a"] == lm["lane"]
+
+
+def radix2_routed(c) -> bool:
+    """Every radix-2 leaf / mid launch in the counts ``c`` ran the register
+    kernel and every lane launch the stage-by-stage one."""
+    lp, k = c["launches"]["pallas"], c["pallas_kernels"]
+    return (k["radix2_registers"] == lp["leaf"] + lp["mid"]
+            and k["radix2_stages"] == lp["lane"])
 
 
 def reset_counts() -> None:
@@ -1202,9 +1291,10 @@ def solinas_products(N: int) -> int:
     """32 x 32-bit products the Solinas multiply (``field.cuh`` solinas_mul)
     needs by its operands' widths, for N = 2^64 - eps: the 64 x 64 product
     in full (2 x 2 words), then each fold's high word times eps, the high
-    word's bound after each fold setting its words.  The kernel multiplies
-    full 64-bit words (3 high and 4 low products, 24 of them); this is the
-    least work, as the bound asks.  The flagship: 4 + 2x2 + 2x2 + 1x2 = 14."""
+    word's bound after each fold setting its words: the least work, as the
+    bound asks, and the products field.cuh's narrow form is written with
+    (tools/solinas_fold.py counts the SASS).  The flagship: 4 + 2x2 + 2x2
+    + 1x2 = 14."""
     eps = (1 << 64) - N
 
     def words(v: int) -> int:
@@ -1249,6 +1339,14 @@ def butterfly_bound(points: int, m: int, inverse: bool, modmul: str, tw: str | N
     imads = muls * STAGE_IMADS[modmul] + points * per_point
     tables = 8 * (m - 1) * (1 if modmul == "solinas" else 2)
     return bound(16 * points + tw_bytes + tables, imads / IMAD_PER_S)
+
+
+def butterfly_products(m: int, inverse: bool, tw: bool) -> float:
+    """Stage (and inter-step) multiplies a point of K4 / K5: half a
+    multiply a stage, one more per butterfly of the scaled last inverse
+    stage, one for the twiddle."""
+    stages = m.bit_length() - 1
+    return stages / 2 + (0.5 if inverse else 0) + (1 if tw else 0)
 
 
 def grouped_bound(points: int, t, modmul: str, tw: str | None, tw_points: int,
@@ -1344,7 +1442,7 @@ def times(device, ntts, rng):
     from sventt_tpu_torch.ops.twiddle import MontPair, inter_step_mul
     from sventt_tpu_torch.utils.fill import device_fill
 
-    out, bounds, own, ab = {}, {}, {}, {}
+    out, bounds, own, ab, products = {}, {}, {}, {}, {}
     for label, ntt in ntts.items():
         n = ntt.get_m()
         x = device_fill(n, ntt.config.modulus, device)
@@ -1449,42 +1547,69 @@ def times(device, ntts, rng):
            mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0])
     del xl, twl, twls, xr, x128
     ab_level(device, fc, out, bounds, own)
-    # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root
-    lt = P.make_leaf_tables(flag, 256, inverse=False, device=device)
-    kernel("K4 leaf 256x65536", lambda: P.fused_ntt(xm.view(256, 65536), lt, fc),
-           lambda: P.leaf_plain(xm.view(256, 65536), lt, fc),
-           butterfly_bound(n24, 256, False, "montgomery", None, 0))
-    kernel("K5 mid 256x256x256 pair", lambda: P.fused_ntt_mid(xm, lt, fc, twm),
-           lambda: P.mid_plain(xm, lt, fc, twm),
-           butterfly_bound(n24, 256, False, "montgomery", "pair", 65536))
+    # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root.
+    # K4 / K5 on the register kernel in turns with the stage-by-stage one
+    # (ntt_pallas._launch_stages), as CUDA-graph replays: both directions,
+    # the Solinas forms and the test modulus's Shoup forms, then the 2^17
+    # plan's two launches and a 2^26 plan's inner row step; K6 (lane, the
+    # stage-by-stage kernel) as graph replays too
+    _, test = moduli()
+    fct = FieldConsts.from_modulus(test, modmul="shoup")
+    xt = rand_u64(rng, (256, 256, 256), device, below=test.modulus)
+    twt = rand_twiddle(rng, (256, 256), test, "pair", device)
+    stages = P._launch_stages
+    for key, mod, fcx, inv, shape, tw_, modmul in (
+        ("K4 leaf 256x65536", flag, fc, False, (256, 65536), None, "montgomery"),
+        ("K4 leaf 256x65536 inv", flag, fc, True, (256, 65536), None, "montgomery"),
+        ("K5 mid 256x256x256 pair", flag, fc, False, (256, 256, 256), twm, "montgomery"),
+        ("K5 mid 256x256x256 pair inv", flag, fc, True, (256, 256, 256), twm, "montgomery"),
+        ("K4 leaf 256x65536 solinas", flag, fcs, False, (256, 65536), None, "solinas"),
+        ("K4 leaf 256x65536 inv solinas", flag, fcs, True, (256, 65536), None, "solinas"),
+        ("K5 mid 256x256x256 solinas", flag, fcs, False, (256, 256, 256), twms, "solinas"),
+        ("K5 mid 256x256x256 inv solinas", flag, fcs, True, (256, 256, 256), twms, "solinas"),
+        ("K4 leaf 256x65536 TEST shoup", test, fct, False, (256, 65536), None, "shoup"),
+        ("K5 mid 256x256x256 pair TEST shoup", test, fct, False, (256, 256, 256), twt, "shoup"),
+        ("K4 leaf 32x4096 (2^17)", flag, fc, False, (32, 4096), None, "montgomery"),
+        ("K5 mid 32x64x64 pair (2^17)", flag, fc, False, (32, 64, 64), "pair", "montgomery"),
+        ("K5 mid 4096x128x128 pair (2^26)", flag, fc, False, (4096, 128, 128), "pair",
+         "montgomery"),
+    ):
+        mid = len(shape) == 3
+        m = shape[1] if mid else shape[0]
+        t = P.make_leaf_tables(mod, m, inverse=inv, modmul=modmul, device=device)
+        points = shape[0] * shape[1] * (shape[2] if mid else 1)
+        src = xt if mod is test else xm
+        x = src.view(shape) if points == n24 else rand_u64(rng, shape, device, below=mod.modulus)
+        if tw_ == "pair":
+            tw_ = rand_twiddle(rng, shape[:2], mod, "pair", device)
+        if mid:
+            new = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.fused_ntt_mid(x, t, fcx, tw_)
+            plain = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.mid_plain(x, t, fcx, tw_)
+        else:
+            new = lambda x=x, t=t, fcx=fcx: P.fused_ntt(x, t, fcx)
+            plain = lambda x=x, t=t, fcx=fcx: P.leaf_plain(x, t, fcx)
+        old = lambda x=x, t=t, fcx=fcx, tw_=tw_, mid=mid: stages(x, t, fcx, tw_, mid=mid)
+        want = plain()
+        check(max(mismatch(new(), want), mismatch(old(), want)) <= TOL,
+              f"{key}: a radix-2 kernel != plain")
+        tw_kind = None if tw_ is None else ("solinas" if modmul == "solinas" else "pair")
+        bnd = butterfly_bound(points, m, inv, modmul, tw_kind, shape[0] * m if mid else 0)
+        kernel(key, new, plain, bnd, old=old, old_name="stages", graph=True)
+        products[key] = (butterfly_products(m, inv, tw_kind is not None)
+                         if modmul == "montgomery" else None)
+        del x, want
     rt = P.make_lane_tables(flag, 256, inverse=False, device=device)
     xr = xm.view(1 << 16, 256)
     twr = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
     kernel("K6 lane 65536x256 pair", lambda: P.fused_ntt_lane(xr, rt, fc, twr),
            lambda: P.lane_plain(xr, rt, fc, twr),
-           butterfly_bound(n24, 256, False, "montgomery", "pair", n24))
-    # the Solinas forms of K4/K5/K6 at the same shapes, and K4's inverse
-    # (the companion-free 1/m scale) beside the Montgomery one
-    lts, lis = (P.make_leaf_tables(flag, 256, inverse=inv, modmul="solinas", device=device)
-                for inv in (False, True))
-    lti = P.make_leaf_tables(flag, 256, inverse=True, device=device)
-    kernel("K4 leaf 256x65536 solinas", lambda: P.fused_ntt(xm.view(256, 65536), lts, fcs),
-           lambda: P.leaf_plain(xm.view(256, 65536), lts, fcs),
-           butterfly_bound(n24, 256, False, "solinas", None, 0))
-    kernel("K4 leaf 256x65536 inv", lambda: P.fused_ntt(xm.view(256, 65536), lti, fc),
-           lambda: P.leaf_plain(xm.view(256, 65536), lti, fc),
-           butterfly_bound(n24, 256, True, "montgomery", None, 0))
-    kernel("K4 leaf 256x65536 inv solinas", lambda: P.fused_ntt(xm.view(256, 65536), lis, fcs),
-           lambda: P.leaf_plain(xm.view(256, 65536), lis, fcs),
-           butterfly_bound(n24, 256, True, "solinas", None, 0))
-    kernel("K5 mid 256x256x256 solinas", lambda: P.fused_ntt_mid(xm, lts, fcs, twms),
-           lambda: P.mid_plain(xm, lts, fcs, twms),
-           butterfly_bound(n24, 256, False, "solinas", "solinas", 65536))
+           butterfly_bound(n24, 256, False, "montgomery", "pair", n24), graph=True)
     rts = P.make_lane_tables(flag, 256, inverse=False, modmul="solinas", device=device)
     twrs = MontPair(twr.w, None)
     kernel("K6 lane 65536x256 solinas", lambda: P.fused_ntt_lane(xr, rts, fcs, twrs),
            lambda: P.lane_plain(xr, rts, fcs, twrs),
-           butterfly_bound(n24, 256, False, "solinas", "solinas", n24))
+           butterfly_bound(n24, 256, False, "solinas", "solinas", n24), graph=True)
+    del xt, twt
     # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
     # and the inner row's leaf between transposes), the inter-step multiply
     # of that row, the root; each on the register kernel in turns with the
@@ -1572,7 +1697,7 @@ def times(device, ntts, rng):
             log(f"  {key}{suffix}: CUDA graph capture failed ({e!r}); eager time used")
             out[key + suffix] = out[key + suffix + " eager"]
     bounds[key] = bound(16 * n24, 0.0)
-    return out, bounds, own, ab
+    return out, bounds, own, ab, products
 
 
 def breakdown(label: str, run, device, reps: int = 5, top: int = 12) -> None:
@@ -1648,11 +1773,13 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
-    # the redesigned kernels: the tensor-core matrix kernel and the grouped
+    # the redesigned kernels: the tensor-core matrix kernel, the grouped
     # register kernel (36 instantiations: INV x {Montgomery, lazy
     # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
-    # 3 or 4 ranks) must not spill
-    entry, entries = None, {"mxu_tc_kernel": 0, "grouped_reg_kernel": 0}
+    # 3 or 4 ranks) and the radix-2 register kernel (32: INV x {Montgomery,
+    # lazy Montgomery, Shoup, Solinas} x {swizzled, not} x groups of up to 3
+    # or 4 stages) must not spill
+    entry, entries = None, {"mxu_tc_kernel": 0, "grouped_reg_kernel": 0, "radix2_reg_kernel": 0}
     for line in kernel_build["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
@@ -1669,6 +1796,8 @@ def main() -> int:
     check(cached or entries["grouped_reg_kernel"] == 36,
           f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
           "not 36")
+    check(cached or entries["radix2_reg_kernel"] == 32,
+          f"{entries['radix2_reg_kernel']} -Xptxas -v entries of the radix-2 register kernel, not 32")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
@@ -1714,6 +1843,10 @@ def main() -> int:
     check(ntts_pal["pallas TEST 2^24"].fc.modmul == "shoup", "TEST 2^24 auto != shoup")
     check(all(c_pal["launches"]["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a butterfly orientation of the path never ran")
+    log(f"  radix-2 kernels: {c_pal['pallas_kernels']} (radix2_registers: radix2_reg_kernel, "
+        "csrc/ntt_radix2.cu; radix2_stages: butterfly_kernel, csrc/ntt_pallas.cu)")
+    check(radix2_routed(c_pal), "a radix-2 leaf / mid launch ran the stage-by-stage kernel, or a "
+          "lane launch the register kernel")
     del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"]
     torch.cuda.empty_cache()
     log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
@@ -1732,10 +1865,10 @@ def main() -> int:
           and lg["inter_step"]["inter_step"] > 0, "a kernel of the grouped path never ran")
     check(not any(lg["pallas"][k] for k in ("leaf", "mid", "lane")),
           "the grouped path ran a radix-2 kernel")
-    log(f"  grouped kernels: {c_grp['grouped_kernels']} (registers: grouped_reg_kernel; ranks: "
+    log(f"  grouped kernels: {c_grp['pallas_kernels']} (registers: grouped_reg_kernel; ranks: "
         "grouped_ranks_kernel, csrc/ntt_grouped.cu)")
-    check(c_grp["grouped_kernels"]["registers"] == lg["pallas"]["grouped"]
-          + lg["pallas"]["lane_grouped"] and c_grp["grouped_kernels"]["ranks"] == 0,
+    check(c_grp["pallas_kernels"]["registers"] == lg["pallas"]["grouped"]
+          + lg["pallas"]["lane_grouped"] and c_grp["pallas_kernels"]["ranks"] == 0,
           "the grouped path launched the rank-by-rank kernel")
     for c in (c_mxu, c_pal, c_grp):
         check(no_plain(c), "a plain version ran on the card")
@@ -1759,6 +1892,7 @@ def main() -> int:
           "a kernel of the Solinas paths never ran")
     check(mxu_on_tensor_cores(c_sol) and c_sol["mxu_kernels"]["dp4a"] == 0,
           "the mxu Solinas path launched the __dp4a kernel")
+    check(radix2_routed(c_sol), "the Solinas radix-2 path's launches ran the wrong kernels")
     del ntts_sol["mxu solinas 2^26"], ntts_sol["pallas solinas 2^26"]
     torch.cuda.empty_cache()
     log("[slice solinas max_r=3] NTT(engine='pallas', max_r=3, modmul='solinas'): radix-2, "
@@ -1769,6 +1903,7 @@ def main() -> int:
     lr = c_sr["launches"]["pallas"]
     check(lr["grouped"] == 0 and lr["lane_grouped"] == 0, "Solinas max_r=3 launched K7/K8")
     check(all(lr[k] > 0 for k in ("leaf", "mid", "lane")), "Solinas max_r=3 ran no radix-2")
+    check(radix2_routed(c_sr), "Solinas max_r=3: the radix-2 launches ran the wrong kernels")
     log("[slice solinas six_step] a row subtree (4096 = 16 x 256): the transpose fallback's "
         "inter-step pass under Solinas")
     ntts_ss, c_ss = slice_run(device, [("pallas solinas six_step 2^24", F, G, 1 << 24,
@@ -1776,6 +1911,7 @@ def main() -> int:
                               oracles)
     log(f"  launches {c_ss['launches']}, plain calls {c_ss['plain']}")
     check(c_ss["launches"]["inter_step"]["inter_step"] > 0, "the Solinas inter-step pass never ran")
+    check(radix2_routed(c_ss), "Solinas six_step: the radix-2 launches ran the wrong kernels")
     check("transposed row subtree" in ntts_ss["pallas solinas six_step 2^24"].describe(),
           "the six_step plan has no row subtree")
     for c in (c_sol, c_sr, c_ss):
@@ -1822,8 +1958,12 @@ def main() -> int:
           "the distributed mxu path launched the __dp4a kernel")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
-    check(c_dist["grouped 2^24 D=8 ring"]["grouped_kernels"]["ranks"] == 0,
+    check(c_dist["grouped 2^24 D=8 ring"]["pallas_kernels"]["ranks"] == 0,
           "the distributed grouped path launched the rank-by-rank kernel")
+    for label, c in c_dist.items():
+        if label.startswith("pallas"):
+            check(c["launches"]["pallas"]["leaf"] + c["launches"]["pallas"]["mid"] > 0
+                  and radix2_routed(c), f"{label}: the radix-2 launches ran the wrong kernels")
     log("[distributed 2^28] 8 logical shards, ring and overlap, vs the single-device six_step "
         "transform")
     dist_2p28(device)
@@ -1832,7 +1972,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. times
-    ms, bounds, own, ab = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp, **ntts_sol}, rng)
+    ms, bounds, own, ab, products = times(device, {**ntts_mxu, **ntts_pal, **ntts_grp, **ntts_sol},
+                                          rng)
     log(f"[times] median ms by CUDA events on {smi} (distributed: logical shards of this "
         "card, the schedule's cost on one card's memory, not scaling):")
     for k, v in ms.items():
@@ -1861,6 +2002,21 @@ def main() -> int:
         log(f"  {k}: ranks {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
             f"{ms[k + ' ranks'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
             f"{100 * b_ms / ms[k]:.1f}% of it, ranks {100 * b_ms / ms[k + ' ranks']:.1f}%")
+    log("[A/B] the radix-2 butterfly kernel K4 / K5: the register kernel (csrc/ntt_radix2.cu) "
+        "against the stage-by-stage one (csrc/ntt_pallas.cu), CUDA-graph replays in turns stages, "
+        "registers, registers, stages:")
+    for k, (old_name, o1, n1, n2, o2) in ab.items():
+        if old_name != "stages":
+            continue
+        b_ms, b_by = bounds[k]
+        points = {"(2^17)": 1 << 17, "(2^26)": 1 << 26}.get(k.split()[-1], 1 << 24)
+        floor = ("" if products[k] is None else
+                 "; Montgomery product floor {:.4f}-{:.4f} ms ({:g} a point at {}-{} T/s)".format(
+                     *(products[k] * points / r * 1e3 for r in MONT_RATE[::-1]), products[k],
+                     *(r / 1e12 for r in MONT_RATE)))
+        log(f"  {k}: stages {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
+            f"{ms[k + ' stages'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
+            f"{100 * b_ms / ms[k]:.1f}% of it, stages {100 * b_ms / ms[k + ' stages']:.1f}%{floor}")
     # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
     nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
     log(f"  K10 2^24 D=8 across 8 cards: bound {nvlink:.4f} ms by NVLink bytes "
@@ -1871,7 +2027,7 @@ def main() -> int:
     from sventt_tpu_torch.utils.fill import device_fill
 
     runs = {}
-    for label in ("mxu 2^24", "pallas 2^24", "grouped 2^24", "grouped 2^17"):
+    for label in ("mxu 2^24", "pallas 2^24", "pallas 2^17", "grouped 2^24", "grouped 2^17"):
         ntt = {**ntts_mxu, **ntts_pal, **ntts_grp}[label]
         x = device_fill(ntt.get_m(), F, device)
         runs[label] = lambda ntt=ntt, x=x: ntt.compute_forward(x)
@@ -1909,10 +2065,10 @@ def main() -> int:
               "ntt_mxu_tc.cu", "sventt_tpu/ops/ntt_mxu.py:680", lm["mid"], wm["mid"]),
         entry("K3 s8 matrix NTT, lane (mxu_ntt_lane)", "K3 lane 65536x256", "ntt_mxu.cu",
               "sventt_tpu/ops/ntt_mxu.py:527", lm["lane"], wm["lane"]),
-        entry("K4 radix-2 stages, leaf (fused_ntt)", "K4 leaf 256x65536", "ntt_pallas.cu",
-              "sventt_tpu/ops/ntt_pallas.py:1154", lp["leaf"], wp["leaf"]),
-        entry("K5 radix-2 stages, mid (fused_ntt_mid)", "K5 mid 256x256x256 pair",
-              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:1188", lp["mid"], wp["mid"]),
+        entry("K4 radix-2 stages, leaf (fused_ntt; register kernel)", "K4 leaf 256x65536",
+              "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:1154", lp["leaf"], wp["leaf"]),
+        entry("K5 radix-2 stages, mid (fused_ntt_mid; register kernel)", "K5 mid 256x256x256 pair",
+              "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:1188", lp["mid"], wp["mid"]),
         entry("K6 radix-2 stages, lane (fused_ntt_lane)", "K6 lane 65536x256 pair",
               "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:911", lp["lane"], wp["lane"]),
         entry("K7 radix-2^R groups, leaf (fused_ntt_grouped)", "K7 leaf 256x65536 r=3",
@@ -1957,10 +2113,10 @@ def main() -> int:
          "K2 mid 256x256x256 solinas", "ntt_mxu_tc.cu", "ntt_mxu.py:680", lsol["mxu"]["mid"],
          ws["mid"]),
         ("K4 radix-2 stages, leaf, Solinas (fused_ntt, modmul='solinas')",
-         "K4 leaf 256x65536 solinas", "ntt_pallas.cu", "ntt_pallas.py:1154", lsol["pallas"]["leaf"],
+         "K4 leaf 256x65536 solinas", "ntt_radix2.cu", "ntt_pallas.py:1154", lsol["pallas"]["leaf"],
          ws["leaf"]),
         ("K5 radix-2 stages, mid, Solinas stages and twiddle (fused_ntt_mid, modmul='solinas')",
-         "K5 mid 256x256x256 solinas", "ntt_pallas.cu", "ntt_pallas.py:1188", lsol["pallas"]["mid"],
+         "K5 mid 256x256x256 solinas", "ntt_radix2.cu", "ntt_pallas.py:1188", lsol["pallas"]["mid"],
          ws["pallas mid"]),
         ("K6 radix-2 stages, lane, Solinas stages and prologue (fused_ntt_lane, modmul='solinas')",
          "K6 lane 65536x256 solinas", "ntt_pallas.cu", "ntt_pallas.py:911", lsol["pallas"]["lane"],

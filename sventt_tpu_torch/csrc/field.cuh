@@ -83,17 +83,86 @@ __device__ __forceinline__ u64 shoup_mul(u64 a, u64 w, u64 wp, u64 N, bool lazy)
 // 2^64 === eps, adds without a new carry (the wrapped sum is < 2^62).
 // Every fold is exact, so this is the bit-identical canonical result of
 // the JAX package's limb chain whatever s is.  No companion: eps = -N.
+// Each product is formed from 32 x 32 products at the widths its operands
+// have (a * w 2 x 2 words, fold 1 2 x 2, fold 2 2 x 2 with a 32-bit top
+// product since both high words are < 2^11, fold 3 1 x 2) in PTX: written
+// in C the same arithmetic made the compiler take minutes on a kernel with
+// a few dozen of them inlined, and ran slower.  tools/solinas_fold.py holds
+// it to the full-word form (64-bit products in every fold) bitwise and
+// counts both (12 against 16 32-bit multiplies a call in the SASS).
 __device__ __forceinline__ u64 solinas_mul(u64 a, u64 w, u64 N) {
-  const u64 eps = 0ull - N;
-  u64 c;
-  u64 lo = a * w, hi = __umul64hi(a, w);
-  lo = add_carry(lo, hi * eps, c);
-  hi = __umul64hi(hi, eps) + c;
-  lo = add_carry(lo, hi * eps, c);
-  hi = __umul64hi(hi, eps) + c;
-  u64 r = add_carry(lo, hi * eps, c);
-  r += c ? eps : 0ull;
-  return u64_min(r, r - N);
+  u64 r;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, w0, w1, e0, e1, h0, h1, t32;\n\t"
+      ".reg .u64 eps, p, t, u, lo, hi, q, c, z;\n\t"
+      ".reg .pred pc;\n\t"
+      "mov.u64 z, 0;\n\t"
+      "sub.u64 eps, z, %3;\n\t"
+      "mov.b64 {e0, e1}, eps;\n\t"
+      "mov.b64 {a0, a1}, %1;\n\t"
+      "mov.b64 {w0, w1}, %2;\n\t"
+      // a * w = hi:lo
+      "mul.wide.u32 p, a0, w0;\n\t"
+      "shr.u64 q, p, 32;\n\t"
+      "mad.wide.u32 t, a1, w0, q;\n\t"
+      "and.b64 q, t, 4294967295;\n\t"
+      "mad.wide.u32 u, a0, w1, q;\n\t"
+      "shl.b64 lo, u, 32;\n\t"
+      "and.b64 q, p, 4294967295;\n\t"
+      "or.b64 lo, lo, q;\n\t"
+      "shr.u64 q, t, 32;\n\t"
+      "mad.wide.u32 hi, a1, w1, q;\n\t"
+      "shr.u64 q, u, 32;\n\t"
+      "add.u64 hi, hi, q;\n\t"
+      // fold 1: hi:lo = hi * eps + lo, hi of 64 bits
+      "mov.b64 {h0, h1}, hi;\n\t"
+      "mul.wide.u32 p, h0, e0;\n\t"
+      "shr.u64 q, p, 32;\n\t"
+      "mad.wide.u32 t, h1, e0, q;\n\t"
+      "and.b64 q, t, 4294967295;\n\t"
+      "mad.wide.u32 u, h0, e1, q;\n\t"
+      "shl.b64 c, u, 32;\n\t"
+      "and.b64 q, p, 4294967295;\n\t"
+      "or.b64 c, c, q;\n\t"
+      "shr.u64 q, t, 32;\n\t"
+      "mad.wide.u32 hi, h1, e1, q;\n\t"
+      "shr.u64 q, u, 32;\n\t"
+      "add.u64 hi, hi, q;\n\t"
+      "add.cc.u64 lo, lo, c;\n\t"
+      "addc.u64 hi, hi, z;\n\t"
+      // fold 2: hi <= 2^42
+      "mov.b64 {h0, h1}, hi;\n\t"
+      "mul.wide.u32 p, h0, e0;\n\t"
+      "shr.u64 q, p, 32;\n\t"
+      "mad.wide.u32 t, h0, e1, q;\n\t"
+      "mad.wide.u32 t, h1, e0, t;\n\t"
+      "shl.b64 c, t, 32;\n\t"
+      "and.b64 q, p, 4294967295;\n\t"
+      "or.b64 c, c, q;\n\t"
+      "mul.lo.u32 t32, h1, e1;\n\t"
+      "cvt.u64.u32 hi, t32;\n\t"
+      "shr.u64 q, t, 32;\n\t"
+      "add.u64 hi, hi, q;\n\t"
+      "add.cc.u64 lo, lo, c;\n\t"
+      "addc.u64 hi, hi, z;\n\t"
+      // fold 3: hi <= 2^20, hi * eps < 2^62 in one word
+      "cvt.u32.u64 h0, hi;\n\t"
+      "mul.lo.u32 t32, h0, e1;\n\t"
+      "cvt.u64.u32 q, t32;\n\t"
+      "shl.b64 q, q, 32;\n\t"
+      "mad.wide.u32 q, h0, e0, q;\n\t"
+      "add.cc.u64 lo, lo, q;\n\t"
+      // its carry out adds eps; then the min-subtract
+      "addc.u64 c, z, z;\n\t"
+      "setp.ne.u64 pc, c, 0;\n\t"
+      "selp.u64 q, eps, z, pc;\n\t"
+      "add.u64 lo, lo, q;\n\t"
+      "sub.u64 q, lo, %3;\n\t"
+      "min.u64 %0, lo, q;\n\t"
+      "}"
+      : "=l"(r)
+      : "l"(a), "l"(w), "l"(N));
+  return r;
 }
 
 // Stage-twiddle multiply by the configured engine (MM 0 Montgomery, 1

@@ -89,6 +89,7 @@
 #include <cstdint>
 
 #include "field.cuh"
+#include "reg_tile.cuh"
 
 namespace {
 
@@ -97,14 +98,6 @@ constexpr int MAX_LOWS = 1 << (MAX_R - 1);  // constants a rank may have
 constexpr int CONSTS = MAX_R * MAX_LOWS;    // constant slots a group
 constexpr int MAX_GROUPS = 12;
 constexpr int REG_THREADS = 256;            // the register kernel's largest block
-constexpr int MAX_SMEM = 232448;
-// SWIZZLE nibble v: the XOR of 15, 10, 12, 8 over v's set bits 0-3
-constexpr unsigned long long SWIZZLE = 0x1eb4d278963c5af0ull;
-
-template <bool SWZ>
-__device__ __forceinline__ int slot(int w) {
-  return SWZ ? w ^ (int)((SWIZZLE >> (((w >> 4) & 15) << 2)) & 15) : w;
-}
 
 struct RegArgs {
   const long long *x;
@@ -178,7 +171,7 @@ __device__ __forceinline__ void run_group(const RegArgs &p, u64 *T, const u64 *t
 #define SVENTT_SLOT(k) slot<SWZ>(wbase + ((base + (k) * L) << wshift))
   for (int set = q; set < nsets; set += Q) {
     const int lo = set & (L - 1);
-    const int base = ((set >> log2L) << (log2L + R)) + lo;
+    const int base = set_base(set, log2L, R);
     u64 v[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) v[k] = T[SVENTT_SLOT(k)];
@@ -361,22 +354,9 @@ __global__ void __launch_bounds__(REG_THREADS, reg_blocks<RMAX, INV, LAZY, LANE,
 
 template <bool INV, int MM, bool LAZY, bool LANE, int RMAX, bool SWZ>
 cudaError_t launch_reg(const RegArgs &p, int threads, int smem, cudaStream_t stream) {
-  auto kern = grouped_reg_kernel<INV, MM, LAZY, LANE, RMAX, SWZ>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  // one wave of resident blocks, each looping over (slice, tile) work
   const long long work = ((p.B + (1ll << p.log2c) - 1) >> p.log2c) * p.A;
-  const long long blocks = (long long)per_sm * sms;
-  const unsigned grid = (unsigned)(work < blocks ? work : blocks);
-  kern<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_resident(grouped_reg_kernel<INV, MM, LAZY, LANE, RMAX, SWZ>, p, threads, smem,
+                         work, stream);
 }
 
 }  // namespace

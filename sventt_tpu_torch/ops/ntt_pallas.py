@@ -2,8 +2,8 @@
 
 The PyTorch counterpart of ``sventt_tpu/ops/ntt_pallas.py`` (the engine
 ``"pallas"``).  With its default ``max_r = 1`` (per-stage radix-2) three
-Pallas kernels of the JAX package become ONE CUDA kernel
-(``csrc/ntt_pallas.cu``) in three orientations:
+Pallas kernels of the JAX package become two CUDA kernels in three
+orientations:
 
 * leaf (``fused_ntt``, K4 ``_group_call``): along axis 0 of (m, batch...);
 * mid (``fused_ntt_mid``, K5 ``_mid_call``): along axis 1 of
@@ -12,6 +12,14 @@ Pallas kernels of the JAX package become ONE CUDA kernel
   separate pass, ``plan/planner.py::_mont_mul_bcast``);
 * lane (``fused_ntt_lane``, K6 ``_lane_call``): along the last axis of
   (batch..., m), the inter-step twiddle fused the same way.
+
+The leaf and mid run on ``csrc/ntt_radix2.cu``'s register kernel: a thread
+holds 2^R points of one column and runs up to 4 consecutive stages on them
+in registers; the columns' sets meet in shared memory once per group of
+stages (``butterfly_geometry`` gives the groups and the launch geometry).
+The lane runs on ``csrc/ntt_pallas.cu``'s stage-by-stage kernel, whose
+leaf / mid orientation, the first port's, is kept as the A/B point
+``_launch_stages``, which no path calls.
 
 Forward stages are DIF (l = m/2 ... 1, bit-reversed output), inverse stages
 DIT (l = 1 ... m/2) with 1/m folded into the last stage.  The tables are
@@ -57,7 +65,7 @@ point by its (then unit) table entry.
 On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation;
-``KERNEL_LAUNCHES`` which grouped kernel ran.
+``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran.
 """
 
 from __future__ import annotations
@@ -111,9 +119,11 @@ MAX_SMEM = 232448
 LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0, "grouped": 0, "lane_grouped": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
-#: Grouped launches per kernel: "registers" (every K7 / K8 call), "ranks"
+#: Launches per kernel: radix-2 "radix2_registers" (every K4 / K5 call),
+#: "radix2_stages" (every K6 call, and the leaf / mid A/B point
+#: ``_launch_stages``); grouped "registers" (every K7 / K8 call), "ranks"
 #: (the rank-by-rank A/B point, ``_launch_grouped_ranks`` only).
-KERNEL_LAUNCHES = {"registers": 0, "ranks": 0}
+KERNEL_LAUNCHES = {"radix2_registers": 0, "radix2_stages": 0, "registers": 0, "ranks": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
 GROUPED_THREADS = 256
@@ -122,6 +132,9 @@ GROUP_CONSTS = MAX_R * MAX_LOWS
 #: Shared memory a block may take and still share an SM with two others: a
 #: third of the SM's 233,472 bytes less the 1 KB the card reserves per block.
 SMEM_THREE_BLOCKS = 233472 // 3 - 1024
+#: Stages a group of the radix-2 register kernel (csrc/ntt_radix2.cu) may
+#: have: 4 + 4 at m = 256.
+RADIX2_MAX_R = 4
 
 
 @dataclass(frozen=True)
@@ -534,6 +547,83 @@ def grouped_geometry(
     return GroupedGeometry(cols, tpc, cols * tpc, cols * m, tab_entries, smem(cols))
 
 
+def radix2_groups(stages: int, max_r: int) -> tuple[int, ...]:
+    """The radix-2 register kernel's split of ``stages`` consecutive
+    stages: as few groups of at most ``max_r`` as can hold them, as even as
+    possible, the larger first (8 -> 4 + 4 at max_r 4, 3 + 3 + 2 at 3)."""
+    g = -(-stages // max_r)
+    return tuple(stages // g + (i < stages % g) for i in range(g))
+
+
+@dataclass(frozen=True)
+class ButterflyGeometry:
+    """The radix-2 register kernel's launch geometry (csrc/ntt_radix2.cu).
+
+    ``ranks``: each group's stages in run order.  ``cols``: columns a block
+    tile; ``threads``: its block, thread u owning (set u >> log2 cols,
+    column u mod cols), then u + threads, ... of each group.  Shared
+    memory, in order: the exchange tile of ``tile_words`` u64 (cols x m;
+    none for one group), entries [``tab_lo``, ``tab_lo`` + ``tab_entries``)
+    of the stage tables, 16 bytes an entry (8 under Solinas), and the
+    slice's inter-step twiddle row where the range multiplies it
+    (``tw_row`` bytes: m entries of 16 bytes "pair", 8 "w" or Solinas);
+    ``smem`` their bytes.
+    """
+
+    ranks: tuple[int, ...]
+    cols: int
+    threads: int
+    tile_words: int
+    tab_lo: int
+    tab_entries: int
+    tw_row: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def butterfly_geometry(
+    m: int, first: int, last: int, inverse: bool, B: int, A: int = 1,
+    solinas: bool = False, tw_words: int = 0, block_b: int | None = None, sms: int = 132,
+) -> ButterflyGeometry:
+    """Launch geometry of the radix-2 register kernel for stages [first,
+    last) of an (A, m, B) call with an inter-step twiddle of ``tw_words``
+    words an entry (0 none, 1 "w" or Solinas, 2 "pair"): the groups
+    (``radix2_groups`` at RADIX2_MAX_R); ``block_b`` columns a tile when
+    set, else 32 (no more than B has), halved while the tile exceeds
+    SMEM_THREE_BLOCKS or the grid has fewer than two blocks an SM, down to
+    4 (a 32-byte sector a point); threads: cols times the widest group's
+    set count, at most GROUPED_THREADS."""
+    if m < 2 or m & (m - 1) or m > MAX_LEAF:
+        raise ValueError(f"butterfly kernel takes power-of-two m in [2, {MAX_LEAF}], got {m}")
+    if not 0 <= first < last <= m.bit_length() - 1:
+        raise ValueError(f"stage range [{first}, {last}) outside a length-{m} transform")
+    ranks = radix2_groups(last - first, RADIX2_MAX_R)
+    lmin, lmax = (1 << first, 1 << (last - 1)) if inverse else (m >> last, m >> (first + 1))
+    tab_entries = 2 * lmax - lmin
+    if tw_words not in (0, 1, 2):
+        raise ValueError(f"an inter-step twiddle has 0, 1 or 2 words an entry, not {tw_words}")
+    fused = tw_words and (last == m.bit_length() - 1 if inverse else first == 0)
+    tw_row = 8 * m * tw_words if fused else 0
+    fixed = tab_entries * (8 if solinas else 16) + tw_row
+
+    def smem(cols: int) -> int:
+        return (8 * cols * m if len(ranks) > 1 else 0) + fixed
+
+    if block_b is not None:
+        cols = block_b
+    else:
+        cols = min(32, _pow2_at_least(B))
+        while cols > 1 and (
+            smem(cols) > SMEM_THREE_BLOCKS or (cols > 4 and -(-B // cols) * A < 2 * sms)
+        ):
+            cols //= 2
+    if smem(cols) > MAX_SMEM:
+        raise ValueError(f"a tile of {cols} x {m} points needs {smem(cols)} bytes of shared memory")
+    threads = min(GROUPED_THREADS, cols * (m >> max(ranks)))
+    return ButterflyGeometry(ranks, cols, threads, cols * m if len(ranks) > 1 else 0, lmin - 1,
+                             tab_entries, tw_row, smem(cols))
+
+
 def make_leaf_tables(
     mod: Modulus, m: int, *, inverse: bool, modmul: str = "montgomery",
     max_r: int | None = None, block_b: int | None = None, spc: int | None = None,
@@ -830,9 +920,10 @@ def _launch(
     x3: torch.Tensor, t: _StageTables, fc: FieldConsts, tw3: MontPair | None,
     lane: bool, cols: int, first: int, last: int,
 ) -> torch.Tensor:
-    """One launch of the radix-2 kernel on stages [first, last) of ``t``
-    along axis 1 of the contiguous (A, m, B) tensor ``x3`` (see
-    ``_geometry``); ``lane`` also selects K6's forward sequence."""
+    """One launch of the stage-by-stage kernel (csrc/ntt_pallas.cu) on
+    stages [first, last) of ``t`` along axis 1 of the contiguous (A, m, B)
+    tensor ``x3`` (see ``_geometry``); ``lane`` also selects K6's forward
+    sequence."""
     from .. import _build
 
     _check_cuda(t, fc, x3, tw3)
@@ -852,7 +943,72 @@ def _launch(
     )
     if rc != 0:
         raise RuntimeError(f"butterfly kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["radix2_stages"] += 1
     return out
+
+
+def _launch_regs(
+    x3: torch.Tensor, t: FusedDirection, fc: FieldConsts, tw3: MontPair | None,
+    first: int, last: int,
+) -> torch.Tensor:
+    """One launch of the radix-2 register kernel on stages [first, last)
+    of ``t`` along axis 1 of the (A, m, B) tensor ``x3`` (K4, or K5 with
+    the (A, m, 1) inter-step twiddle ``tw3``), in ``butterfly_geometry``'s
+    geometry."""
+    from .. import _build
+
+    _check_cuda(t, fc, x3, tw3)
+    m = t.m
+    (A, _, B), strides, (ta, tm, _) = _view(x3, False)
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+    tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
+    geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
+                             t.block_b, sm_count(x3.device.index))
+    ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
+    s, sp = t.scale if t.scale is not None else (0, 0)
+    out = torch.empty_like(x3)
+    rc = _build.load().sventt_radix2_ntt(
+        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
+        None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
+        A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
+        geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), _MODMUL[fc.modmul],
+        int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
+        torch.cuda.current_stream(x3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["radix2_registers"] += 1
+    return out
+
+
+def _launch_stages(
+    x: torch.Tensor, tables: FusedDirection, fc: FieldConsts, tw: MontPair | None = None,
+    mid: bool = False,
+) -> torch.Tensor:
+    """``fused_ntt`` (``fused_ntt_mid`` with ``mid``, ``tw`` as there) on
+    the first port's stage-by-stage kernel (csrc/ntt_pallas.cu, leaf / mid
+    orientation), which no path runs: the A/B point ``chip_smoke.py`` times
+    beside the register kernel.  CUDA tensors only; counted under
+    ``KERNEL_LAUNCHES["radix2_stages"]`` alone."""
+    if not isinstance(tables, FusedDirection) or not x.is_cuda:
+        raise ValueError(
+            "the stage-by-stage A/B point takes FusedDirection tables and a CUDA tensor"
+        )
+    check_companion(fc, tw)
+    m = tables.m
+    if mid:
+        x3 = _mid_view(x, m)
+        tw3 = None if tw is None else _mid_tw(tw, x3)
+    elif tw is not None:
+        raise ValueError("the leaf orientation takes no inter-step twiddle")
+    else:
+        x3, tw3 = _leaf_view(x, m), None
+    n = len(tables.stage_ls)
+    step = tables.spc or n
+    for first in range(0, n, step):
+        x3 = _launch(x3, tables, fc, tw3, False, tables.block_b or max(1, TILE_POINTS // m),
+                     first, min(first + step, n))
+    return x3.reshape(x.shape)
 
 
 def _launch_grouped(
@@ -930,22 +1086,24 @@ def _launch_grouped_ranks(
 
 
 def _run(
-    x3: torch.Tensor, t, fc: FieldConsts, tw3: MontPair | None, orientation: str,
-    cols: int | None = None, spc: int | None = None,
+    x3: torch.Tensor, t, fc: FieldConsts, tw3: MontPair | None, orientation: str
 ) -> torch.Tensor:
+    """The orientation's kernel on a CUDA tensor (K4 / K5 one launch per
+    ``spc`` stage range, each other kernel one launch), else the plain
+    version."""
     check_companion(fc, tw3)
     lane = orientation.startswith("lane")
     grouped = isinstance(t, _GroupedTables)
     if x3.is_cuda:
-        cols = cols or max(1, TILE_POINTS // t.m)
-        if grouped:
-            x3 = _launch_grouped(x3, t, fc, tw3, lane)
-            LAUNCHES[orientation] += 1
-            return x3
-        n = len(t.stage_ls)
-        step = spc or n
+        n = len(t.specs if grouped else t.stage_ls)
+        step = n if grouped or lane else t.spc or n
         for first in range(0, n, step):
-            x3 = _launch(x3, t, fc, tw3, lane, cols, first, min(first + step, n))
+            if grouped:
+                x3 = _launch_grouped(x3, t, fc, tw3, lane)
+            elif lane:
+                x3 = _launch(x3, t, fc, tw3, True, t.rows or max(1, TILE_POINTS // t.m), 0, n)
+            else:
+                x3 = _launch_regs(x3, t, fc, tw3, first, min(first + step, n))
             LAUNCHES[orientation] += 1
         return x3
     if x3.device.type != "cpu":
@@ -961,7 +1119,7 @@ def fused_ntt(
     per-stage tables, K7 on grouped ones."""
     if isinstance(tables, GroupedDirection):
         return fused_ntt_grouped(x, tables, fc)
-    out = _run(_leaf_view(x, tables.m), tables, fc, None, "leaf", tables.block_b, tables.spc)
+    out = _run(_leaf_view(x, tables.m), tables, fc, None, "leaf")
     return out.reshape(x.shape)
 
 
@@ -989,7 +1147,7 @@ def fused_ntt_mid(
         )
     x3 = _mid_view(x, tables.m)
     tw3 = None if tw is None else _mid_tw(tw, x3)
-    return _run(x3, tables, fc, tw3, "mid", tables.block_b, tables.spc).reshape(x.shape)
+    return _run(x3, tables, fc, tw3, "mid").reshape(x.shape)
 
 
 def fused_ntt_lane(
@@ -1007,7 +1165,7 @@ def fused_ntt_lane(
     if isinstance(tables, GroupedLaneDirection):
         out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane_grouped")
     else:
-        out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane", tables.rows)
+        out = _run(rows.unsqueeze(2), tables, fc, tw3, "lane")
     return out.reshape(x.shape)
 
 
@@ -1018,13 +1176,23 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-# ctypes signatures of the C entries in csrc/ntt_pallas.cu and csrc/ntt_grouped.cu
-# (the register kernel's, then the rank-by-rank one's)
+# ctypes signatures of the C entries in csrc/ntt_pallas.cu, csrc/ntt_radix2.cu
+# and csrc/ntt_grouped.cu (the register kernel's, then the rank-by-rank one's)
 _ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_longlong] * 6
     + [ctypes.c_int] * 8
+    + [ctypes.c_ulonglong] * 4
+    + [ctypes.c_void_p]
+)
+_RADIX2_ARGTYPES = (
+    [ctypes.c_void_p] * 6
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    + [ctypes.c_longlong] * 5
+    + [ctypes.c_int] * 2
+    + [ctypes.c_ulonglong]
+    + [ctypes.c_int] * 7
     + [ctypes.c_ulonglong] * 4
     + [ctypes.c_void_p]
 )

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""What bounds the grouped register kernel (csrc/ntt_grouped.cu) on one card.
+"""What bounds the register butterfly kernels on one card: the grouped one
+(csrc/ntt_grouped.cu) and the radix-2 one (csrc/ntt_radix2.cu).
 
     python3 tools/grouped_ablation.py [--reps N]
 
-Builds, besides the port's kernels, two ablated copies of the grouped
-register kernel and one microbenchmark, each with nvcc into a temporary
-directory, and times them at the 2^24 plan's shapes (K7 256 x 65536, K8
-65536 rows of 256 with the pair twiddle, max_r 3, forward) in one call:
+Builds, besides the port's kernels, two ablated copies of both register
+kernels and one microbenchmark, each with nvcc into a temporary
+directory, and times them at the 2^24 plans' shapes (K7 256 x 65536, K8
+65536 rows of 256 with the pair twiddle, max_r 3; K4 256 x 65536, K5
+(256, 256, 256) with the pair twiddle; forward) in one call:
 
 * "as built": the kernel itself;
 * "no products": every stage, constant and table multiply replaced by an
   XOR (field.cuh twiddle_mul), the rest unchanged -- the time of the
-  butterflies' additions, the exchanges, the copies and the indexing;
-* "no device memory": the tile copied from a fixed address and the
-  results not stored (a store the compiler cannot drop, never taken) --
-  the time without HBM traffic;
+  butterflies' additions, the exchanges, the copies and the indexing (K5's
+  and K8's inter-step twiddle keeps its product);
+* "no device memory": the tile (K7 / K8) or the first group's points
+  (K4 / K5) read from a fixed address and the results not stored (a store
+  the compiler cannot drop, never taken) -- the time without HBM traffic;
 * the Montgomery product alone (field.cuh mont_mul), 1, 4 and 8
   independent chains a thread, 8 blocks of 256 threads an SM: the card's
   rate of the product the kernel is made of.
@@ -89,31 +92,43 @@ def _build_all(out_dir: str) -> dict:
     returns {name: library path}."""
     from sventt_tpu_torch import _build
 
-    src = open(os.path.join(_build.CSRC, "ntt_grouped.cu")).read()
+    grouped = open(os.path.join(_build.CSRC, "ntt_grouped.cu")).read()
+    radix2 = open(os.path.join(_build.CSRC, "ntt_radix2.cu")).read()
     field = open(os.path.join(_build.CSRC, "field.cuh")).read()
+    never = "if (v[k] == 0x123456789ull) "  # a store the compiler cannot drop
     copies = {
-        "no products": (src, _sub(field, "  return mont_mul(a, w, wp, N, lazy);\n}",
-                                  "  return a ^ w;\n}")),
-        "no device memory": (_sub(_sub(
-            src, "cp_async8(D + s, p.x + (ok ? a * p.sa + j * p.sm + col * p.sb : 0), ok);",
-            "cp_async8(D + s, p.x, ok);"),
-            "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
-            "for (int k = 0; k < K; ++k)\n          if (v[k] == 0x123456789ull) "
-            "dst[k * Lsm] = (long long)v[k];"), field),
-        "mont chains": (MULBENCH, field),
+        "no products": ({"grouped": grouped, "radix2": radix2},
+                        _sub(field, "  return mont_mul(a, w, wp, N, lazy);\n}", "  return a ^ w;\n}")),
+        "no device memory": ({
+            "grouped": _sub(_sub(
+                grouped, "cp_async8(D + s, p.x + (ok ? a * p.sa + j * p.sm + col * p.sb : 0), ok);",
+                "cp_async8(D + s, p.x, ok);"),
+                "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
+                "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
+            "radix2": _sub(_sub(
+                radix2, "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)src[k * Lsm] : 0ull;",
+                "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)__ldg(p.x + k) : 0ull;"),
+                "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
+                "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
+        }, field),
+        "mont chains": ({"bench": MULBENCH}, field),
     }
     procs, libs = {}, {}
-    for name, (cu, cuh) in copies.items():
+    for name, (cus, cuh) in copies.items():
         d = os.path.join(out_dir, name.replace(" ", "_"))
         os.makedirs(d)
         with open(os.path.join(d, "field.cuh"), "w") as f:
             f.write(cuh)
-        with open(os.path.join(d, "k.cu"), "w") as f:
-            f.write(cu)
+        for k, cu in cus.items():
+            with open(os.path.join(d, f"{k}.cu"), "w") as f:
+                f.write(cu)
         libs[name] = os.path.join(d, "lib.so")
+        # the copy's field.cuh first (a source's own directory), then the
+        # port's other headers
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d, os.path.join(d, "k.cu"),
-             "-o", libs[name]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", d, "-I", _build.CSRC,
+             *(os.path.join(d, f"{k}.cu") for k in cus), "-o", libs[name]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, p in procs.items():
         log = p.communicate(timeout=600)[0]
         if p.returncode != 0:
@@ -143,8 +158,10 @@ def main() -> int:
         paths = _build_all(tmp)
         for name in ("no products", "no device memory"):
             lib = ctypes.CDLL(paths[name])
-            lib.sventt_grouped_ntt.restype = ctypes.c_int
-            lib.sventt_grouped_ntt.argtypes = P._GROUPED_REG_ARGTYPES
+            for fn, argtypes in ((lib.sventt_grouped_ntt, P._GROUPED_REG_ARGTYPES),
+                                 (lib.sventt_radix2_ntt, P._RADIX2_ARGTYPES)):
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             libs[name] = lib
         bench = ctypes.CDLL(paths["mont chains"])
         bench.mont_chains.restype = ctypes.c_float
@@ -159,21 +176,28 @@ def main() -> int:
         t8 = P.make_lane_tables(flag, 256, inverse=False, max_r=3, device="cuda")
         x7, x8 = x.view(1, 256, 1 << 16), x.view(1 << 16, 256, 1)
         tw8 = P._lane_tw(tw, x.view(1 << 16, 256), x.view(1 << 16, 256))
+        t4 = P.make_leaf_tables(flag, 256, inverse=False, device="cuda")
+        x5 = x.view(256, 256, 256)
+        tw5 = P._mid_tw(cs.rand_twiddle(rng, (256, 256), flag, "pair", "cuda"), x5)
         check = {"K7": P.grouped_plain(x, t7, fc).view(x7.shape),
-                 "K8": P.lane_grouped_plain(x.view(1 << 16, 256), t8, fc, tw).view(x8.shape)}
-        cs.log(f"[ablation] median ms of {args.reps} calls at the 2^24 shapes, max_r 3, forward")
+                 "K8": P.lane_grouped_plain(x.view(1 << 16, 256), t8, fc, tw).view(x8.shape),
+                 "K4": P._stages_plain(x7, t4, fc, False),
+                 "K5": P._stages_plain(x5, t4, fc, False, tw5)}
+        calls = {"K7": lambda: P._launch_grouped(x7, t7, fc, None, False),
+                 "K8": lambda: P._launch_grouped(x8, t8, fc, tw8, True),
+                 "K4": lambda: P._launch_regs(x7, t4, fc, None, 0, 8),
+                 "K5": lambda: P._launch_regs(x5, t4, fc, tw5, 0, 8)}
+        cs.log(f"[ablation] median ms of {args.reps} CUDA-graph replays at the 2^24 shapes, "
+               "forward (K7 / K8 max_r 3; K4 / K5 the radix-2 register kernel)")
         build_load = _build.load
         for name, lib in libs.items():
             _build.load = (lambda lib=lib: lib)  # the launcher loads this library
             try:
-                for key, x3, t, tw3, lane in (("K7", x7, t7, None, False),
-                                              ("K8", x8, t8, tw8, True)):
-                    out = P._launch_grouped(x3, t, fc, tw3, lane)
-                    ok = torch.equal(out, check[key])
+                for key, call in calls.items():
+                    ok = torch.equal(call(), check[key])
                     if name == "as built":
                         cs.check(ok, f"{key}: the kernel != plain")
-                    ms = cs.timed_graph(lambda: P._launch_grouped(x3, t, fc, tw3, lane), 3,
-                                        args.reps)
+                    ms = cs.timed_graph(call, 3, args.reps)
                     cs.log(f"  {key} {name}: {ms:.4f} ms"
                            + ("" if name == "as built" else " (ablated: results not checked)"))
             finally:
