@@ -19,13 +19,14 @@ Phases, each printing its own lines:
    crafted plane-minimizer input, and for the tensor-core kernel m = 2, 8,
    32, 64 and 1024, batches that are not a multiple of its block, the
    2^17 plan's launches with their row split and a mid call with A =
-   70000 > 65535 slices; the radix-2 butterfly kernels (K4 leaf and K5 mid
-   on the register kernel, csrc/ntt_radix2.cu, each case also on the first
-   port's stage-by-stage kernel, the A/B point ``_launch_stages``; K6 lane
-   on that one) with every twiddle mode, both directions, the flagship and
-   the lazy test modulus under Montgomery and Shoup, a ragged batch, m = 2
-   and 4096, the 2^17 and 2^26 plans' launches, spc / block_b splits, a
-   strided (A, m, B) view and A = 70000 slices;
+   70000 > 65535 slices; the radix-2 butterfly kernels (K4 leaf, K5 mid
+   and K6 lane on the register kernel, csrc/ntt_radix2.cu, each case also
+   on the first port's stage-by-stage kernel, the A/B point
+   ``_launch_stages``) with every twiddle mode, both directions, the
+   flagship and the lazy test modulus under Montgomery and Shoup, a ragged
+   batch, m = 2 ... 4096, the 2^17, 2^24 and 2^26 plans' launches, spc /
+   block_b / lane_rows tiles, a strided (A, m, B) view and A = 70000
+   slices;
    the same matrix cases under the u7 and s8b plane schemes, with K1's
    2^24 shape and, for u7, the m = 1024 all-ones input (against the golden
    model too); K11 (the fused u7 prototype) at (128, 32768), with columns
@@ -35,7 +36,8 @@ Phases, each printing its own lines:
    root-row shapes with three block shapes, int64 and int32; the
    inter-step multiply kernel of the transpose fallback; every Solinas
    branch (``modmul="solinas"``) -- K1/K2's fused twiddle, K4's stages,
-   K5's stages and twiddle, K6's stages and prologue / epilogue, and the
+   K5's stages and twiddle, K6's stages and prologue / epilogue (K4-K6
+   also on the A/B point), and the
    inter-step pass -- on the flagship and the Goldilocks modulus, with
    JAX's corner values of the fold (0, 1, N - 1, N, 2^63, 2^64 - 1)
    against the twiddle N - 1 and random ones;
@@ -60,8 +62,8 @@ Phases, each printing its own lines:
    have launched, and no plain version may have run; on the matrix paths
    every lead / mid launch must have run the tensor-core kernel and none
    the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly
-   paths (flagship, TEST, Solinas, distributed) every leaf / mid launch
-   the register kernel and every lane launch the stage-by-stage one
+   paths (flagship, TEST, Solinas, distributed) every leaf / mid / lane
+   launch the register kernel and none the stage-by-stage one
    (``ntt_pallas.KERNEL_LAUNCHES``);
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
    shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
@@ -88,12 +90,12 @@ Phases, each printing its own lines:
    (``ntt_pallas._launch_grouped_ranks``: ranks, registers, registers,
    ranks) at the 2^24 shapes (max_r 3 both directions, max_r 2 and 4 at
    the leaf) and the 2^17 ones, as CUDA-graph replays (device time), with
-   the bound and the share of it; K4 / K5 on the radix-2 register kernel in
-   turns with the stage-by-stage one (stages, registers, registers,
-   stages) as CUDA-graph replays at the 2^24 shapes (both directions,
-   Montgomery, Shoup on the test modulus, Solinas), the 2^17 ones and a
-   2^26 one, with the bound, the share of it and the Montgomery product
-   floor; K6 as a graph replay; each Solinas kernel beside its
+   the bound and the share of it; K4 / K5 / K6 on the radix-2 register
+   kernel in turns with the stage-by-stage one (stages, registers,
+   registers, stages) as CUDA-graph replays at the 2^24 shapes (both
+   directions, Montgomery, Shoup on the test modulus, Solinas), the 2^17
+   ones and the 2^26 ones, with the bound, the share of it and the
+   Montgomery product floor; each Solinas kernel beside its
    Montgomery form at the same shape; the u7 and s8b
    kernels at K1/K2/K3's 2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
@@ -402,16 +404,17 @@ def fused_cases(device, rng):
 
 
 def radix2_ab_point(x, t, fc, tw, orient: str, want) -> int:
-    """K4 / K5's A/B point, the stage-by-stage kernel
+    """K4 / K5 / K6's A/B point, the stage-by-stage kernel
     (``ntt_pallas._launch_stages``), against the plain version's ``want``:
-    its mismatch; it launches once per stage range and nothing else."""
+    its mismatch; it launches once per stage range (the lane once) and
+    nothing else."""
     from sventt_tpu_torch.ops import ntt_pallas as P
 
     before = dict(P.KERNEL_LAUNCHES)
     old = P._launch_stages(x, t, fc, tw, mid=orient != "leaf")
     sync(x.device)
     n = len(t.stage_ls)
-    ranges = -(-n // (t.spc or n))
+    ranges = 1 if orient == "lane" else -(-n // (t.spc or n))
     check(P.KERNEL_LAUNCHES["radix2_stages"] == before["radix2_stages"] + ranges
           and P.KERNEL_LAUNCHES["radix2_registers"] == before["radix2_registers"],
           "the A/B point launched another kernel")
@@ -419,10 +422,10 @@ def radix2_ab_point(x, t, fc, tw, orient: str, want) -> int:
 
 
 def pallas_kernel_cases(device, rng):
-    """K4/K5 (the register kernel, and the stage-by-stage A/B point) and K6
-    vs plain at the main path's shapes and the edge cases; each K4 / K5
-    call must launch the register kernel once per stage range and K6 the
-    stage-by-stage kernel.  Returns the largest mismatch per orientation."""
+    """K4 / K5 / K6 (the register kernel, and the stage-by-stage A/B
+    point) vs plain at the main path's shapes and the edge cases; each call
+    must launch the register kernel once per stage range (K6 once).
+    Returns the largest mismatch per orientation."""
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import ntt_pallas as P
 
@@ -458,6 +461,30 @@ def pallas_kernel_cases(device, rng):
          dict(spc=3, block_b=64)),
         ("K6 lane 1000x256 pair fwd rows=64", flag, "montgomery", False, "lane", (1000, 256), "pair",
          dict(rows=64)),
+        # the lane's geometry: the 2^17 and 2^26 roots (4-row and 32-row
+        # tiles), one group (m <= 16: every point straight from device
+        # memory), 4 + 1 (m = 32), three groups (m = 2048) and m = 4096 (one
+        # row a tile), one row a tile by lane_rows
+        ("K6 lane 2048x64 pair fwd (2^17)", flag, "montgomery", False, "lane", (2048, 64), "pair", {}),
+        ("K6 lane 2048x64 pair inv (2^17)", flag, "montgomery", True, "lane", (2048, 64), "pair", {}),
+        ("K6 lane 65536x128 pair fwd (2^26 tile)", flag, "montgomery", False, "lane", (65536, 128),
+         "pair", {}),
+        ("K6 lane 65536x128 pair inv (2^26 tile)", flag, "montgomery", True, "lane", (65536, 128),
+         "pair", {}),
+        ("K6 lane 333x16 pair fwd TEST", test, "montgomery", False, "lane", (333, 16), "pair", {}),
+        ("K6 lane 77x8 w inv TEST shoup", test, "shoup", True, "lane", (77, 8), "w", {}),
+        ("K6 lane 1000x32 pair inv", flag, "montgomery", True, "lane", (1000, 32), "pair", {}),
+        ("K6 lane 1000x32 w fwd TEST shoup", test, "shoup", False, "lane", (1000, 32), "w", {}),
+        ("K6 lane 50x2048 w inv", flag, "montgomery", True, "lane", (50, 2048), "w", {}),
+        ("K6 lane 50x2048 pair fwd TEST mont", test, "montgomery", False, "lane", (50, 2048), "pair",
+         {}),
+        ("K6 lane 100x4096 pair fwd", flag, "montgomery", False, "lane", (100, 4096), "pair", {}),
+        ("K6 lane 100x4096 pair inv TEST shoup", test, "shoup", True, "lane", (100, 4096), "pair", {}),
+        ("K6 lane 99x256 none inv rows=1", flag, "montgomery", True, "lane", (99, 256), None,
+         dict(rows=1)),
+        # an inverse lane_rows tile whose twiddle does not fit beside it: read unstaged
+        ("K6 lane 1000x256 pair inv rows=64", flag, "montgomery", True, "lane", (1000, 256), "pair",
+         dict(rows=64)),
         # the register kernel's geometry: the fused twiddle in a split mid
         # (prologue in the first range, epilogue in the last), the 2^17
         # plan's small grids, a 2^26 plan's launches, m = 4096 (12 stages,
@@ -492,22 +519,22 @@ def pallas_kernel_cases(device, rng):
         if orient == "lane":
             t = P.make_lane_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
             got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
-            kernel, launches = "radix2_stages", 1
+            launches = 1
         else:
             t = P.make_leaf_tables(mod, m, inverse=inverse, modmul=modmul, device=device, **knobs)
             if orient == "mid":
                 got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
             else:
                 got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
-            kernel, launches = "radix2_registers", -(-len(t.stage_ls) // (t.spc or len(t.stage_ls)))
+            launches = -(-len(t.stage_ls) // (t.spc or len(t.stage_ls)))
         sync(device)
+        kernel = "radix2_registers"
         check(all(P.KERNEL_LAUNCHES[k] == before[k] + (launches if k == kernel else 0)
                   for k in before), f"{name}: launched {P.KERNEL_LAUNCHES}, not {kernel} alone")
         err = mismatch(got, want)
-        err_old = 0 if orient == "lane" else radix2_ab_point(x, t, fc, tw, orient, want)
+        err_old = radix2_ab_point(x, t, fc, tw, orient, want)
         worst[orient] = max(worst[orient], err)
-        old = "" if orient == "lane" else f"; stage-by-stage {err_old}"
-        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy}; {kernel}{old})")
+        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy}; {kernel}; stage-by-stage {err_old})")
         check(err <= TOL and err_old <= TOL, f"{name}: kernel != plain")
         del x, got, want
     # an (A, m, B) view with the batch axis outermost in memory, strides
@@ -711,9 +738,9 @@ def corner_data(shape, mod, rng):
 def solinas_kernel_cases(device, rng):
     """Every kernel branch of the Solinas engine vs its plain version,
     bitwise, on the flagship and the Goldilocks modulus: K1 lead / K2 mid
-    with the fused Solinas twiddle, K4 leaf, K5 mid with it (each also on
-    the stage-by-stage A/B point), K6 lane with
-    its prologue (epilogue on the inverse), at the 2^24 plans' shapes, a
+    with the fused Solinas twiddle, K4 leaf, K5 mid with it, K6 lane with
+    its prologue (epilogue on the inverse) -- K4-K6 each also on the
+    stage-by-stage A/B point -- at the 2^24 plans' shapes, a
     ragged batch and m = 2, both directions, and the inter-step pass.  The
     forward prologues and the inter-step pass take ``corner_data``, any
     u64 (the Solinas multiply accepts it); the inverse inputs are below N.
@@ -760,15 +787,18 @@ def solinas_kernel_cases(device, rng):
                     fn = ntt_mxu.mxu_ntt_mid if orient == "mid" else ntt_mxu.mxu_ntt
                     got = fn(x, t, fc, tw)
                     want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid")
-                elif orient == "lane":
-                    t = P.make_lane_tables(mod, m, inverse=inverse, modmul="solinas", device=device)
-                    got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
                 else:
-                    t = P.make_leaf_tables(mod, m, inverse=inverse, modmul="solinas", device=device)
-                    if orient == "leaf":
-                        got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
+                    if orient == "lane":
+                        t = P.make_lane_tables(mod, m, inverse=inverse, modmul="solinas",
+                                               device=device)
+                        got, want = P.fused_ntt_lane(x, t, fc, tw), P.lane_plain(x, t, fc, tw)
                     else:
-                        got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
+                        t = P.make_leaf_tables(mod, m, inverse=inverse, modmul="solinas",
+                                               device=device)
+                        if orient == "leaf":
+                            got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
+                        else:
+                            got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
                     err = radix2_ab_point(x, t, fc, tw, orient, want)
                     check(err <= TOL, f"{name} {orient} {shape} solinas: stage-by-stage != plain")
                 if orient not in ("lead", "mid"):
@@ -868,11 +898,11 @@ def mxu_on_tensor_cores(c) -> bool:
 
 
 def radix2_routed(c) -> bool:
-    """Every radix-2 leaf / mid launch in the counts ``c`` ran the register
-    kernel and every lane launch the stage-by-stage one."""
+    """Every radix-2 leaf / mid / lane launch in the counts ``c`` ran the
+    register kernel, and the stage-by-stage one never ran."""
     lp, k = c["launches"]["pallas"], c["pallas_kernels"]
-    return (k["radix2_registers"] == lp["leaf"] + lp["mid"]
-            and k["radix2_stages"] == lp["lane"])
+    return (k["radix2_registers"] == lp["leaf"] + lp["mid"] + lp["lane"]
+            and k["radix2_stages"] == 0)
 
 
 def reset_counts() -> None:
@@ -1548,15 +1578,18 @@ def times(device, ntts, rng):
     del xl, twl, twls, xr, x128
     ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root.
-    # K4 / K5 on the register kernel in turns with the stage-by-stage one
-    # (ntt_pallas._launch_stages), as CUDA-graph replays: both directions,
-    # the Solinas forms and the test modulus's Shoup forms, then the 2^17
-    # plan's two launches and a 2^26 plan's inner row step; K6 (lane, the
-    # stage-by-stage kernel) as graph replays too
+    # K4 / K5 / K6 on the register kernel in turns with the stage-by-stage
+    # one (ntt_pallas._launch_stages), as CUDA-graph replays: both
+    # directions, the Solinas forms and the test modulus's Shoup forms, then
+    # the 2^17 plan's three launches and the 2^26 plan's inner row step and
+    # root; K6's twiddle has the data's shape
     _, test = moduli()
     fct = FieldConsts.from_modulus(test, modmul="shoup")
     xt = rand_u64(rng, (256, 256, 256), device, below=test.modulus)
     twt = rand_twiddle(rng, (256, 256), test, "pair", device)
+    twr = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
+    twrs = MontPair(twr.w, None)
+    twrt = rand_twiddle(rng, (1 << 16, 256), test, "pair", device)
     stages = P._launch_stages
     for key, mod, fcx, inv, shape, tw_, modmul in (
         ("K4 leaf 256x65536", flag, fc, False, (256, 65536), None, "montgomery"),
@@ -1573,43 +1606,47 @@ def times(device, ntts, rng):
         ("K5 mid 32x64x64 pair (2^17)", flag, fc, False, (32, 64, 64), "pair", "montgomery"),
         ("K5 mid 4096x128x128 pair (2^26)", flag, fc, False, (4096, 128, 128), "pair",
          "montgomery"),
+        ("K6 lane 65536x256 pair", flag, fc, False, (1 << 16, 256), twr, "montgomery"),
+        ("K6 lane 65536x256 pair inv", flag, fc, True, (1 << 16, 256), twr, "montgomery"),
+        ("K6 lane 65536x256 solinas", flag, fcs, False, (1 << 16, 256), twrs, "solinas"),
+        ("K6 lane 65536x256 inv solinas", flag, fcs, True, (1 << 16, 256), twrs, "solinas"),
+        ("K6 lane 65536x256 pair TEST shoup", test, fct, False, (1 << 16, 256), twrt, "shoup"),
+        ("K6 lane 2048x64 pair (2^17)", flag, fc, False, (2048, 64), "pair", "montgomery"),
+        ("K6 lane 2048x64 pair inv (2^17)", flag, fc, True, (2048, 64), "pair", "montgomery"),
+        ("K6 lane 524288x128 pair (2^26)", flag, fc, False, (1 << 19, 128), "pair", "montgomery"),
     ):
-        mid = len(shape) == 3
-        m = shape[1] if mid else shape[0]
-        t = P.make_leaf_tables(mod, m, inverse=inv, modmul=modmul, device=device)
+        lane, mid = key.startswith("K6"), len(shape) == 3
+        m = shape[-1] if lane else shape[1] if mid else shape[0]
         points = shape[0] * shape[1] * (shape[2] if mid else 1)
         src = xt if mod is test else xm
         x = src.view(shape) if points == n24 else rand_u64(rng, shape, device, below=mod.modulus)
         if tw_ == "pair":
-            tw_ = rand_twiddle(rng, shape[:2], mod, "pair", device)
-        if mid:
-            new = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.fused_ntt_mid(x, t, fcx, tw_)
-            plain = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.mid_plain(x, t, fcx, tw_)
+            tw_ = rand_twiddle(rng, shape if lane else shape[:2], mod, "pair", device)
+        if lane:
+            t = P.make_lane_tables(mod, m, inverse=inv, modmul=modmul, device=device)
+            new = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.fused_ntt_lane(x, t, fcx, tw_)
+            plain = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.lane_plain(x, t, fcx, tw_)
         else:
-            new = lambda x=x, t=t, fcx=fcx: P.fused_ntt(x, t, fcx)
-            plain = lambda x=x, t=t, fcx=fcx: P.leaf_plain(x, t, fcx)
+            t = P.make_leaf_tables(mod, m, inverse=inv, modmul=modmul, device=device)
+            if mid:
+                new = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.fused_ntt_mid(x, t, fcx, tw_)
+                plain = lambda x=x, t=t, fcx=fcx, tw_=tw_: P.mid_plain(x, t, fcx, tw_)
+            else:
+                new = lambda x=x, t=t, fcx=fcx: P.fused_ntt(x, t, fcx)
+                plain = lambda x=x, t=t, fcx=fcx: P.leaf_plain(x, t, fcx)
         old = lambda x=x, t=t, fcx=fcx, tw_=tw_, mid=mid: stages(x, t, fcx, tw_, mid=mid)
         want = plain()
         check(max(mismatch(new(), want), mismatch(old(), want)) <= TOL,
               f"{key}: a radix-2 kernel != plain")
         tw_kind = None if tw_ is None else ("solinas" if modmul == "solinas" else "pair")
-        bnd = butterfly_bound(points, m, inv, modmul, tw_kind, shape[0] * m if mid else 0)
+        tw_points = points if lane else shape[0] * m if mid else 0
+        bnd = butterfly_bound(points, m, inv, modmul, tw_kind, tw_points)
         kernel(key, new, plain, bnd, old=old, old_name="stages", graph=True)
         products[key] = (butterfly_products(m, inv, tw_kind is not None)
                          if modmul == "montgomery" else None)
-        del x, want
-    rt = P.make_lane_tables(flag, 256, inverse=False, device=device)
+        del x, want, tw_
     xr = xm.view(1 << 16, 256)
-    twr = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
-    kernel("K6 lane 65536x256 pair", lambda: P.fused_ntt_lane(xr, rt, fc, twr),
-           lambda: P.lane_plain(xr, rt, fc, twr),
-           butterfly_bound(n24, 256, False, "montgomery", "pair", n24), graph=True)
-    rts = P.make_lane_tables(flag, 256, inverse=False, modmul="solinas", device=device)
-    twrs = MontPair(twr.w, None)
-    kernel("K6 lane 65536x256 solinas", lambda: P.fused_ntt_lane(xr, rts, fcs, twrs),
-           lambda: P.lane_plain(xr, rts, fcs, twrs),
-           butterfly_bound(n24, 256, False, "solinas", "solinas", n24), graph=True)
-    del xt, twt
+    del xt, twt, twrt
     # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
     # and the inner row's leaf between transposes), the inter-step multiply
     # of that row, the root; each on the register kernel in turns with the
@@ -1776,9 +1813,9 @@ def main() -> int:
     # the redesigned kernels: the tensor-core matrix kernel, the grouped
     # register kernel (36 instantiations: INV x {Montgomery, lazy
     # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
-    # 3 or 4 ranks) and the radix-2 register kernel (32: INV x {Montgomery,
-    # lazy Montgomery, Shoup, Solinas} x {swizzled, not} x groups of up to 3
-    # or 4 stages) must not spill
+    # 3 or 4 ranks) and the radix-2 register kernel (48: INV x {Montgomery,
+    # lazy Montgomery, Shoup, Solinas} x {lane, leaf / mid swizzled, leaf /
+    # mid not} x groups of up to 3 or 4 stages) must not spill
     entry, entries = None, {"mxu_tc_kernel": 0, "grouped_reg_kernel": 0, "radix2_reg_kernel": 0}
     for line in kernel_build["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -1796,8 +1833,8 @@ def main() -> int:
     check(cached or entries["grouped_reg_kernel"] == 36,
           f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
           "not 36")
-    check(cached or entries["radix2_reg_kernel"] == 32,
-          f"{entries['radix2_reg_kernel']} -Xptxas -v entries of the radix-2 register kernel, not 32")
+    check(cached or entries["radix2_reg_kernel"] == 48,
+          f"{entries['radix2_reg_kernel']} -Xptxas -v entries of the radix-2 register kernel, not 48")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
@@ -1845,8 +1882,7 @@ def main() -> int:
           "a butterfly orientation of the path never ran")
     log(f"  radix-2 kernels: {c_pal['pallas_kernels']} (radix2_registers: radix2_reg_kernel, "
         "csrc/ntt_radix2.cu; radix2_stages: butterfly_kernel, csrc/ntt_pallas.cu)")
-    check(radix2_routed(c_pal), "a radix-2 leaf / mid launch ran the stage-by-stage kernel, or a "
-          "lane launch the register kernel")
+    check(radix2_routed(c_pal), "a radix-2 launch ran the stage-by-stage kernel")
     del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"]
     torch.cuda.empty_cache()
     log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
@@ -2002,7 +2038,7 @@ def main() -> int:
         log(f"  {k}: ranks {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
             f"{ms[k + ' ranks'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
             f"{100 * b_ms / ms[k]:.1f}% of it, ranks {100 * b_ms / ms[k + ' ranks']:.1f}%")
-    log("[A/B] the radix-2 butterfly kernel K4 / K5: the register kernel (csrc/ntt_radix2.cu) "
+    log("[A/B] the radix-2 butterfly kernel K4 / K5 / K6: the register kernel (csrc/ntt_radix2.cu) "
         "against the stage-by-stage one (csrc/ntt_pallas.cu), CUDA-graph replays in turns stages, "
         "registers, registers, stages:")
     for k, (old_name, o1, n1, n2, o2) in ab.items():
@@ -2069,8 +2105,8 @@ def main() -> int:
               "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:1154", lp["leaf"], wp["leaf"]),
         entry("K5 radix-2 stages, mid (fused_ntt_mid; register kernel)", "K5 mid 256x256x256 pair",
               "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:1188", lp["mid"], wp["mid"]),
-        entry("K6 radix-2 stages, lane (fused_ntt_lane)", "K6 lane 65536x256 pair",
-              "ntt_pallas.cu", "sventt_tpu/ops/ntt_pallas.py:911", lp["lane"], wp["lane"]),
+        entry("K6 radix-2 stages, lane (fused_ntt_lane; register kernel)", "K6 lane 65536x256 pair",
+              "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:911", lp["lane"], wp["lane"]),
         entry("K7 radix-2^R groups, leaf (fused_ntt_grouped)", "K7 leaf 256x65536 r=3",
               "ntt_grouped.cu", "sventt_tpu/ops/ntt_pallas.py:688", lp["grouped"],
               wp["grouped"]),
@@ -2119,7 +2155,7 @@ def main() -> int:
          "K5 mid 256x256x256 solinas", "ntt_radix2.cu", "ntt_pallas.py:1188", lsol["pallas"]["mid"],
          ws["pallas mid"]),
         ("K6 radix-2 stages, lane, Solinas stages and prologue (fused_ntt_lane, modmul='solinas')",
-         "K6 lane 65536x256 solinas", "ntt_pallas.cu", "ntt_pallas.py:911", lsol["pallas"]["lane"],
+         "K6 lane 65536x256 solinas", "ntt_radix2.cu", "ntt_pallas.py:911", lsol["pallas"]["lane"],
          ws["lane"]),
     ):
         record["kernels"].append(entry(name, key, src, f"sventt_tpu/ops/{line}", launches, err))

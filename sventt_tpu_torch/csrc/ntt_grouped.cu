@@ -111,15 +111,6 @@ struct RegArgs {
   int log2m, ngroups, log2c, log2q, tw_mode, tw_words, tile_words, tab_entries;
 };
 
-// 8 bytes from device memory to shared memory, asynchronously (zeros where
-// !ok; `src` must still be a device address).
-__device__ __forceinline__ void cp_async8(u64 *dst, const long long *src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(__cvta_generic_to_global(src)), "r"(ok ? 8 : 0)
-               : "memory");
-}
-
 // Tile `wk` (slice a, batch entries c0 ...) into the tile D and, with a
 // fused twiddle, its twiddles into W / WP: word idx of the tile (leaf
 // j C + c, lane c m + j) from device memory to slot(idx), consecutive

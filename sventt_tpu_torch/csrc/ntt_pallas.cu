@@ -8,9 +8,10 @@
 //   K6 _lane_call (body _lane_kernel): stages along the last axis of
 //      (rows, m) -- the unbatched root row step.
 // The plain PyTorch version is sventt_tpu_torch/ops/ntt_pallas.py::
-// _stages_plain; the two agree bit for bit.  K4 and K5 run on the
-// register kernel csrc/ntt_radix2.cu; this kernel's leaf / mid form stays
-// only as their A/B point (ntt_pallas._launch_stages), and K6 runs here.
+// _stages_plain; the two agree bit for bit.  K4, K5 and K6 run on the
+// register kernel csrc/ntt_radix2.cu; this kernel, the first port's, stays
+// only as their A/B point (ntt_pallas._launch_stages), in all three
+// orientations, and no path runs it.
 //
 // The data is an (A, m, B) view with element strides (sa, sm, sb); the
 // transform runs along m.  Leaf is A = 1, B columns of stride 1; mid is A
@@ -52,9 +53,8 @@
 // bytes: the integer pipes, not HBM at 3.35 TB/s, bound it once the loads
 // are hidden.  This first version keeps it simple: plain loads, one
 // thread per butterfly per stage, shared-memory rows padded by one word
-// against bank conflicts; csrc/ntt_radix2.cu keeps a column's stages in
-// registers for the leaf / mid, and the lane's register schedule is the
-// work of a later change.
+// against bank conflicts; csrc/ntt_radix2.cu keeps a column's (leaf, mid)
+// or a row's (lane) stages in registers.
 
 #include <cuda_runtime.h>
 

@@ -2,8 +2,9 @@
 // grouped_reg_kernel, csrc/ntt_radix2.cu radix2_reg_kernel): a thread holds
 // the 2^R points base + k L of one butterfly set of a group of R ranks in
 // registers; the sets meet in a shared-memory tile (word slot() of point j,
-// column c) once per group boundary; one wave of resident blocks walks the
-// (slice, tile) work.
+// column c) once per group boundary, a tile copied in with cp.async where a
+// kernel needs one; one wave of resident blocks walks the (slice, tile)
+// work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,6 +22,16 @@ constexpr unsigned long long SWIZZLE = 0x1eb4d278963c5af0ull;
 template <bool SWZ>
 __device__ __forceinline__ int slot(int w) {
   return SWZ ? w ^ (int)((SWIZZLE >> (((w >> 4) & 15) << 2)) & 15) : w;
+}
+
+// 8 bytes from device memory to shared memory, asynchronously (zeros where
+// !ok; `src` must still be a device address).  u64 comes from field.cuh,
+// which every kernel source includes first.
+__device__ __forceinline__ void cp_async8(u64 *dst, const long long *src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)), "r"(ok ? 8 : 0)
+               : "memory");
 }
 
 // The first point of butterfly set `set` of a group of R ranks with row

@@ -13,13 +13,13 @@ orientations:
 * lane (``fused_ntt_lane``, K6 ``_lane_call``): along the last axis of
   (batch..., m), the inter-step twiddle fused the same way.
 
-The leaf and mid run on ``csrc/ntt_radix2.cu``'s register kernel: a thread
-holds 2^R points of one column and runs up to 4 consecutive stages on them
-in registers; the columns' sets meet in shared memory once per group of
-stages (``butterfly_geometry`` gives the groups and the launch geometry).
-The lane runs on ``csrc/ntt_pallas.cu``'s stage-by-stage kernel, whose
-leaf / mid orientation, the first port's, is kept as the A/B point
-``_launch_stages``, which no path calls.
+All three run on ``csrc/ntt_radix2.cu``'s register kernel: a thread holds
+2^R points of one column (leaf, mid) or one row (lane) and runs up to 4
+consecutive stages on them in registers; the sets meet in shared memory
+once per group of stages (``butterfly_geometry`` gives the groups and the
+launch geometry).  The first port's stage-by-stage kernel
+(``csrc/ntt_pallas.cu``), in all three orientations, is kept as the A/B
+point ``_launch_stages``, which no path calls.
 
 Forward stages are DIF (l = m/2 ... 1, bit-reversed output), inverse stages
 DIT (l = 1 ... m/2) with 1/m folded into the last stage.  The tables are
@@ -105,9 +105,9 @@ MAX_LOWS = 1 << (MAX_R - 1)
 #: columns sits in shared memory).
 MAX_LEAF = 4096
 
-#: Points per block tile when no knob sets it: columns (leaf, mid) or rows
-#: (lane) per block = TILE_POINTS // m.  32 KB of u64, under the 48 KB that
-#: needs no opt-in.
+#: Points per block tile of the first port's kernels (the A/B points
+#: ``_launch_stages`` and ``_launch_grouped_ranks``) when no knob sets it:
+#: columns or rows per block = TILE_POINTS // m.  32 KB of u64.
 TILE_POINTS = 4096
 
 #: Largest dynamic shared memory a Hopper block may use.
@@ -119,10 +119,10 @@ MAX_SMEM = 232448
 LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0, "grouped": 0, "lane_grouped": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
-#: Launches per kernel: radix-2 "radix2_registers" (every K4 / K5 call),
-#: "radix2_stages" (every K6 call, and the leaf / mid A/B point
-#: ``_launch_stages``); grouped "registers" (every K7 / K8 call), "ranks"
-#: (the rank-by-rank A/B point, ``_launch_grouped_ranks`` only).
+#: Launches per kernel: radix-2 "radix2_registers" (every K4 / K5 / K6
+#: call), "radix2_stages" (the stage-by-stage A/B point ``_launch_stages``
+#: only); grouped "registers" (every K7 / K8 call), "ranks" (the
+#: rank-by-rank A/B point, ``_launch_grouped_ranks`` only).
 KERNEL_LAUNCHES = {"radix2_registers": 0, "radix2_stages": 0, "registers": 0, "ranks": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
@@ -135,6 +135,9 @@ SMEM_THREE_BLOCKS = 233472 // 3 - 1024
 #: Stages a group of the radix-2 register kernel (csrc/ntt_radix2.cu) may
 #: have: 4 + 4 at m = 256.
 RADIX2_MAX_R = 4
+#: Threads the lane orientation's default tile fills: four blocks of 128
+#: threads an SM, as their registers allow, ran faster than two of 256.
+LANE_THREADS = 128
 
 
 @dataclass(frozen=True)
@@ -559,15 +562,20 @@ def radix2_groups(stages: int, max_r: int) -> tuple[int, ...]:
 class ButterflyGeometry:
     """The radix-2 register kernel's launch geometry (csrc/ntt_radix2.cu).
 
-    ``ranks``: each group's stages in run order.  ``cols``: columns a block
-    tile; ``threads``: its block, thread u owning (set u >> log2 cols,
-    column u mod cols), then u + threads, ... of each group.  Shared
-    memory, in order: the exchange tile of ``tile_words`` u64 (cols x m;
-    none for one group), entries [``tab_lo``, ``tab_lo`` + ``tab_entries``)
-    of the stage tables, 16 bytes an entry (8 under Solinas), and the
-    slice's inter-step twiddle row where the range multiplies it
-    (``tw_row`` bytes: m entries of 16 bytes "pair", 8 "w" or Solinas);
-    ``smem`` their bytes.
+    ``ranks``: each group's stages in run order.  ``cols``: batch entries
+    a block tile (leaf / mid columns, lane rows); ``threads``: its block,
+    thread u owning, in each group, unit u, then u + threads, ...: leaf /
+    mid unit u is (set u >> log2 cols, column u mod cols), lane unit u
+    (row u >> log2(m >> R), set u mod (m >> R)).  Shared memory, in order:
+    the exchange tile of ``tile_words`` u64 (cols x m; none for one group),
+    entries [``tab_lo``, ``tab_lo`` + ``tab_entries``) of the stage tables,
+    16 bytes an entry (8 under Solinas), and, where the range multiplies
+    the inter-step twiddle, ``tw_bytes`` of it: a leaf / mid slice's row of
+    m entries; a lane inverse tile's cols x m entries, staged by cp.async,
+    where the row has two groups or more and they fit in a block's shared
+    memory beside the tile (else, and for the lane forward, none: the
+    twiddle is read straight into registers); 16 bytes an entry "pair", 8
+    "w" or Solinas; ``smem`` their bytes.
     """
 
     ranks: tuple[int, ...]
@@ -576,7 +584,7 @@ class ButterflyGeometry:
     tile_words: int
     tab_lo: int
     tab_entries: int
-    tw_row: int
+    tw_bytes: int
     smem: int
 
 
@@ -584,44 +592,60 @@ class ButterflyGeometry:
 def butterfly_geometry(
     m: int, first: int, last: int, inverse: bool, B: int, A: int = 1,
     solinas: bool = False, tw_words: int = 0, block_b: int | None = None, sms: int = 132,
+    lane: bool = False,
 ) -> ButterflyGeometry:
     """Launch geometry of the radix-2 register kernel for stages [first,
     last) of an (A, m, B) call with an inter-step twiddle of ``tw_words``
     words an entry (0 none, 1 "w" or Solinas, 2 "pair"): the groups
-    (``radix2_groups`` at RADIX2_MAX_R); ``block_b`` columns a tile when
-    set, else 32 (no more than B has), halved while the tile exceeds
-    SMEM_THREE_BLOCKS or the grid has fewer than two blocks an SM, down to
-    4 (a 32-byte sector a point); threads: cols times the widest group's
-    set count, at most GROUPED_THREADS."""
+    (``radix2_groups`` at RADIX2_MAX_R); ``block_b`` batch entries a tile
+    when set, else -- leaf / mid -- 32 columns or -- ``lane``, every stage
+    of B rows (A = 1) -- as many rows as fill LANE_THREADS, no more
+    than B has, halved while the tile exceeds SMEM_THREE_BLOCKS or the grid
+    has fewer than two blocks an SM, down to 4 columns (a 32-byte sector a
+    point) or 1 row; threads: cols times the widest group's set count, at
+    most GROUPED_THREADS."""
     if m < 2 or m & (m - 1) or m > MAX_LEAF:
         raise ValueError(f"butterfly kernel takes power-of-two m in [2, {MAX_LEAF}], got {m}")
     if not 0 <= first < last <= m.bit_length() - 1:
         raise ValueError(f"stage range [{first}, {last}) outside a length-{m} transform")
+    if lane and (first, last, A) != (0, m.bit_length() - 1, 1):
+        raise ValueError("the lane orientation runs every stage of unsliced rows")
     ranks = radix2_groups(last - first, RADIX2_MAX_R)
     lmin, lmax = (1 << first, 1 << (last - 1)) if inverse else (m >> last, m >> (first + 1))
     tab_entries = 2 * lmax - lmin
     if tw_words not in (0, 1, 2):
         raise ValueError(f"an inter-step twiddle has 0, 1 or 2 words an entry, not {tw_words}")
     fused = tw_words and (last == m.bit_length() - 1 if inverse else first == 0)
-    tw_row = 8 * m * tw_words if fused else 0
-    fixed = tab_entries * (8 if solinas else 16) + tw_row
+    tile = len(ranks) > 1
+    tab_bytes = tab_entries * (8 if solinas else 16)
+
+    def tw_bytes(cols: int) -> int:
+        if not fused:
+            return 0
+        if not lane:
+            return 8 * tw_words * m
+        staged = 8 * tw_words * cols * m
+        fits = tile and 8 * cols * m + tab_bytes + staged <= MAX_SMEM
+        return staged if inverse and fits else 0
 
     def smem(cols: int) -> int:
-        return (8 * cols * m if len(ranks) > 1 else 0) + fixed
+        return (8 * cols * m if tile else 0) + tab_bytes + tw_bytes(cols)
 
+    sets = m >> max(ranks)
     if block_b is not None:
         cols = block_b
     else:
-        cols = min(32, _pow2_at_least(B))
+        cols, floor = (max(1, LANE_THREADS // sets), 1) if lane else (32, 4)
+        cols = min(cols, _pow2_at_least(B))
         while cols > 1 and (
-            smem(cols) > SMEM_THREE_BLOCKS or (cols > 4 and -(-B // cols) * A < 2 * sms)
+            smem(cols) > SMEM_THREE_BLOCKS or (cols > floor and -(-B // cols) * A < 2 * sms)
         ):
             cols //= 2
     if smem(cols) > MAX_SMEM:
         raise ValueError(f"a tile of {cols} x {m} points needs {smem(cols)} bytes of shared memory")
-    threads = min(GROUPED_THREADS, cols * (m >> max(ranks)))
-    return ButterflyGeometry(ranks, cols, threads, cols * m if len(ranks) > 1 else 0, lmin - 1,
-                             tab_entries, tw_row, smem(cols))
+    threads = min(GROUPED_THREADS, cols * sets)
+    return ButterflyGeometry(ranks, cols, threads, cols * m if tile else 0, lmin - 1,
+                             tab_entries, tw_bytes(cols), smem(cols))
 
 
 def make_leaf_tables(
@@ -948,22 +972,25 @@ def _launch(
 
 
 def _launch_regs(
-    x3: torch.Tensor, t: FusedDirection, fc: FieldConsts, tw3: MontPair | None,
-    first: int, last: int,
+    x3: torch.Tensor, t: FusedDirection | LaneDirection, fc: FieldConsts,
+    tw3: MontPair | None, first: int, last: int, lane: bool = False,
 ) -> torch.Tensor:
     """One launch of the radix-2 register kernel on stages [first, last)
     of ``t`` along axis 1 of the (A, m, B) tensor ``x3`` (K4, or K5 with
-    the (A, m, 1) inter-step twiddle ``tw3``), in ``butterfly_geometry``'s
-    geometry."""
+    the (A, m, 1) inter-step twiddle ``tw3``; with ``lane`` K6 on the
+    contiguous (rows, m, 1) ``x3``, its twiddle of the same shape), in
+    ``butterfly_geometry``'s geometry."""
     from .. import _build
 
     _check_cuda(t, fc, x3, tw3)
     m = t.m
-    (A, _, B), strides, (ta, tm, _) = _view(x3, False)
+    (A, _, B), strides, (ta, tm, tb) = _view(x3, lane)
+    if lane:
+        ta = tb  # the twiddle's row stride: the data's layout
     w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
     tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
     geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
-                             t.block_b, sm_count(x3.device.index))
+                             t.rows if lane else t.block_b, sm_count(x3.device.index), lane)
     ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
     s, sp = t.scale if t.scale is not None else (0, 0)
     out = torch.empty_like(x3)
@@ -971,8 +998,8 @@ def _launch_regs(
         x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
         None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
         A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
-        geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), _MODMUL[fc.modmul],
-        int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
+        geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), int(lane),
+        _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
         torch.cuda.current_stream(x3.device).cuda_stream,
     )
     if rc != 0:
@@ -982,20 +1009,27 @@ def _launch_regs(
 
 
 def _launch_stages(
-    x: torch.Tensor, tables: FusedDirection, fc: FieldConsts, tw: MontPair | None = None,
-    mid: bool = False,
+    x: torch.Tensor, tables: FusedDirection | LaneDirection, fc: FieldConsts,
+    tw: MontPair | None = None, mid: bool = False,
 ) -> torch.Tensor:
-    """``fused_ntt`` (``fused_ntt_mid`` with ``mid``, ``tw`` as there) on
-    the first port's stage-by-stage kernel (csrc/ntt_pallas.cu, leaf / mid
-    orientation), which no path runs: the A/B point ``chip_smoke.py`` times
-    beside the register kernel.  CUDA tensors only; counted under
+    """``fused_ntt`` (``fused_ntt_mid`` with ``mid``, ``tw`` as there;
+    ``fused_ntt_lane`` on LaneDirection tables, ``tw`` its ``pre_tw``) on
+    the first port's stage-by-stage kernel (csrc/ntt_pallas.cu), which no
+    path runs: the A/B point ``chip_smoke.py`` times beside the register
+    kernel.  CUDA tensors only; counted under
     ``KERNEL_LAUNCHES["radix2_stages"]`` alone."""
-    if not isinstance(tables, FusedDirection) or not x.is_cuda:
+    if not isinstance(tables, (FusedDirection, LaneDirection)) or not x.is_cuda:
         raise ValueError(
-            "the stage-by-stage A/B point takes FusedDirection tables and a CUDA tensor"
+            "the stage-by-stage A/B point takes per-stage tables and a CUDA tensor"
         )
     check_companion(fc, tw)
     m = tables.m
+    if isinstance(tables, LaneDirection):
+        rows = _lane_rows(x, m)
+        tw3 = None if tw is None else _lane_tw(tw, x, rows)
+        out = _launch(rows.unsqueeze(2), tables, fc, tw3, True,
+                      tables.rows or max(1, TILE_POINTS // m), 0, len(tables.stage_ls))
+        return out.reshape(x.shape)
     if mid:
         x3 = _mid_view(x, m)
         tw3 = None if tw is None else _mid_tw(tw, x3)
@@ -1100,10 +1134,8 @@ def _run(
         for first in range(0, n, step):
             if grouped:
                 x3 = _launch_grouped(x3, t, fc, tw3, lane)
-            elif lane:
-                x3 = _launch(x3, t, fc, tw3, True, t.rows or max(1, TILE_POINTS // t.m), 0, n)
             else:
-                x3 = _launch_regs(x3, t, fc, tw3, first, min(first + step, n))
+                x3 = _launch_regs(x3, t, fc, tw3, first, min(first + step, n), lane)
             LAUNCHES[orientation] += 1
         return x3
     if x3.device.type != "cpu":
@@ -1192,7 +1224,7 @@ _RADIX2_ARGTYPES = (
     + [ctypes.c_longlong] * 5
     + [ctypes.c_int] * 2
     + [ctypes.c_ulonglong]
-    + [ctypes.c_int] * 7
+    + [ctypes.c_int] * 8
     + [ctypes.c_ulonglong] * 4
     + [ctypes.c_void_p]
 )

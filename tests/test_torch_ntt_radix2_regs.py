@@ -23,6 +23,7 @@ against the JAX package by test_torch_ntt_pallas*.py and _solinas*.py.
 Inputs are made with numpy from a seed; every comparison is exact.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -85,6 +86,40 @@ def _storage(x3: torch.Tensor) -> torch.Tensor:
     return torch.as_strided(x3, (x3.untyped_storage().nbytes() // 8,), (1,), 0)
 
 
+def _butterflies(v, t, fc: FieldConsts, geo, R: int, log2L: int, tb, scaled: bool, lane: bool):
+    """The R stages of a group on the (units, 2^R) points ``v`` of each
+    unit's set (``tb`` its table base), from the block's staged slice of
+    the stage tables, as the kernel's ``butterflies``: the forward
+    difference reduced (``lane``, K6) or biased by +2N when lazy (K4, K5);
+    ``scaled``: the group's last rank is the last inverse stage."""
+    tab_w = t.w[geo.tab_lo: geo.tab_lo + geo.tab_entries]
+    tab_wp = None if t.wp is None else t.wp[geo.tab_lo: geo.tab_lo + geo.tab_entries]
+    two_n = 2 * s64(fc.modulus)  # read by a lazy modulus only (N < 2^62)
+    v = list(v.unbind(1))
+    for s in range(R):
+        h = 1 << s if t.inverse else 1 << (R - 1 - s)
+        for k in range(1 << R):
+            if k & h:
+                continue
+            i = ((h + (k & (h - 1))) << log2L) + tb
+            assert int(i.min()) >= 0 and int(i.max()) < geo.tab_entries
+            w, wp = tab_w[i], None if tab_wp is None else tab_wp[i]
+            x0, x1 = v[k], v[k + h]
+            if not t.inverse:
+                y0 = fc.add(x0, x1)
+                d = (x0 - x1 + two_n) if fc.lazy and not lane else fc.sub(x0, x1)
+                y1 = fc.twiddle_mul(d, w, wp)
+            elif scaled and s == R - 1:
+                sc, scp = (None if q is None else torch.full_like(x0, s64(q)) for q in t.scale)
+                a0, b1 = fc.twiddle_mul(x0, sc, scp), fc.twiddle_mul(x1, w, wp)
+                y0, y1 = fc.add(a0, b1), fc.sub(a0, b1)
+            else:
+                tt = fc.twiddle_mul(x1, w, wp)
+                y0, y1 = fc.add(x0, tt), fc.sub(x0, tt)
+            v[k], v[k + h] = y0, y1
+    return torch.stack(v, 1)
+
+
 def _launch_model(x3, t, fc: FieldConsts, tw3, first: int, last: int):
     """One launch of the register kernel on stages [first, last) of the
     (A, m, B) view ``x3`` (its storage indexed by its strides, as the
@@ -99,14 +134,10 @@ def _launch_model(x3, t, fc: FieldConsts, tw3, first: int, last: int):
     xf = _storage(x3)
     out = torch.zeros_like(xf)
     writes = torch.zeros_like(xf)
-    # the block's staged slice of the stage tables
-    tab_w = t.w[geo.tab_lo: geo.tab_lo + geo.tab_entries]
-    tab_wp = None if t.wp is None else t.wp[geo.tab_lo: geo.tab_lo + geo.tab_entries]
     twf = None if tw3 is None else [None if v is None else v.reshape(-1) for v in tw3]
-    two_n = 2 * s64(fc.modulus)  # read by a lazy modulus only (N < 2^62)
     tiles = -(-B // geo.cols)
     fused = tw3 is not None and (last == log2m if t.inverse else first == 0)
-    assert geo.tw_row == (8 * m * tw_words if fused else 0)
+    assert geo.tw_bytes == (8 * m * tw_words if fused else 0)
     for wk in range(tiles * A):
         a, tile = divmod(wk, tiles)
         c0 = tile * geo.cols
@@ -116,7 +147,6 @@ def _launch_model(x3, t, fc: FieldConsts, tw3, first: int, last: int):
             TW = MontPair(twf[0][row], None if twf[1] is None else twf[1][row])
         s0 = first
         for g, R in enumerate(geo.ranks):
-            K = 1 << R
             log2L = s0 if t.inverse else log2m - s0 - R
             from_mem, to_mem = g == 0, g == len(geo.ranks) - 1
             _, sets, c = _units(geo, m, R)
@@ -133,31 +163,8 @@ def _launch_model(x3, t, fc: FieldConsts, tw3, first: int, last: int):
             else:
                 v = T[slots]
                 assert not (v == -1).any(), "a tile word read before it was written"
-            v = list(v.unbind(1))
             scaled = t.inverse and to_mem and last == log2m
-            for s in range(R):
-                h = 1 << s if t.inverse else 1 << (R - 1 - s)
-                for k in range(K):
-                    if k & h:
-                        continue
-                    i = ((h + (k & (h - 1))) << log2L) + tb
-                    assert int(i.min()) >= 0 and int(i.max()) < geo.tab_entries
-                    w, wp = tab_w[i], None if tab_wp is None else tab_wp[i]
-                    x0, x1 = v[k], v[k + h]
-                    if not t.inverse:
-                        y0 = fc.add(x0, x1)
-                        d = (x0 - x1 + two_n) if fc.lazy else fc.sub(x0, x1)
-                        y1 = fc.twiddle_mul(d, w, wp)
-                    elif scaled and s == R - 1:
-                        sc, scp = (None if q is None else torch.full_like(x0, s64(q))
-                                   for q in t.scale)
-                        a0, b1 = fc.twiddle_mul(x0, sc, scp), fc.twiddle_mul(x1, w, wp)
-                        y0, y1 = fc.add(a0, b1), fc.sub(a0, b1)
-                    else:
-                        tt = fc.twiddle_mul(x1, w, wp)
-                        y0, y1 = fc.add(x0, tt), fc.sub(x0, tt)
-                    v[k], v[k + h] = y0, y1
-            v = torch.stack(v, 1)
+            v = _butterflies(v, t, fc, geo, R, log2L, tb, scaled, lane=False)
             if to_mem:
                 if fused and t.inverse:
                     v = inter_step_mul(fc, v, _row(TW, j))
@@ -264,9 +271,11 @@ def test_geometry_limits():
     holds every half-width of the range, and the tiles cover every column
     once."""
     src = open(os.path.join(CSRC, "ntt_radix2.cu")).read()
-    assert ("const long long want = 8 * tile_words + (long long)tab_entries * "
-            "(modmul == 2 ? 8 : 16) +") in src
-    assert "(fused ? (8ll << log2m) * (tw_mode == 1 ? 2 : 1) : 0);" in src
+    assert "const long long tab_bytes = (long long)tab_entries * (modmul == 2 ? 8 : 16);" in src
+    assert ("const long long tw_bytes = 8ll * (tw_mode == 1 ? 2 : 1) * (lane ? tile_words : 1ll "
+            "<< log2m);") in src
+    assert ("const long long want = 8 * tile_words + tab_bytes + (fused && (staged || !lane) ? "
+            "tw_bytes : 0);") in src
     for log2m in range(1, 13):
         m = 1 << log2m
         ranges = {(0, log2m)} | {(f, min(f + spc, log2m)) for spc in (1, 3, 5)
@@ -343,6 +352,312 @@ def test_exchange_is_free_of_bank_conflicts():
                         same = (hw[:, :, None, :] == hw[:, None, :, :]).sum(dim=2)
                         assert int(same.max()) == 1, (m, inverse, B, A, R, r)
                     s0 += R
+
+
+# ---------------------------------------------------------------------------
+# the lane orientation (K6)
+# ---------------------------------------------------------------------------
+
+
+def _lane_units(geo, m: int, R: int):
+    """(unit ids, row, set) of a lane group of R stages: unit u = row *
+    (m >> R) + set, thread u mod threads taking units u, u + threads, ..."""
+    log2s = m.bit_length() - 1 - R
+    u = torch.arange(geo.cols << log2s)
+    return u, u >> log2s, u & ((1 << log2s) - 1)
+
+
+def _lane_ends(geo, m: int, inverse: bool):
+    """Per group (R, log2L, through the tile at the row's contiguous end)."""
+    n, s0, out = m.bit_length() - 1, 0, []
+    for R in geo.ranks:
+        log2L = s0 if inverse else n - s0 - R
+        out.append((R, log2L, len(geo.ranks) > 1 and log2L == 0))
+        s0 += R
+    return out
+
+
+def _lane_geometry(x3, t, fc: FieldConsts, tw3):
+    tw_words = 0 if tw3 is None else (1 if tw3.wp is None else 2)
+    m, B = x3.shape[1], x3.shape[0]
+    return P.butterfly_geometry(m, 0, m.bit_length() - 1, t.inverse, B, 1,
+                                fc.modmul == "solinas", tw_words, t.rows, lane=True)
+
+
+def _stage(a: torch.Tensor, off: int, words: int, n: int) -> torch.Tensor:
+    """A tile's n words of the flat array ``a`` from word ``off`` at the
+    tile's slots, zeros from word ``words`` on (the kernel's cp.async)."""
+    i = torch.arange(n)
+    S = torch.zeros(n, dtype=torch.int64)
+    S[_slot(i, True)] = torch.where(i < words, a[off + torch.where(i < words, i, 0)], 0)
+    return S
+
+
+def _lane_model(x, t, fc: FieldConsts, tw=None):
+    """K6 as the kernel runs it, on the CPU: the (rows, m, 1) view and its
+    geometry as ``_launch_regs`` makes them; per tile of C rows, one 64-bit
+    offset and tile words w = r m + j; per group the (row, set) units and
+    their points; the first group reading device memory (through the tile
+    where it is the inverse's contiguous end, L = 1, copied in), the last
+    writing it (through the tile where it is the forward's contiguous end,
+    copied out); the twiddle multiplied after the first group's reads
+    (forward) or before the last group's writes (inverse), the inverse's
+    staged at the tile's slots where the row has two groups or more and it
+    fits (``geo.tw_bytes``), else read from device memory; the exchanges through
+    the swizzled tile.  Every output is written once and every exchange is
+    a permutation of the tile."""
+    rows_t = P._lane_rows(x, t.m)
+    x3 = rows_t.unsqueeze(2)
+    tw3 = None if tw is None else P._lane_tw(tw, x, rows_t)
+    (A, m, B), (_, sm, sb), _ = P._view(x3, True)
+    assert (A, sm, sb) == (1, 1, m)
+    geo = _lane_geometry(x3, t, fc, tw3)
+    tw_words = 0 if tw3 is None else (1 if tw3.wp is None else 2)
+    staged = geo.tw_bytes > 0
+    assert geo.tab_lo == 0 and geo.tw_bytes in (0, 8 * geo.tile_words * tw_words)
+    assert t.inverse or not staged
+    assert geo.smem == _lane_kernel_smem(geo, m, fc.modmul == "solinas", tw_words, t.inverse)
+    log2m = m.bit_length() - 1
+    xf = x3.reshape(-1)
+    twf = None if tw3 is None else [None if v is None else v.reshape(-1) for v in tw3]
+    out = torch.zeros_like(xf)
+    writes = torch.zeros_like(xf)
+    last = len(geo.ranks) - 1
+    for tile in range(-(-B // geo.cols)):
+        r0 = tile * geo.cols
+        off, rows = r0 * m, min(geo.cols, B - r0)  # the tile's one 64-bit index
+        words = rows * m
+        T = torch.full((geo.tile_words,), -1, dtype=torch.int64)
+        if staged:
+            SW = [None if v is None else _stage(v, off, words, geo.tile_words) for v in twf]
+
+        def twiddle(w, ok):
+            """The twiddle of tile words w: staged (slot) or from memory."""
+            if staged:
+                sl = _slot(w, True)
+                return MontPair(SW[0][sl], None if SW[1] is None else SW[1][sl])
+            return _row(MontPair(*twf), off + torch.where(ok, w, 0))
+
+        for g, (R, log2L, end) in enumerate(_lane_ends(geo, m, t.inverse)):
+            copy_in = g == 0 and end
+            if copy_in:  # cp.async of the tile, zeros past the rows
+                T = _stage(xf, off, words, geo.tile_words)
+            out_mem = g == last and not end
+            _, row, sets = _lane_units(geo, m, R)
+            w = (row << log2m)[:, None] + _points(R, log2L, sets)  # tile words
+            ok = (row < rows)[:, None].expand_as(w)
+            tb = (sets & ((1 << log2L) - 1)) - 1 - geo.tab_lo
+            if g == 0 and not copy_in:
+                v = torch.where(ok, xf[off + torch.where(ok, w, 0)], 0)
+            else:
+                v = T[_slot(w, True)]
+                assert not (v[ok] == -1).any(), "a tile word read before it was written"
+            if g == 0 and tw3 is not None and not t.inverse:
+                v = torch.where(ok, inter_step_mul(fc, v, twiddle(w, ok)), v)
+            v = _butterflies(v, t, fc, geo, R, log2L, tb, t.inverse and g == last, lane=True)
+            if out_mem:
+                if tw3 is not None and t.inverse:
+                    v = inter_step_mul(fc, v, twiddle(w, ok))
+                out[off + w[ok]] = v[ok]
+                writes.index_add_(0, off + w[ok], torch.ones(int(ok.sum()), dtype=torch.int64))
+            else:
+                slots = _slot(w, True).reshape(-1)
+                assert torch.equal(slots.sort().values, torch.arange(geo.tile_words))
+                T[slots] = v.reshape(-1)
+            if g == last and end:  # the copy out, along the rows
+                i = torch.arange(words)
+                out[off + i] = T[_slot(i, True)]
+                writes.index_add_(0, off + i, torch.ones(words, dtype=torch.int64))
+    assert torch.equal(writes, torch.ones_like(writes)), "an output written twice or never"
+    return out.reshape(x.shape)
+
+
+def _lane_twiddle(rng, shape, fc: FieldConsts, mode: str | None):
+    """A lane inter-step twiddle of the data's shape (``_twiddle``'s modes)."""
+    return _twiddle(rng, shape, fc, mode)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("name,mod,modmul", ENGINES, ids=[e[0] for e in ENGINES])
+def test_lane_schedule_matches_plain(name, mod, modmul, inverse):
+    """m in {2, 8, 32, 64, 128, 256}: the lane model equals ``lane_plain``
+    bitwise on 6 rows (one a tile: the grid rule's smallest tiles), the
+    twiddle modes of the engine (none, "pair" / "w", Solinas "w") taken in
+    turn; at m = 256 on 9 rows in lane_rows tiles of 4 (a thread walking
+    units, the last tile partial), at m = 32 on 520 rows in tiles of 512
+    (the twiddle read unstaged, the last tile partial)."""
+    fc = FieldConsts.from_modulus(mod, modmul=modmul)
+    rng = np.random.default_rng(101 + 2 * ENGINES.index((name, mod, modmul)) + inverse)
+    modes = (None, "w") if modmul == "solinas" else (None, "pair", "w")
+    kw = dict(inverse=inverse, modmul=modmul, device="cpu")
+    for i, m in enumerate((2, 8, 32, 64, 128, 256)):
+        t = P.make_lane_tables(mod, m, **kw)
+        mode = modes[i % len(modes)]
+        x = _input(rng, (6, m), fc)
+        tw = _lane_twiddle(rng, (6, m), fc, mode)
+        assert torch.equal(_lane_model(x, t, fc, tw), P.lane_plain(x, t, fc, tw)), (m, mode)
+    t = P.make_lane_tables(mod, 256, rows=4, **kw)
+    x = _input(rng, (3, 3, 256), fc)  # batch dims before the row: 9 rows
+    tw = _lane_twiddle(rng, (3, 3, 256), fc, modes[1])
+    assert torch.equal(_lane_model(x, t, fc, tw), P.lane_plain(x, t, fc, tw))
+    # a lane_rows tile whose twiddle does not fit beside it: read unstaged
+    t = P.make_lane_tables(mod, 32, rows=512, **kw)
+    x = _input(rng, (520, 32), fc)
+    tw = _lane_twiddle(rng, (520, 32), fc, modes[-1])
+    assert _lane_geometry(x.unsqueeze(2), t, fc, tw).tw_bytes == 0
+    assert torch.equal(_lane_model(x, t, fc, tw), P.lane_plain(x, t, fc, tw))
+
+
+def _lane_kernel_smem(geo, m: int, solinas: bool, tw_words: int, inverse: bool) -> int:
+    """The C entry's lane layout: where there are two groups or more the
+    exchange tile and, for the inverse where it fits in a block's shared
+    memory beside it, a tile's worth of each twiddle word, staged; the
+    stage-table slice."""
+    tile = 8 * geo.cols * m if len(geo.ranks) > 1 else 0
+    tab = geo.tab_entries * (8 if solinas else 16)
+    staged = tile * tw_words if inverse else 0
+    return tile + tab + (staged if tile + tab + staged <= P.MAX_SMEM else 0)
+
+
+def test_lane_geometry_limits():
+    """Every m in 2..4096, several row counts, both directions, both table
+    widths, with and without lane_rows: the groups add up to log2 m, at most
+    RADIX2_MAX_R each; the shared memory fits a block and equals the C
+    entry's layout; a block has min(256, rows a tile x the widest group's
+    set count) threads; the rows a tile fill LANE_THREADS unless B or the
+    grid forbids (at least two blocks an SM where B allows); the tiles
+    cover every row once; the ends run on the tile exactly where a
+    multi-group row has L = 1, never in the group that multiplies the
+    twiddle (the forward's first, the inverse's last)."""
+    src = open(os.path.join(CSRC, "ntt_radix2.cu")).read()
+    assert "const bool end = p.ngroups > 1 && log2L == 0;" in src
+    assert ("const bool staged = lane && inverse && fused && ngroups > 1 &&\n"
+            "                      8 * tile_words + tab_bytes + tw_bytes <= MAX_SMEM;") in src
+    with pytest.raises(ValueError):
+        P.butterfly_geometry(256, 0, 4, False, 64, 1, lane=True)
+    for log2m in range(1, 13):
+        m = 1 << log2m
+        for inverse in (False, True):
+            for B in (1, 5, 40, 512, 2048, 65536, 524288):
+                for solinas, tw_words in ((False, 0), (True, 1), (False, 2)):
+                    for rows in (None, 1, 64):
+                        args = (m, 0, log2m, inverse, B, 1, solinas, tw_words, rows)
+                        if rows is not None and 8 * rows * m > P.MAX_SMEM:
+                            with pytest.raises(ValueError):  # a lane_rows tile too large
+                                P.butterfly_geometry(*args, lane=True)
+                            continue
+                        geo = P.butterfly_geometry(*args, lane=True)
+                        assert sum(geo.ranks) == log2m and max(geo.ranks) <= P.RADIX2_MAX_R
+                        assert geo.smem <= P.MAX_SMEM
+                        assert geo.smem == _lane_kernel_smem(geo, m, solinas, tw_words, inverse)
+                        sets = m >> max(geo.ranks)
+                        assert geo.threads == min(256, geo.cols * sets)
+                        if rows is not None:
+                            assert geo.cols == rows
+                        else:  # the widest tile of at most 256 threads the rule keeps
+                            def kept(c):
+                                wide = dataclasses.replace(geo, cols=c)
+                                smem = _lane_kernel_smem(wide, m, solinas, tw_words, inverse)
+                                return c == 1 or (smem <= P.SMEM_THREE_BLOCKS
+                                                  and -(-B // c) >= 2 * 132)
+                            top = min(max(1, P.LANE_THREADS // sets), P._pow2_at_least(B))
+                            assert geo.cols <= top and geo.cols & (geo.cols - 1) == 0
+                            assert kept(geo.cols) and (geo.cols == top or not kept(2 * geo.cols))
+                        r = (torch.arange(-(-B // geo.cols))[:, None] * geo.cols
+                             + torch.arange(geo.cols))
+                        assert torch.equal(r[r < B], torch.arange(B))
+                        ends = _lane_ends(geo, m, inverse)
+                        assert [e for _, _, e in ends] == [
+                            len(ends) > 1 and g == (0 if inverse else len(ends) - 1)
+                            for g in range(len(ends))]
+                        twiddled = ends[-1] if inverse else ends[0]
+                        assert not twiddled[2]
+
+
+def test_lane_geometry_at_the_plans_shapes():
+    """The lane roots of the radix-2 plans: 2^24 (65536 x 256, pair) 4 + 4
+    stages on tiles of 8 rows, 128 threads: 20,464 bytes forward, 53,232
+    for the inverse with its twiddle staged, so four blocks share an SM as
+    their registers allow (Solinas, one twiddle word: 18,424 / 34,808);
+    2^17 (2048 x 64) 3 + 3 in 512 tiles of 4 rows, 32 threads; 2^26
+    (524288 x 128) 4 + 3 on tiles of 16 rows, 128 threads."""
+    for inverse in (False, True):
+        geo = P.butterfly_geometry(256, 0, 8, inverse, 65536, 1, False, 2, lane=True)
+        assert (geo.ranks, geo.cols, geo.threads, geo.tile_words) == ((4, 4), 8, 128, 2048)
+        assert geo.smem == 8 * 2048 + 16 * 255 + (16 * 2048 if inverse else 0)
+        assert geo.smem == (53232 if inverse else 20464)
+        assert 4 * (geo.smem + 1024) <= 233472
+        sol = P.butterfly_geometry(256, 0, 8, inverse, 65536, 1, True, 1, lane=True)
+        assert (sol.cols, sol.threads) == (8, 128)
+        assert sol.smem == (34808 if inverse else 18424)
+        g17 = P.butterfly_geometry(64, 0, 6, inverse, 2048, 1, False, 2, lane=True)
+        assert (g17.ranks, g17.cols, g17.threads, -(-2048 // g17.cols)) == ((3, 3), 4, 32, 512)
+        g26 = P.butterfly_geometry(128, 0, 7, inverse, 524288, 1, False, 2, lane=True)
+        assert (g26.ranks, g26.cols, g26.threads) == ((4, 3), 16, 128)
+
+
+def _lane_accesses(geo, m: int, inverse: bool):
+    """Every access of a lane tile with a fused twiddle, per group and round
+    of the block's threads: (kind, thread ids, words (threads, points));
+    kind "mem" for device memory, "tile" for shared memory (the exchange
+    tile, the staged twiddle: the same slots).  The copies -- the staging
+    of the twiddle, the inverse's copy-in, the forward's copy-out -- move
+    one word a thread and round along the tile; the fused group reads the
+    twiddle at its points' words."""
+    out, threads = [], geo.threads
+    staged = geo.tw_bytes > 0
+
+    def copy(kinds):
+        for r in range(-(-geo.tile_words // threads)):
+            i = torch.arange(r * threads, min((r + 1) * threads, geo.tile_words))
+            out.extend((k, i - r * threads, i[:, None]) for k in kinds)
+
+    if staged:
+        copy(("mem", "tile"))
+    ends = _lane_ends(geo, m, inverse)
+    for g, (R, log2L, end) in enumerate(ends):
+        last = g == len(ends) - 1
+        if g == 0 and end:
+            copy(("mem", "tile"))
+        u, row, sets = _lane_units(geo, m, R)
+        w = (row << (m.bit_length() - 1))[:, None] + _points(R, log2L, sets)
+        kinds = {"tile" if g > 0 or end else "mem",
+                 "mem" if last and not end else "tile"}
+        if g == (len(ends) - 1 if inverse else 0):
+            kinds.add("tile" if staged else "mem")
+        for r in range(-(-len(u) // threads)):
+            live = slice(r * threads, (r + 1) * threads)
+            out += [(k, u[live] - r * threads, w[live]) for k in sorted(kinds)]
+        if last and end:
+            copy(("tile", "mem"))
+    return out
+
+
+def test_lane_accesses_are_coalesced_and_conflict_free():
+    """At every m with more than one group (32 ... 4096) and the plans'
+    row counts, both directions, staged and (a lane_rows tile too large for
+    the buffers) not: each warp's device-memory access of one point (x, out
+    and the twiddle at the same words) fills whole 32-byte sectors --
+    neighbouring lanes on neighbouring words of a row, the copies along the
+    rows -- and each half-warp's shared-memory access falls on 16 distinct
+    bank pairs of the swizzled layout."""
+    for log2m in range(5, 13):
+        m = 1 << log2m
+        for inverse in (False, True):
+            for B, rows in ((40, None), (2048, None), (65536, None), (16384, 16384 >> log2m)):
+                geo = P.butterfly_geometry(m, 0, log2m, inverse, B, 1, False, 2, rows, lane=True)
+                assert (geo.tw_bytes > 0) == (rows is None and inverse)
+                for kind, tid, words in _lane_accesses(geo, m, inverse):
+                    # per (half-)warp and point: the sectors it touches (each
+                    # holds at most 4 of its distinct words) or its banks
+                    group = (tid // (16 if kind == "tile" else 32))[:, None]
+                    at = group * words.shape[1] + torch.arange(words.shape[1])
+                    if kind == "mem":
+                        keys = at * (1 << 40) + (words >> 2)
+                        assert len(torch.unique(keys)) * 4 == words.numel(), (m, inverse, B)
+                    else:
+                        keys = at * 16 + (_slot(words, True) & 15)
+                        assert len(torch.unique(keys)) == words.numel(), (m, inverse, B)
 
 
 # ---------------------------------------------------------------------------

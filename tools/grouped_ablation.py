@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""What bounds the register butterfly kernels on one card: the grouped one
-(csrc/ntt_grouped.cu) and the radix-2 one (csrc/ntt_radix2.cu).
+"""What bounds the butterfly kernels on one card: the grouped register
+kernel (csrc/ntt_grouped.cu), the radix-2 register kernel
+(csrc/ntt_radix2.cu) and, for the lane, the first port's stage-by-stage
+kernel (csrc/ntt_pallas.cu).
 
     python3 tools/grouped_ablation.py [--reps N]
 
-Builds, besides the port's kernels, two ablated copies of both register
-kernels and one microbenchmark, each with nvcc into a temporary
-directory, and times them at the 2^24 plans' shapes (K7 256 x 65536, K8
-65536 rows of 256 with the pair twiddle, max_r 3; K4 256 x 65536, K5
-(256, 256, 256) with the pair twiddle; forward) in one call:
+Builds, besides the port's kernels, ablated copies of them and one
+microbenchmark, each with nvcc into a temporary directory, and times them
+at the 2^24 plans' shapes (K7 256 x 65536, K8 65536 rows of 256 with the
+pair twiddle, max_r 3; K4 256 x 65536, K5 (256, 256, 256) with the pair
+twiddle, K6 65536 rows of 256 with the pair twiddle, on the register
+kernel and on the stage-by-stage one, and on the register kernel without
+a twiddle ("K6 bare"); forward, K6 also inverse) in one call:
 
 * "as built": the kernel itself;
 * "no products": every stage, constant and table multiply replaced by an
   XOR (field.cuh twiddle_mul), the rest unchanged -- the time of the
-  butterflies' additions, the exchanges, the copies and the indexing (K5's
-  and K8's inter-step twiddle keeps its product);
-* "no device memory": the tile (K7 / K8) or the first group's points
-  (K4 / K5) read from a fixed address and the results not stored (a store
-  the compiler cannot drop, never taken) -- the time without HBM traffic;
+  butterflies' additions, the exchanges, the copies and the indexing (the
+  inter-step twiddle of K5, K6 and K8 keeps its product);
+* "no device memory": the data's reads from a fixed address and its
+  stores never taken (a store the compiler cannot drop) -- the tile of K7
+  / K8, the first group's points of K4 / K5, every read and write of x
+  and out of K6 (its row-end tile copies included) -- the time without
+  the data's HBM traffic (the inter-step twiddle is still read);
+* K6's row end (the group of row unit 1) "end direct": each thread's 2^R
+  neighbouring words straight from / to device memory, 8 bytes an access,
+  instead of through the tile; "end vector": the same, 16 bytes an access;
+  "twiddle direct": K6's inverse twiddle read straight from device memory
+  into registers before the last group's writes, as the forward reads
+  its own, instead of staged in shared memory (the forward as built);
 * the Montgomery product alone (field.cuh mont_mul), 1, 4 and 8
   independent chains a thread, 8 blocks of 256 threads an SM: the card's
-  rate of the product the kernel is made of.
+  rate of the product the kernels are made of.
 
 The ablated kernels compute wrong results on purpose; only the unablated
-kernel is checked (against the plain version).  CUDA-event medians of
-``--reps`` CUDA-graph replays (device time), with the card's name and
-power limit.
+kernels and the end variants, which compute the same function, are checked
+(against the plain version).  CUDA-event medians of ``--reps`` CUDA-graph
+replays (device time), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -81,6 +93,11 @@ extern "C" float mont_chains(int ilp, int blocks, int iters, unsigned long long 
 """
 
 
+#: Copies that change K6's row end or twiddle reads alone: they compute
+#: the same function, so they are checked, and only K6 is timed on them.
+K6_ONLY = ("end direct", "end vector", "twiddle direct")
+
+
 def _sub(text: str, old: str, new: str) -> str:
     if old not in text:
         raise RuntimeError(f"ablation anchor not found in the kernel source: {old[:60]!r}")
@@ -94,10 +111,50 @@ def _build_all(out_dir: str) -> dict:
 
     grouped = open(os.path.join(_build.CSRC, "ntt_grouped.cu")).read()
     radix2 = open(os.path.join(_build.CSRC, "ntt_radix2.cu")).read()
+    stages = open(os.path.join(_build.CSRC, "ntt_pallas.cu")).read()
     field = open(os.path.join(_build.CSRC, "field.cuh")).read()
     never = "if (v[k] == 0x123456789ull) "  # a store the compiler cannot drop
+    lane_load = "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)X[w0 + k * L] : 0ull;"
+    lane_store = "for (int k = 0; k < K; ++k) O[w0 + k * L] = (long long)v[k];"
+    copy_in = "cp_async8(T + slot<true>(i), X + (i < words ? i : 0), i < words);"
+    copy_out = "O[i] = (long long)T[slot<true>(i)];"
+    radix2_no_mem = radix2
+    for old, new in (
+        ("for (int k = 0; k < K; ++k) v[k] = ok ? (u64)src[k * Lsm] : 0ull;",
+         "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)__ldg(p.x + k) : 0ull;"),
+        ("for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
+         "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
+        (lane_load, "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)__ldg(p.x + k) : 0ull;"),
+        (lane_store, "for (int k = 0; k < K; ++k)\n          " + never + "O[w0 + k * L] = (long long)v[k];"),
+        (copy_in, "cp_async8(T + slot<true>(i), X, i < words);"),
+        (copy_out, "{ const u64 v = T[slot<true>(i)]; if (v == 0x123456789ull) O[i] = (long long)v; }"),
+    ):
+        radix2_no_mem = _sub(radix2_no_mem, old, new)
+    # K6's row end straight from registers: no group runs on the tile's copies
+    direct = _sub(radix2, "const bool end = p.ngroups > 1 && log2L == 0;", "const bool end = false;")
+    vector = _sub(_sub(direct, "#pragma unroll\n      " + lane_load, (
+        "if (L == 1) {  // 2^R neighbouring words, 16-byte aligned\n"
+        "        const ulonglong2 *s2 = reinterpret_cast<const ulonglong2 *>(X + (ok ? w0 : 0));\n"
+        "#pragma unroll\n"
+        "        for (int k = 0; k < K; k += 2) {\n"
+        "          const ulonglong2 e = ok ? s2[k / 2] : make_ulonglong2(0, 0);\n"
+        "          v[k] = e.x;\n"
+        "          v[k + 1] = e.y;\n"
+        "        }\n"
+        "      } else {\n"
+        "#pragma unroll\n"
+        "        " + lane_load + "\n"
+        "      }")), "#pragma unroll\n        " + lane_store, (
+        "if (L == 1) {\n"
+        "          longlong2 *d2 = reinterpret_cast<longlong2 *>(O + w0);\n"
+        "#pragma unroll\n"
+        "          for (int k = 0; k < K; k += 2) d2[k / 2] = make_longlong2(v[k], v[k + 1]);\n"
+        "        } else {\n"
+        "#pragma unroll\n"
+        "          " + lane_store + "\n"
+        "        }"))
     copies = {
-        "no products": ({"grouped": grouped, "radix2": radix2},
+        "no products": ({"grouped": grouped, "radix2": radix2, "stages": stages},
                         _sub(field, "  return mont_mul(a, w, wp, N, lazy);\n}", "  return a ^ w;\n}")),
         "no device memory": ({
             "grouped": _sub(_sub(
@@ -105,12 +162,16 @@ def _build_all(out_dir: str) -> dict:
                 "cp_async8(D + s, p.x, ok);"),
                 "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
                 "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
-            "radix2": _sub(_sub(
-                radix2, "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)src[k * Lsm] : 0ull;",
-                "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)__ldg(p.x + k) : 0ull;"),
-                "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
-                "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
+            "radix2": radix2_no_mem,
+            "stages": _sub(_sub(
+                stages, "v = (u64)x[a * sa + j * sm + col * sb];", "v = (u64)__ldg(x + j);"),
+                "out[a * sa + j * sm + col * sb] = (long long)v;",
+                "if (v == 0x123456789ull) out[a * sa + j * sm + col * sb] = (long long)v;"),
         }, field),
+        "end direct": ({"radix2": direct}, field),
+        "end vector": ({"radix2": vector}, field),
+        "twiddle direct": ({"radix2": _sub(radix2, "const bool staged = INV && p.staged;",
+                                           "const bool staged = false;")}, field),
         "mont chains": ({"bench": MULBENCH}, field),
     }
     procs, libs = {}, {}
@@ -156,10 +217,13 @@ def main() -> int:
     libs = {"as built": _build.load()}
     with tempfile.TemporaryDirectory() as tmp:
         paths = _build_all(tmp)
-        for name in ("no products", "no device memory"):
+        for name in ("no products", "no device memory") + K6_ONLY:
             lib = ctypes.CDLL(paths[name])
-            for fn, argtypes in ((lib.sventt_grouped_ntt, P._GROUPED_REG_ARGTYPES),
-                                 (lib.sventt_radix2_ntt, P._RADIX2_ARGTYPES)):
+            entries = (("sventt_grouped_ntt", P._GROUPED_REG_ARGTYPES),
+                       ("sventt_radix2_ntt", P._RADIX2_ARGTYPES),
+                       ("sventt_butterfly_ntt", P._ARGTYPES))
+            for fname, argtypes in entries[1:2] if name in K6_ONLY else entries:
+                fn = getattr(lib, fname)
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
             libs[name] = lib
@@ -179,27 +243,45 @@ def main() -> int:
         t4 = P.make_leaf_tables(flag, 256, inverse=False, device="cuda")
         x5 = x.view(256, 256, 256)
         tw5 = P._mid_tw(cs.rand_twiddle(rng, (256, 256), flag, "pair", "cuda"), x5)
+        t6, t6i = (P.make_lane_tables(flag, 256, inverse=i, device="cuda") for i in (False, True))
+        x6 = x.view(1 << 16, 256)
+        cols6 = max(1, P.TILE_POINTS // 256)
         check = {"K7": P.grouped_plain(x, t7, fc).view(x7.shape),
-                 "K8": P.lane_grouped_plain(x.view(1 << 16, 256), t8, fc, tw).view(x8.shape),
+                 "K8": P.lane_grouped_plain(x6, t8, fc, tw).view(x8.shape),
                  "K4": P._stages_plain(x7, t4, fc, False),
-                 "K5": P._stages_plain(x5, t4, fc, False, tw5)}
+                 "K5": P._stages_plain(x5, t4, fc, False, tw5),
+                 "K6": P.lane_plain(x6, t6, fc, tw).view(x8.shape),
+                 "K6 inv": P.lane_plain(x6, t6i, fc, tw).view(x8.shape),
+                 "K6 bare": P.lane_plain(x6, t6, fc).view(x8.shape),
+                 "K6 bare inv": P.lane_plain(x6, t6i, fc).view(x8.shape)}
+        check["K6 stages"], check["K6 stages inv"] = check["K6"], check["K6 inv"]
         calls = {"K7": lambda: P._launch_grouped(x7, t7, fc, None, False),
                  "K8": lambda: P._launch_grouped(x8, t8, fc, tw8, True),
                  "K4": lambda: P._launch_regs(x7, t4, fc, None, 0, 8),
-                 "K5": lambda: P._launch_regs(x5, t4, fc, tw5, 0, 8)}
+                 "K5": lambda: P._launch_regs(x5, t4, fc, tw5, 0, 8),
+                 "K6": lambda: P._launch_regs(x8, t6, fc, tw8, 0, 8, lane=True),
+                 "K6 inv": lambda: P._launch_regs(x8, t6i, fc, tw8, 0, 8, lane=True),
+                 "K6 bare": lambda: P._launch_regs(x8, t6, fc, None, 0, 8, lane=True),
+                 "K6 bare inv": lambda: P._launch_regs(x8, t6i, fc, None, 0, 8, lane=True),
+                 "K6 stages": lambda: P._launch(x8, t6, fc, tw8, True, cols6, 0, 8),
+                 "K6 stages inv": lambda: P._launch(x8, t6i, fc, tw8, True, cols6, 0, 8)}
         cs.log(f"[ablation] median ms of {args.reps} CUDA-graph replays at the 2^24 shapes, "
-               "forward (K7 / K8 max_r 3; K4 / K5 the radix-2 register kernel)")
+               "forward unless marked (K7 / K8 max_r 3; K4 / K5 / K6 the radix-2 register "
+               "kernel, K6 stages the stage-by-stage one)")
         build_load = _build.load
         for name, lib in libs.items():
             _build.load = (lambda lib=lib: lib)  # the launcher loads this library
+            exact = name == "as built" or name in K6_ONLY
             try:
                 for key, call in calls.items():
+                    if name in K6_ONLY and key not in ("K6", "K6 inv"):
+                        continue
                     ok = torch.equal(call(), check[key])
-                    if name == "as built":
-                        cs.check(ok, f"{key}: the kernel != plain")
+                    if exact:
+                        cs.check(ok, f"{key} {name}: the kernel != plain")
                     ms = cs.timed_graph(call, 3, args.reps)
                     cs.log(f"  {key} {name}: {ms:.4f} ms"
-                           + ("" if name == "as built" else " (ablated: results not checked)"))
+                           + ("" if exact else " (ablated: results not checked)"))
             finally:
                 _build.load = build_load
         w = 0x123456789ABCDEF % flag.modulus
