@@ -9,25 +9,31 @@ Phases, each printing its own lines:
 2. build: the CUDA kernels and the native golden oracle, from this checkout,
    with each kernel's -Xptxas -v lines; fails if an instantiation of one
    of the three redesigned kernels (the tensor-core matrix kernel
-   csrc/ntt_mxu_tc.cu, the grouped and the radix-2 register kernels
-   csrc/ntt_grouped.cu, csrc/ntt_radix2.cu) spills;
+   csrc/ntt_mxu_tc.cu, its 13 lane instantiations included, the grouped
+   and the radix-2 register kernels csrc/ntt_grouped.cu,
+   csrc/ntt_radix2.cu) spills;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same card tensors, bitwise, at the main paths' shapes --
-   the s8 matrix NTT (K1 lead and K2 mid on the int8 tensor cores, K3 lane
-   on __dp4a; each case checks which kernel launched) with every twiddle
-   mode, both directions, both moduli, a ragged batch and the m = 1024
-   crafted plane-minimizer input, and for the tensor-core kernel m = 2, 8,
-   32, 64 and 1024, batches that are not a multiple of its block, the
-   2^17 plan's launches with their row split and a mid call with A =
-   70000 > 65535 slices; the radix-2 butterfly kernels (K4 leaf, K5 mid
-   and K6 lane on the register kernel, csrc/ntt_radix2.cu, each case also
+   the s8 matrix NTT (K1 lead, K2 mid and K3 lane on the int8 tensor
+   cores; each case checks which kernel launched) with every twiddle mode
+   (K3's fused in the data's layout: pair, w, Solinas on the flagship and
+   Goldilocks), both directions, both moduli, a ragged batch and the m =
+   1024 crafted plane-minimizer input (lead and lane), and for the
+   tensor-core kernel m = 2, 8, 32, 64, 512 and 1024, batches that are not
+   a multiple of its block, the 2^17 plan's launches with their row split
+   (K3 at the 2^17, 2^24 and 2^26 roots) and a mid call with A = 70000 >
+   65535 slices; each K3 case also on the __dp4a A/B point and, with the
+   pair inverse (the staged epilogue), on the fragment-store one; the
+   radix-2 butterfly kernels (K4 leaf, K5 mid and K6 lane on the register
+   kernel, csrc/ntt_radix2.cu, each case also
    on the first port's stage-by-stage kernel, the A/B point
    ``_launch_stages``) with every twiddle mode, both directions, the
    flagship and the lazy test modulus under Montgomery and Shoup, a ragged
    batch, m = 2 ... 4096, the 2^17, 2^24 and 2^26 plans' launches, spc /
    block_b / lane_rows tiles, a strided (A, m, B) view and A = 70000
    slices;
-   the same matrix cases under the u7 and s8b plane schemes, with K1's
+   the same matrix cases under the u7 and s8b plane schemes (s8b's K3 on
+   the tensor cores, u7's on __dp4a), with K1's
    2^24 shape and, for u7, the m = 1024 all-ones input (against the golden
    model too); K11 (the fused u7 prototype) at (128, 32768), with columns
    0 and 7777 against the golden model;
@@ -47,9 +53,11 @@ Phases, each printing its own lines:
    flagship modulus, plus each butterfly engine on the lazy test modulus at
    2^24 (``modmul="auto"`` resolves to Shoup there), forward and inverse,
    elementwise against the native oracle (computed once per modulus and
-   length), with an exact roundtrip; then ``mxu_ntt_lane`` (K3, which no
-   plan calls) on the 2^24 root-row shape against the lead orientation
-   between transposes, and ``transpose01_u64(x, "pallas")`` /
+   length), with an exact roundtrip; the mxu paths must run every root on
+   K3 (``mxu_ntt_lane``) and no transpose (the planner's ``transpose01``
+   is counted); then K3 with the fused twiddle on the 2^24 root shape
+   against JAX's root step on the card (a transpose, K1 with the transposed
+   table, a transpose back), and ``transpose01_u64(x, "pallas")`` /
    ``transpose_pallas`` on the 2^24 root-row shapes against the torch
    copy; the u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
    ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
@@ -60,8 +68,8 @@ Phases, each printing its own lines:
    inter-step pass.  Each path runs with the launch counts
    set to 0 just before and read just after: every kernel of the path must
    have launched, and no plain version may have run; on the matrix paths
-   every lead / mid launch must have run the tensor-core kernel and none
-   the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly
+   every lead / mid / lane launch must have run the tensor-core kernel and
+   none the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly
    paths (flagship, TEST, Solinas, distributed) every leaf / mid / lane
    launch the register kernel and none the stage-by-stage one
    (``ntt_pallas.KERNEL_LAUNCHES``);
@@ -85,7 +93,13 @@ Phases, each printing its own lines:
    least time the card could take -- K1 / K2 (pair, w, Solinas, and the
    2^17 plan's launches) on the tensor cores timed in turns with the
    __dp4a kernel at the same call (``ntt_mxu._launch_dp4a_s8``: dp4a, tc,
-   tc, dp4a), with the speedup and the achieved int8 TOP/s; K7 / K8 on the
+   tc, dp4a), with the speedup and the achieved int8 TOP/s, and K3 the
+   same way as CUDA-graph replays, both directions with the pair twiddle;
+   the mxu root step as JAX's sandwich (transpose, K1, transpose) against
+   K3 with the twiddle fused at the 2^24 and 2^17 roots, and K3's staged
+   epilogue against the stores from the fragment (the pair inverse at the
+   2^24, 2^17 and 2^26 roots), each as CUDA-graph replays in turns;
+   K7 / K8 on the
    grouped register kernel in turns with the rank-by-rank one
    (``ntt_pallas._launch_grouped_ranks``: ranks, registers, registers,
    ranks) at the 2^24 shapes (max_r 3 both directions, max_r 2 and 4 at
@@ -266,15 +280,22 @@ def moduli():
 def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     """K1/K2/K3 of one plane scheme vs plain at the main path's shapes;
     returns the largest mismatch per orientation.  s8 adds the m = 1024
-    crafted plane-minimizer input, u7 the m = 1024 all-ones input; u7 and
-    s8b add K1's 2^24 shape (K2's and K3's are in every scheme's list)."""
+    crafted plane-minimizer input (lead and lane), u7 the m = 1024 all-ones
+    input; u7 and s8b add K1's 2^24 shape (K2's and K3's are in every
+    scheme's list).  K3 takes the fused twiddle in every mode (pair, w,
+    Solinas on the flagship and Goldilocks, the lazy inverse); on the
+    tensor cores every K3 case is also held on the __dp4a A/B point and
+    each pair inverse (the staged epilogue) on the fragment-store one,
+    after the counts are read."""
     import numpy as np
 
     from sventt_tpu_torch.field.golden import GoldenNTT
     from sventt_tpu_torch.field.limb import FieldConsts, from_numpy, to_numpy
+    from sventt_tpu_torch.field.modulus import GOLDILOCKS_MODULUS, Modulus
     from sventt_tpu_torch.ops import ntt_mxu
 
     flag, test = moduli()
+    gold = Modulus(GOLDILOCKS_MODULUS, 7)
     # (name, modulus, inverse, orientation, data shape, twiddle mode)
     cases = [
         ("K1 lead 256x512 none fwd", flag, False, "lead", (256, 512), None),
@@ -288,11 +309,24 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         ("K1 lead 256x300 pair inv TEST (lazy)", test, True, "lead", (256, 300), "pair"),
         ("K2 mid 64x256x300 w inv TEST (lazy)", test, True, "mid", (64, 256, 300), "w"),
         ("K2 mid 64x256x256 none inv TEST", test, True, "mid", (64, 256, 256), None),
-        # K3: the lane orientation, no twiddle
-        ("K3 lane 65536x256 fwd", flag, False, "lane", (65536, 256), None),
-        ("K3 lane 65536x256 inv", flag, True, "lane", (65536, 256), None),
-        ("K3 lane 300x64 fwd TEST (ragged)", test, False, "lane", (300, 64), None),
-        ("K3 lane 300x64 inv TEST (ragged)", test, True, "lane", (300, 64), None),
+        # K3: the lane orientation, the root step of every mxu plan with the
+        # level's twiddle in its (m0, m1) layout
+        ("K3 lane 65536x256 none fwd", flag, False, "lane", (65536, 256), None),
+        ("K3 lane 65536x256 none inv", flag, True, "lane", (65536, 256), None),
+        ("K3 lane 65536x256 pair fwd (2^24 root)", flag, False, "lane", (65536, 256), "pair"),
+        ("K3 lane 65536x256 pair inv (2^24 root)", flag, True, "lane", (65536, 256), "pair"),
+        ("K3 lane 65536x256 w fwd", flag, False, "lane", (65536, 256), "w"),
+        ("K3 lane 65536x256 w inv", flag, True, "lane", (65536, 256), "w"),
+        ("K3 lane 65536x256 solinas fwd", flag, False, "lane", (65536, 256), "solinas"),
+        ("K3 lane 65536x256 solinas inv", flag, True, "lane", (65536, 256), "solinas"),
+        ("K3 lane 300x64 none fwd TEST (ragged)", test, False, "lane", (300, 64), None),
+        ("K3 lane 300x64 pair fwd TEST (ragged)", test, False, "lane", (300, 64), "pair"),
+        ("K3 lane 300x64 pair inv TEST (lazy, ragged)", test, True, "lane", (300, 64), "pair"),
+        ("K3 lane 300x64 w inv TEST (lazy, ragged)", test, True, "lane", (300, 64), "w"),
+        ("K3 lane 300x64 solinas fwd Goldilocks (ragged)", gold, False, "lane", (300, 64),
+         "solinas"),
+        ("K3 lane 300x64 solinas inv Goldilocks (ragged)", gold, True, "lane", (300, 64),
+         "solinas"),
         # off the main path: the m < 4 digit loads and a tiny ragged grid
         ("K1 lead 2x5 none fwd", flag, False, "lead", (2, 5), None),
         ("K2 mid 3x8x7 pair inv TEST (lazy)", test, True, "mid", (3, 8, 7), "pair"),
@@ -314,40 +348,63 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
              "pair"),
             ("K2 mid 70000x2x8 pair inv TEST (lazy, A > 65535)", test, True, "mid", (70000, 2, 8),
              "pair"),
+            # K3: m from one padded 32-step to 1024, ragged rows, the
+            # 2^17 root (256 rows of 512: the row split) and the 2^26 root
+            # (131072 rows of 512, its table companion-free)
+            ("K3 lane 37x2 pair fwd", flag, False, "lane", (37, 2), "pair"),
+            ("K3 lane 5x2 w inv TEST (lazy)", test, True, "lane", (5, 2), "w"),
+            ("K3 lane 300x8 w inv TEST (lazy)", test, True, "lane", (300, 8), "w"),
+            ("K3 lane 100x32 pair inv", flag, True, "lane", (100, 32), "pair"),
+            ("K3 lane 77x64 solinas inv", flag, True, "lane", (77, 64), "solinas"),
+            ("K3 lane 256x512 pair fwd (2^17 root, row split)", flag, False, "lane", (256, 512),
+             "pair"),
+            ("K3 lane 256x512 pair inv (2^17 root, row split)", flag, True, "lane", (256, 512),
+             "pair"),
+            ("K3 lane 300x512 none fwd TEST (ragged)", test, False, "lane", (300, 512), None),
         ]
         if scheme == "s8":  # s8b stops at m = 512, as in JAX
             cases += [
                 ("K1 lead 1024x1000 w inv (ragged)", flag, True, "lead", (1024, 1000), "w"),
                 ("K2 mid 3x1024x40 pair fwd TEST", test, False, "mid", (3, 1024, 40), "pair"),
+                ("K3 lane 130x1024 w inv (ragged)", flag, True, "lane", (130, 1024), "w"),
+                ("K3 lane 131072x512 w fwd (2^26 root)", flag, False, "lane", (131072, 512), "w"),
+                ("K3 lane 131072x512 w inv (2^26 root)", flag, True, "lane", (131072, 512), "w"),
             ]
     worst = {"lead": 0, "mid": 0, "lane": 0}
-    calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid}
+    calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid, "lane": ntt_mxu.mxu_ntt_lane}
     tag = "" if scheme == "s8" else f"{scheme} "
     for name, mod, inverse, orient, shape, mode in cases:
-        fc = FieldConsts.from_modulus(mod)
+        fc = FieldConsts.from_modulus(mod, modmul="solinas" if mode == "solinas" else "montgomery")
         m = {"lead": shape[0], "mid": shape[1], "lane": shape[-1]}[orient]
         t = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, scheme=scheme, device=device)
         x = rand_u64(rng, shape, device)
+        tw = None
+        if mode is not None:
+            tw_shape = (shape[0], m) if orient == "mid" else shape
+            tw = rand_twiddle(rng, tw_shape, mod, "w" if mode == "solinas" else mode, device)
         ntt_mxu.reset_counts()
-        if orient == "lane":
-            got = ntt_mxu.mxu_ntt_lane(x, t, fc)
-            want = ntt_mxu.mxu_plain(x, t, fc, lane=True)
-        else:
-            tw = None
-            if mode is not None:
-                tw_shape = (shape[0], m) if orient == "mid" else shape
-                tw = rand_twiddle(rng, tw_shape, mod, mode, device)
-            got = calls[orient](x, t, fc, tw)
-            want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid")
+        got = calls[orient](x, t, fc, tw)
+        want = ntt_mxu.mxu_plain(x, t, fc, tw, mid=orient == "mid", lane=orient == "lane")
         sync(device)
         route = ntt_mxu.kernel_for(scheme, orient)
         check(ntt_mxu.KERNEL_LAUNCHES[route] == 1 and sum(ntt_mxu.KERNEL_LAUNCHES.values()) == 1,
               f"{tag}{name}: launched {ntt_mxu.KERNEL_LAUNCHES}, not the {route} kernel alone")
         err = mismatch(got, want)
+        ab = ""
+        if orient == "lane" and route == "tensor_core":
+            # the A/B points at the same call: __dp4a, and for the inverse
+            # with the pair twiddle (which runs the staged epilogue) the
+            # stores from the fragment
+            others = {"dp4a": lambda: ntt_mxu._launch_dp4a_s8(x, t, fc, tw, lane=True)}
+            if inverse and mode == "pair":
+                others["fragment"] = lambda: ntt_mxu._launch_lane_form(x, t, fc, "lane", tw)
+            errs = {k: mismatch(f(), want) for k, f in others.items()}
+            ab = "; A/B points " + ", ".join(f"{k} {v}" for k, v in errs.items())
+            err = max([err, *errs.values()])
         worst[orient] = max(worst[orient], err)
-        log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy}; {route})")
+        log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy}; {route}{ab})")
         check(err <= TOL, f"{tag}{name}: kernel != plain")
-        del x, got, want
+        del x, got, want, tw
     fc = FieldConsts.from_modulus(flag)
     if scheme == "s8":
         # m = 1024: the crafted input, kernel vs plain vs the golden model
@@ -364,16 +421,27 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     else:
         return worst
     x = from_numpy(np.repeat(xc.reshape(1024, 1), 8, axis=1), device)
-    got = ntt_mxu.mxu_ntt(x, t, fc)
-    want = ntt_mxu.mxu_plain(x, t, fc)
-    sync(device)
-    err = mismatch(got, want)
-    worst["lead"] = max(worst["lead"], err)
     golden = GoldenNTT(1024, flag).forward([int(v) % flag.modulus for v in xc])
-    check(err <= TOL, f"{tag}m=1024 {what}: kernel != plain")
-    got_h = to_numpy(got)
-    check(all([int(v) for v in got_h[:, c]] == golden for c in range(8)), f"{tag}m=1024 {what}: != golden")
-    log(f"  {tag}K1 lead 1024x8 {what}: max_abs_err {err}, == golden (x mod N)")
+    lane = scheme == "s8"  # K3 on the tensor cores: the same input as rows
+    for orient in ("lead", "lane") if lane else ("lead",):
+        xo = x.t().contiguous() if orient == "lane" else x
+        ntt_mxu.reset_counts()
+        if orient == "lane":
+            got, want = ntt_mxu.mxu_ntt_lane(xo, t, fc), ntt_mxu.mxu_plain(xo, t, fc, lane=True)
+        else:
+            got, want = ntt_mxu.mxu_ntt(xo, t, fc), ntt_mxu.mxu_plain(xo, t, fc)
+        sync(device)
+        route = ntt_mxu.kernel_for(scheme, orient)
+        check(ntt_mxu.KERNEL_LAUNCHES[route] == 1, f"{tag}m=1024 {what} {orient}: not on {route}")
+        err = mismatch(got, want)
+        worst[orient] = max(worst[orient], err)
+        check(err <= TOL, f"{tag}m=1024 {what} {orient}: kernel != plain")
+        got_h = to_numpy(got if orient == "lead" else got.t())
+        check(all([int(v) for v in got_h[:, c]] == golden for c in range(8)),
+              f"{tag}m=1024 {what} {orient}: != golden")
+        shape = "1024x8" if orient == "lead" else "8x1024"
+        log(f"  {tag}{'K1' if orient == 'lead' else 'K3'} {orient} {shape} {what}: max_abs_err "
+            f"{err}, == golden (x mod N)")
     return worst
 
 
@@ -869,6 +937,26 @@ def ring_cases(device, rng):
     return worst
 
 
+#: Calls of the planner's transpose (``plan/planner.py``'s ``transpose01``,
+#: a torch copy), counted by ``count_planner_transposes``.
+PLANNER_TRANSPOSES = {"transpose01": 0}
+
+
+def count_planner_transposes() -> None:
+    """Count every transpose a plan runs: wrap the planner's
+    ``transpose01`` (the transpose fallback's) so that ``counts()`` can
+    show that a path, the mxu root's step included, ran none."""
+    from sventt_tpu_torch.plan import planner
+
+    inner = planner.transpose01
+
+    def counted(x):
+        PLANNER_TRANSPOSES["transpose01"] += 1
+        return inner(x)
+
+    planner.transpose01 = counted
+
+
 def _counted_modules() -> dict:
     from sventt_tpu_torch.experimental import mxu_fused_kernel
     from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
@@ -887,14 +975,15 @@ def counts():
         "plain": {k: dict(v.PLAIN_CALLS) for k, v in mods.items()},
         "mxu_kernels": dict(ntt_mxu.KERNEL_LAUNCHES),
         "pallas_kernels": dict(mods["pallas"].KERNEL_LAUNCHES),
+        "planner_transposes": PLANNER_TRANSPOSES["transpose01"],
     }
 
 
 def mxu_on_tensor_cores(c) -> bool:
-    """Every s8 lead / mid launch in the counts ``c`` ran the tensor-core
-    kernel (the lane orientation is the only __dp4a one)."""
+    """Every s8 lead / mid / lane launch in the counts ``c`` ran the
+    tensor-core kernel, and the __dp4a one never ran."""
     lm, k = c["launches"]["mxu"], c["mxu_kernels"]
-    return k["tensor_core"] == lm["lead"] + lm["mid"] and k["dp4a"] == lm["lane"]
+    return k["tensor_core"] == lm["lead"] + lm["mid"] + lm["lane"] and k["dp4a"] == 0
 
 
 def radix2_routed(c) -> bool:
@@ -908,6 +997,7 @@ def radix2_routed(c) -> bool:
 def reset_counts() -> None:
     for mod in _counted_modules().values():
         mod.reset_counts()
+    PLANNER_TRANSPOSES["transpose01"] = 0
 
 
 def no_plain(c) -> bool:
@@ -968,27 +1058,32 @@ def slice_run(device, configs, oracles: dict):
 
 
 def lane_path(device, rng):
-    """``mxu_ntt_lane``, the JAX package's row step on the natural layout
-    that no plan calls: the (65536, 256) rows of the 2^24 root step, both
-    directions, must equal the lead orientation between two transposes.
-    Returns the launch and plain-call counts of those two calls."""
+    """``mxu_ntt_lane`` with the fused twiddle, the mxu root step: the
+    (65536, 256) rows of the 2^24 root, both directions, with a pair table
+    in the (m0, m1) layout, must equal the JAX package's root step on the
+    card -- a transpose, the lead orientation with the transposed table, a
+    transpose back.  Returns the launch and plain-call counts of the two
+    K3 calls."""
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import ntt_mxu
     from sventt_tpu_torch.ops.transpose import transpose01
+    from sventt_tpu_torch.ops.twiddle import montpair_map
 
     flag, _ = moduli()
     fc = FieldConsts.from_modulus(flag)
     tables = [ntt_mxu.make_mxu_tables(flag, 256, inverse=inv, device=device) for inv in (False, True)]
     x = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
+    tw = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
+    twt = montpair_map(lambda v: v.t().contiguous(), tw)
     reset_counts()
-    got = [ntt_mxu.mxu_ntt_lane(x, t, fc) for t in tables]
+    got = [ntt_mxu.mxu_ntt_lane(x, t, fc, tw) for t in tables]
     c = counts()
     for t, g in zip(tables, got):
-        want = transpose01(ntt_mxu.mxu_ntt(transpose01(x), t, fc))
+        want = transpose01(ntt_mxu.mxu_ntt(transpose01(x), t, fc, twt))
         sync(device)
         err = mismatch(g, want)
-        log(f"  inverse={t.inverse}: max_abs_err {err} against the lead orientation")
-        check(err <= TOL, "mxu_ntt_lane != transpose + mxu_ntt + transpose")
+        log(f"  inverse={t.inverse}: max_abs_err {err} against transpose + K1 (tw^T) + transpose")
+        check(err <= TOL, "mxu_ntt_lane(tw) != transpose + mxu_ntt(tw^T) + transpose")
     return c
 
 
@@ -1068,7 +1163,7 @@ def scheme_path(device, rng):
         check(ok and bool((back.t() == x).all()) and err_mid == 0, f"{scheme} path: mismatch")
         check(all(c["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
               f"{scheme}: an orientation never launched")
-        want_k = {"tensor_core": 0, "dp4a": 3} if scheme == "u7" else {"tensor_core": 2, "dp4a": 1}
+        want_k = {"tensor_core": 0, "dp4a": 3} if scheme == "u7" else {"tensor_core": 3, "dp4a": 0}
         check(c["mxu_kernels"] == want_k, f"{scheme}: kernel launches {c['mxu_kernels']} != {want_k}")
         check(no_plain(c), f"{scheme}: a plain version ran on the card")
     stack = fused.make_fused_stack(flag, device=device)
@@ -1146,7 +1241,7 @@ def dist_run(device, paths, oracles: dict):
         dev = dntt.devices[0]
         built = table_bytes([getattr(tables, k) for tables in (dntt._forward.col[dev],
                                                                 dntt._forward.row[dev])
-                             for k in ("leaf", "lane", "split_tw", "split_tw_t")])
+                             for k in ("leaf", "lane", "split_tw")])
         want_b = distributed_memory_budget(dntt.config, dntt.D).leaf_tables
         log(f"    budget leaf_tables {want_b} bytes, built CUDA tables {built} bytes")
         check(built == want_b, f"{label}: the budget's table bytes != the built tables'")
@@ -1511,10 +1606,17 @@ def times(device, ntts, rng):
         if own_ms is not None:
             own[key] = own_ms
 
-    # matrix engine: the 2^24 plan's root row step (lead, transposed
-    # twiddle), inner row step (mid, (256, 256) twiddle rows) and the lane
-    # orientation that could replace the root's transpose sandwich; K1 and
-    # K2 on the tensor cores, each beside the __dp4a kernel
+    def turns(key, new, old, old_name):
+        """CUDA-graph replays of ``old`` and ``new`` in turns (old, new,
+        new, old); each keeps the mean of its two."""
+        o1, n1, n2, o2 = (timed_graph(f, 3, 10) for f in (old, new, new, old))
+        out[key], out[f"{key} {old_name}"] = (n1 + n2) / 2, (o1 + o2) / 2
+        ab[key] = (old_name, o1, n1, n2, o2)
+
+    # matrix engine: the 2^24 plan's leaf shape (lead), inner row step
+    # (mid, (256, 256) twiddle rows) and root step (lane, the (65536, 256)
+    # table in the data's layout); K1, K2 and K3 on the tensor cores, each
+    # beside the __dp4a kernel
     dp4a = ntt_mxu._launch_dp4a_s8
     t = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
     xl = rand_u64(rng, (256, 1 << 16), device, below=flag.modulus)
@@ -1535,9 +1637,40 @@ def times(device, ntts, rng):
     kernel("K2 mid 256x256x256 w", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twms),
            lambda: ntt_mxu.mxu_plain(xm, t, fc, twms, mid=True), mxu_bound(n24, 256, 8 * 65536),
            old=lambda: dp4a(xm, t, fc, twms, mid=True))
+    # K3, the root step, as CUDA-graph replays in turns with the __dp4a
+    # kernel, both directions with the pair twiddle
     xr = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
-    kernel("K3 lane 65536x256", lambda: ntt_mxu.mxu_ntt_lane(xr, t, fc),
-           lambda: ntt_mxu.mxu_plain(xr, t, fc, lane=True), mxu_bound(n24, 256, 0))
+    tw3 = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
+    ti = ntt_mxu.make_mxu_tables(flag, 256, inverse=True, device=device)
+    for key, tk in (("K3 lane 65536x256 pair", t), ("K3 lane 65536x256 pair inv", ti)):
+        kernel(key, lambda tk=tk: ntt_mxu.mxu_ntt_lane(xr, tk, fc, tw3),
+               lambda tk=tk: ntt_mxu.mxu_plain(xr, tk, fc, tw3, lane=True),
+               mxu_bound(n24, 256, 16 * n24),
+               old=lambda tk=tk: dp4a(xr, tk, fc, tw3, lane=True), graph=True)
+    # the root step: JAX's sandwich (transpose, K1 with the transposed
+    # table, transpose back) against K3 with the table fused, CUDA-graph
+    # replays in turns, at the 2^24 and 2^17 roots; then K3's two
+    # epilogues on the inverse with the pair twiddle, the staged one (which
+    # it runs) against the stores from the fragment, at the 2^24, 2^17 and
+    # 2^26 root shapes
+    for rows, m_, tag in ((1 << 16, 256, "2^24"), (256, 512, "2^17"), (1 << 17, 512, "2^26")):
+        xs = xr if m_ == 256 else rand_u64(rng, (rows, m_), device, below=flag.modulus)
+        tws = tw3 if m_ == 256 else rand_twiddle(rng, (rows, m_), flag, "pair", device)
+        twt = MontPair(tws.w.t().contiguous(), tws.wp.t().contiguous())
+        for inv in (False, True):
+            tk = ntt_mxu.make_mxu_tables(flag, m_, inverse=inv, device=device)
+            d = " inv" if inv else ""
+            sandwich = lambda xs=xs, tk=tk, twt=twt: transpose01(
+                ntt_mxu.mxu_ntt(transpose01(xs), tk, fc, twt))
+            k3 = lambda xs=xs, tk=tk, tws=tws: ntt_mxu.mxu_ntt_lane(xs, tk, fc, tws)
+            if tag != "2^26":
+                turns(f"root step {rows}x{m_} pair{d} ({tag})", k3, sandwich, "sandwich")
+            if inv:  # the path's staged epilogue against the fragment's stores
+                frag = lambda xs=xs, tk=tk, tws=tws: ntt_mxu._launch_lane_form(
+                    xs, tk, fc, "lane", tws)
+                check(mismatch(frag(), k3()) == 0, f"{tag}: the fragment epilogue != K3")
+                turns(f"K3 epilogue {rows}x{m_} pair inv ({tag})", k3, frag, "fragment")
+        del xs, tws, twt
     # the Solinas twiddle of K1/K2 at the same shapes: the plain random
     # twiddles below N without their companion
     fcs = FieldConsts.from_modulus(flag, modmul="solinas")
@@ -1554,9 +1687,6 @@ def times(device, ntts, rng):
         kernel(f"K1 lead {shape[0]}x{shape[1]} (2^17)", lambda: ntt_mxu.mxu_ntt(x17, t17, fc),
                lambda: ntt_mxu.mxu_plain(x17, t17, fc), mxu_bound(1 << 17, m17, 0),
                old=lambda: dp4a(x17, t17, fc))
-    out["K1 lead 65536x256 between transposes"] = timed(
-        lambda: transpose01(ntt_mxu.mxu_ntt(transpose01(xr), t, fc)), 3, 10
-    )
     # the other plane schemes at the same three shapes, and K11 at its own
     for scheme in ("u7", "s8b"):
         ts = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, scheme=scheme, device=device)
@@ -1575,7 +1705,7 @@ def times(device, ntts, rng):
     kernel("K11 fused 128x32768", lambda: fused.mxu_fused_ntt(x128, stack, flag),
            lambda: fused.mxu_fused_plain(x128, stack, flag), mxu_bound(1 << 22, 128, 0),
            mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0])
-    del xl, twl, twls, xr, x128
+    del xl, twl, twls, xr, x128, tw3
     ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root.
     # K4 / K5 / K6 on the register kernel in turns with the stage-by-stage
@@ -1810,8 +1940,11 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
-    # the redesigned kernels: the tensor-core matrix kernel, the grouped
-    # register kernel (36 instantiations: INV x {Montgomery, lazy
+    # the redesigned kernels: the tensor-core matrix kernel (24
+    # instantiations: the strided form's 11 -- no twiddle, pair and w in
+    # both directions, lazy or not, Solinas in both directions -- the lane
+    # form's 11, the staged lane epilogue's 2: the pair inverse, lazy or
+    # not), the grouped register kernel (36 instantiations: INV x {Montgomery, lazy
     # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
     # 3 or 4 ranks) and the radix-2 register kernel (48: INV x {Montgomery,
     # lazy Montgomery, Shoup, Solinas} x {lane, leaf / mid swizzled, leaf /
@@ -1828,13 +1961,15 @@ def main() -> int:
             check("0 bytes spill stores, 0 bytes spill loads" in line,
                   f"a redesigned kernel spills: {entry.strip()}: {line.strip()}")
     cached = kernel_build["log"] == "(cached)"
-    check(cached or entries["mxu_tc_kernel"] > 0,
-          "no -Xptxas -v line of the tensor-core kernel in the build log")
+    check(cached or entries["mxu_tc_kernel"] == 24,
+          f"{entries['mxu_tc_kernel']} -Xptxas -v entries of the tensor-core kernel, not 24")
     check(cached or entries["grouped_reg_kernel"] == 36,
           f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
           "not 36")
     check(cached or entries["radix2_reg_kernel"] == 48,
           f"{entries['radix2_reg_kernel']} -Xptxas -v entries of the radix-2 register kernel, not 48")
+
+    count_planner_transposes()
 
     # 3. kernel vs plain
     rng = np.random.default_rng(20261016)
@@ -1860,12 +1995,13 @@ def main() -> int:
         device, [(f"mxu 2^{k}", F, G, 1 << k, {}) for k in (17, 24, 26)], oracles
     )
     log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
-    check(c_mxu["launches"]["mxu"]["lead"] > 0 and c_mxu["launches"]["mxu"]["mid"] > 0,
+    check(all(c_mxu["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
           "an mxu orientation of the path never ran")
     log(f"  mxu kernels: {c_mxu['mxu_kernels']} (tensor_core: csrc/ntt_mxu_tc.cu; dp4a: "
-        "csrc/ntt_mxu.cu)")
-    check(mxu_on_tensor_cores(c_mxu) and c_mxu["mxu_kernels"]["dp4a"] == 0,
-          "the mxu path launched the __dp4a kernel")
+        f"csrc/ntt_mxu.cu); the planner's transposes: {c_mxu['planner_transposes']}")
+    check(mxu_on_tensor_cores(c_mxu), "an mxu launch of the path ran the __dp4a kernel")
+    check(c_mxu["launches"]["mxu"]["lane"] == 3 * 3 and c_mxu["planner_transposes"] == 0,
+          "the mxu roots did not run on K3 alone, without transposes")
     del ntts_mxu["mxu 2^26"]
     torch.cuda.empty_cache()
     log("[slice pallas] NTT(engine='pallas') vs the native oracle, elementwise")
@@ -1926,8 +2062,9 @@ def main() -> int:
     check(ls["mxu"]["lead"] > 0 and ls["mxu"]["mid"] > 0
           and all(ls["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a kernel of the Solinas paths never ran")
-    check(mxu_on_tensor_cores(c_sol) and c_sol["mxu_kernels"]["dp4a"] == 0,
-          "the mxu Solinas path launched the __dp4a kernel")
+    check(mxu_on_tensor_cores(c_sol) and ls["mxu"]["lane"] == 3 * 3
+          and c_sol["planner_transposes"] == 0,
+          "the mxu Solinas roots did not run on K3 on the tensor cores, without transposes")
     check(radix2_routed(c_sol), "the Solinas radix-2 path's launches ran the wrong kernels")
     del ntts_sol["mxu solinas 2^26"], ntts_sol["pallas solinas 2^26"]
     torch.cuda.empty_cache()
@@ -1954,10 +2091,12 @@ def main() -> int:
         check(no_plain(c), "a plain version ran on the card")
     del ntts_ss
     torch.cuda.empty_cache()
-    log("[path mxu_ntt_lane] K3 on the 2^24 root-row shape vs transpose + K1 + transpose")
+    log("[path mxu_ntt_lane] K3 with the fused twiddle on the 2^24 root shape vs transpose + "
+        "K1 (transposed twiddle) + transpose")
     c_lane = lane_path(device, rng)
     log(f"  launches {c_lane['launches']}, plain calls {c_lane['plain']}")
-    check(c_lane["launches"]["mxu"]["lane"] > 0, "mxu_ntt_lane never launched")
+    check(c_lane["launches"]["mxu"]["lane"] > 0 and mxu_on_tensor_cores(c_lane),
+          "mxu_ntt_lane never launched, or not on the tensor cores")
     check(no_plain(c_lane), "a plain version ran on the card")
     log("[path transpose01_u64 pallas] K9 on the 2^24 root-row shapes vs the torch copy")
     c_tr = transpose_path(device, rng)
@@ -1989,8 +2128,7 @@ def main() -> int:
          m4, "ring"),
     ], oracles)
     check(c_dist["mxu 2^24 D=4 ring"]["launches"]["mxu"]["mid"] > 0, "the mxu path ran no K2")
-    check(mxu_on_tensor_cores(c_dist["mxu 2^24 D=4 ring"])
-          and c_dist["mxu 2^24 D=4 ring"]["mxu_kernels"]["dp4a"] == 0,
+    check(mxu_on_tensor_cores(c_dist["mxu 2^24 D=4 ring"]),
           "the distributed mxu path launched the __dp4a kernel")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
@@ -2029,6 +2167,16 @@ def main() -> int:
             f"{ms[k + ' dp4a'] / ms[k]:.2f}x; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
             f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound) "
             f"against {tops[1]:.1f}")
+    log("[A/B] the mxu root step: K3 with the twiddle fused (mxu_ntt_lane) against the "
+        "sandwich of transpose, K1 (transposed twiddle) and transpose, CUDA-graph replays in "
+        "turns sandwich, K3, K3, sandwich; and K3's staged epilogue (the pair inverse's) "
+        "against the stores from the fragment (fragment, staged, staged, fragment):")
+    for k, (old_name, o1, n1, n2, o2) in ab.items():
+        if old_name not in ("sandwich", "fragment"):
+            continue
+        new_name = "K3" if old_name == "sandwich" else "staged"
+        log(f"  {k}: {old_name} {o1:.4f} / {o2:.4f} ms, {new_name} {n1:.4f} / {n2:.4f} ms: "
+            f"{ms[f'{k} {old_name}'] / ms[k]:.3f}x")
     log("[A/B] the grouped kernel K7 / K8 (csrc/ntt_grouped.cu): the register kernel against "
         "the rank-by-rank one, CUDA-graph replays in turns ranks, registers, registers, ranks:")
     for k, (old_name, o1, n1, n2, o2) in ab.items():
@@ -2088,7 +2236,6 @@ def main() -> int:
         }
 
     lm, lp = dict(c_mxu["launches"]["mxu"]), dict(c_pal["launches"]["pallas"])
-    lm["lane"] = c_lane["launches"]["mxu"]["lane"]
     for k in ("grouped", "lane_grouped"):
         lp[k] = c_grp["launches"]["pallas"][k]
     lt = c_tr["launches"]["transpose"]
@@ -2099,7 +2246,8 @@ def main() -> int:
               "ntt_mxu_tc.cu", "sventt_tpu/ops/ntt_mxu.py:680", lm["lead"], wm["lead"]),
         entry("K2 s8 matrix NTT, mid, int8 tensor cores (mxu_ntt_mid)", "K2 mid 256x256x256 pair",
               "ntt_mxu_tc.cu", "sventt_tpu/ops/ntt_mxu.py:680", lm["mid"], wm["mid"]),
-        entry("K3 s8 matrix NTT, lane (mxu_ntt_lane)", "K3 lane 65536x256", "ntt_mxu.cu",
+        entry("K3 s8 matrix NTT, lane, int8 tensor cores, fused twiddle (mxu_ntt_lane; the mxu "
+              "root, redesigned)", "K3 lane 65536x256 pair", "ntt_mxu_tc.cu",
               "sventt_tpu/ops/ntt_mxu.py:527", lm["lane"], wm["lane"]),
         entry("K4 radix-2 stages, leaf (fused_ntt; register kernel)", "K4 leaf 256x65536",
               "ntt_radix2.cu", "sventt_tpu/ops/ntt_pallas.py:1154", lp["leaf"], wp["leaf"]),

@@ -87,16 +87,22 @@ __device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
   return res < k.N ? res : res - k.N;
 }
 
-// The inter-step twiddle multiply of v by entry ti.  TW: 1 "pair"
-// (mont_mul with the companion), 2 "w" (mont_mul_full), 3 Solinas "w"
-// (solinas_mul).
+// The inter-step twiddle multiply of v by the twiddle w (wp its companion,
+// read by "pair" alone).  TW: 1 "pair" (mont_mul with the companion), 2
+// "w" (mont_mul_full), 3 Solinas "w" (solinas_mul).
+template <int TW, bool LAZY>
+__device__ __forceinline__ u64 twiddle_by(u64 v, u64 w, u64 wp, const Consts &k) {
+  if (TW == 3) return solinas_mul(v, w, k.N);
+  if (TW == 1) return mont_mul(v, w, wp, k.N, LAZY);
+  return mont_mul_full(v, w, k.N, k.ninv, LAZY);
+}
+
+// The same by entry ti of the twiddle table.
 template <int TW, bool LAZY>
 __device__ __forceinline__ u64 twiddle(u64 v, const long long *tw_w,
                                        const long long *tw_wp, long long ti,
                                        const Consts &k) {
-  if (TW == 3) return solinas_mul(v, (u64)tw_w[ti], k.N);
-  if (TW == 1) return mont_mul(v, (u64)tw_w[ti], (u64)tw_wp[ti], k.N, LAZY);
-  return mont_mul_full(v, (u64)tw_w[ti], k.N, k.ninv, LAZY);
+  return twiddle_by<TW, LAZY>(v, (u64)tw_w[ti], TW == 1 ? (u64)tw_wp[ti] : 0ull, k);
 }
 
 }  // namespace mxu

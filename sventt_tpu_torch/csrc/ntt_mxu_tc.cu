@@ -1,15 +1,16 @@
-// The s8 matrix NTT on Hopper's int8 tensor cores (sm_90a), lead and mid
-// orientations.
+// The s8 matrix NTT on Hopper's int8 tensor cores (sm_90a), lead, mid and
+// lane orientations.
 //
-// Replaces the Pallas kernel sventt_tpu/ops/ntt_mxu.py::_mxu_call (body
-// _mxu_body) in its lead (mid=False, K1) and mid (mid=True, K2) forms under
-// the plane schemes "s8" and "s8b" (s8b's kernel planes are s8's digit
-// stack, so it follows bit for bit).  The data is an (A, m, B) view with
-// element strides (sa, sm, sb); the transform runs along the m axis (lead
-// is A = 1).  The plain PyTorch version is
-// sventt_tpu_torch/ops/ntt_mxu.py::_mxu_plain and the two agree bit for
-// bit.  The lane orientation (K3), the u7 format and K11 stay on the
-// __dp4a kernel of csrc/ntt_mxu.cu.
+// Replaces the Pallas kernels sventt_tpu/ops/ntt_mxu.py::_mxu_call (body
+// _mxu_body) in its lead (mid=False, K1) and mid (mid=True, K2) forms and
+// _mxu_lane_call (K3) under the plane schemes "s8" and "s8b" (s8b's kernel
+// planes are s8's digit stack, so it follows bit for bit).  The data is an
+// (A, m, B) view with element strides (sa, sm, sb); the transform runs
+// along the m axis (lead is A = 1; the lane orientation is the (1, m, B)
+// view of (B, m) rows, sm = 1 and sb = m, read in place).  The plain
+// PyTorch version is sventt_tpu_torch/ops/ntt_mxu.py::_mxu_plain and the
+// two agree bit for bit.  The u7 format and K11 stay on the __dp4a kernel
+// of csrc/ntt_mxu.cu.
 //
 // The arithmetic is that kernel's: per output point (p, column) the 15
 // int32 planes
@@ -52,6 +53,22 @@
 // recombination tail, the inverse twiddle, a masked store (rows >= m and
 // columns >= B are not written).
 //
+// The lane orientation (LANE != 0) changes only the two ends.  A column's
+// points are contiguous there, so the prologue reads each (column, point
+// quad) as two 16-byte loads, the fused twiddle (in the data's own layout,
+// tm = 1) the same way, where the strided form makes four 8-byte loads a
+// quad.  Its epilogue comes in two forms (ops/ntt_mxu.py::tc_form picks
+// one).  LANE = 1 stores from the C fragment as the strided form does (8
+// rows of a column: 64-byte runs).  LANE = 2 stages the row group's
+// results in a shared-memory region of its own (rg + 2 words a column, so
+// that the fragment's 8-byte stores are free of bank conflicts), then the
+// block applies the inverse twiddle and writes whole runs of rg words of
+// each column with 16-byte stores, its twiddle read the same way: the
+// faster form for the inverse with the pair twiddle (PERF.md section 6),
+// the only one for which it is built.  It was slower on the forward, no
+// faster for the inverse's other twiddles, and its other instantiations
+// spilled at the 128-register cap.
+//
 // Exactness without .satfinite: each partial sum of a plane is a sum of at
 // most 8m products of two int8 values in [-128, 127], so it is bounded
 // like the plane itself, |P| <= 8 * m * 2^14 = m << 17 < 2^28 at m = 1024,
@@ -87,19 +104,23 @@ constexpr int KSTEP = 32;                    // points per mma
 constexpr int STAGES = 3;                    // digit-plane ring depth
 constexpr int MAX_SMEM = 232448;             // a block's shared memory on sm_90
 
-// The block's geometry from (m, nt), as ops/ntt_mxu.py::tc_geometry
-// computes it: K padded to 32, the byte-plane row stride, the column and
-// row warps, the rows of a row group, the shared memory.
+// The block's geometry from (m, nt) and the form (0 strided, 1 lane, 2
+// lane with the staged epilogue), as ops/ntt_mxu.py::tc_geometry computes
+// it: K padded to 32, the byte-plane row stride, the column and row warps,
+// the rows of a row group, the staged epilogue's words a column, the
+// shared memory.
 struct Geo {
-  int kp, rs, cw, rg, n_rg;
+  int kp, rs, cw, rg, n_rg, sw;
   long long smem;
-  __host__ __device__ Geo(int m, int nt) {
+  __host__ __device__ Geo(int m, int nt, int lane) {
     kp = (m + KSTEP - 1) / KSTEP * KSTEP;
     rs = kp + 16;
     cw = nt / WCOLS;
     rg = 16 * (WARPS / cw);
     n_rg = (m + rg - 1) / rg;
-    smem = (long long)NPL * nt * rs + (long long)STAGES * NPL * rg * KSTEP;
+    sw = rg + 2;
+    smem = (long long)NPL * nt * rs + (long long)STAGES * NPL * rg * KSTEP +
+           (lane == 2 ? 8LL * nt * sw : 0);
   }
 };
 
@@ -153,9 +174,21 @@ __device__ __forceinline__ void load_tile(unsigned char *dst, const signed char 
     cp_async16(smem_addr(dst + off), src + off);
 }
 
-// TW: 0 none, 1 "pair", 2 "w", 3 Solinas.  `tiles`: the digit stack in
-// the ring-tile layout of ops/ntt_mxu.py::tc_plane_tiles.
-template <int TW, bool INV, bool LAZY>
+// Four consecutive words from 16-byte aligned `p`, as two 16-byte loads.
+__device__ __forceinline__ void load4(u64 *v, const long long *p) {
+  const longlong2 a = __ldg(reinterpret_cast<const longlong2 *>(p));
+  const longlong2 b = __ldg(reinterpret_cast<const longlong2 *>(p) + 1);
+  v[0] = (u64)a.x;
+  v[1] = (u64)a.y;
+  v[2] = (u64)b.x;
+  v[3] = (u64)b.y;
+}
+
+// TW: 0 none, 1 "pair", 2 "w", 3 Solinas.  LANE: 0 the strided (A, m, B)
+// view; 1 the lane layout (A = 1, sm = tm = 1, 16-byte aligned), epilogue
+// from the fragment; 2 the same with the staged epilogue.  `tiles`: the
+// digit stack in the ring-tile layout of ops/ntt_mxu.py::tc_plane_tiles.
+template <int TW, bool INV, bool LAZY, int LANE>
 __global__ void __launch_bounds__(THREADS, 2)
     mxu_tc_kernel(const long long *__restrict__ x, long long *__restrict__ out,
                   const signed char *__restrict__ tiles, const long long *__restrict__ corr,
@@ -163,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                   long long A, int m, long long B, long long sa, long long sm, long long sb,
                   long long ta, long long tm, long long tb, int nt, int split, Consts k) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Geo g(m, nt);
+  const Geo g(m, nt, LANE);
   const int ks_n = g.kp / KSTEP;
   const int per = (g.n_rg + split - 1) / split;
   const int rg0 = blockIdx.z * per;
@@ -206,18 +239,41 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int c = (wi % cgroups) * 8 + (lane & 7);
       const int q = (wi / cgroups) * 4 + (lane >> 3);
       const long long col = c0 + c;
+      constexpr u64 PAD = 0x8080808080808080ull;  // padding: every plane value 0
+      u64 v[4];
+      if (LANE != 0 && m >= 4) {
+        // the quad's 4 points are contiguous, and 4 | m puts all or none of
+        // them below m
+        if (4 * q < m && col < B) {
+          load4(v, x + col * sb + 4 * q);
+          if constexpr (TW != 0 && !INV) {
+            u64 w[4], wp[4] = {0, 0, 0, 0};
+            load4(w, tw_w + col * tb + 4 * q);
+            if constexpr (TW == 1) load4(wp, tw_wp + col * tb + 4 * q);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[i] = mxu::twiddle_by<TW, LAZY>(v[i], w[i], wp[i], k);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = PAD;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = 4 * q + i;
+          v[i] = PAD;
+          if (j < m && col < B) {
+            v[i] = (u64)x[a * sa + j * sm + col * sb];
+            if constexpr (TW != 0 && !INV)
+              v[i] = mxu::twiddle<TW, LAZY>(v[i], tw_w, tw_wp, a * ta + j * tm + col * tb, k);
+          }
+        }
+      }
       unsigned lo[4], hi[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int j = 4 * q + i;
-        u64 v = 0x8080808080808080ull;  // padding: every plane value 0
-        if (j < m && col < B) {
-          v = (u64)x[a * sa + j * sm + col * sb];
-          if constexpr (TW != 0 && !INV)
-            v = mxu::twiddle<TW, LAZY>(v, tw_w, tw_wp, a * ta + j * tm + col * tb, k);
-        }
-        lo[i] = (unsigned)v;
-        hi[i] = (unsigned)(v >> 32);
+        lo[i] = (unsigned)v[i];
+        hi[i] = (unsigned)(v[i] >> 32);
       }
       // transpose 4 words x 8 bytes into 8 planes x 4 points, then offset
       // each byte by -128 (^ 0x80)
@@ -272,7 +328,52 @@ __global__ void __launch_bounds__(THREADS, 2)
           }
         }
       }
-      if (ks == ks_n - 1) {
+      if (ks == ks_n - 1 && LANE == 2) {
+        // Staged epilogue of the row group: the results into the stage,
+        // st[column * sw + row], then whole runs of each column out.
+        u64 *st = reinterpret_cast<u64 *>(ring + STAGES * stage_bytes);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = wr * 16 + (lane >> 2) + 8 * hr, p = p0 + (lane >> 2) + 8 * hr;
+          if (p < m) {
+            const u64 cp = (u64)corr[p];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = wc * WCOLS + 2 * (lane & 3) + e;
+              if (c0 + c < B) {
+                int P[NOUT];
+#pragma unroll
+                for (int t = 0; t < NOUT; ++t) P[t] = acc[t][2 * hr + e];
+                st[c * g.sw + r] = mxu::recombine<false>(P, cp, m, k);
+              }
+            }
+          }
+        }
+        __syncthreads();
+        const int pairs = g.rg / 2, rg0p = row_group * g.rg;
+        for (int i = threadIdx.x; i < nt * pairs; i += THREADS) {
+          const int c = i / pairs, r = 2 * (i % pairs), p = rg0p + r;
+          const long long col = c0 + c;
+          if (p < m && col < B) {  // m is even: p + 1 < m too
+            const ulonglong2 s = *reinterpret_cast<const ulonglong2 *>(st + c * g.sw + r);
+            u64 v0 = s.x, v1 = s.y;
+            if constexpr (TW != 0 && INV) {
+              const longlong2 w = __ldg(reinterpret_cast<const longlong2 *>(tw_w + col * tb + p));
+              longlong2 wp = make_longlong2(0, 0);
+              if constexpr (TW == 1)
+                wp = __ldg(reinterpret_cast<const longlong2 *>(tw_wp + col * tb + p));
+              v0 = mxu::twiddle_by<TW, LAZY>(v0, (u64)w.x, (u64)wp.x, k);
+              v1 = mxu::twiddle_by<TW, LAZY>(v1, (u64)w.y, (u64)wp.y, k);
+            }
+            *reinterpret_cast<longlong2 *>(out + col * sb + p) =
+                make_longlong2((long long)v0, (long long)v1);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < NOUT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+      } else if (ks == ks_n - 1) {
         // Epilogue of the row group: lane holds rows p0 + (lane >> 2) (+8)
         // and columns 2 (lane & 3) (+1).
 #pragma unroll
@@ -319,9 +420,9 @@ struct Args {
   Consts k;
 };
 
-template <int TW, bool INV, bool LAZY>
+template <int TW, bool INV, bool LAZY, int LANE>
 cudaError_t launch(const Args &g) {
-  auto kern = mxu_tc_kernel<TW, INV, LAZY>;
+  auto kern = mxu_tc_kernel<TW, INV, LAZY, LANE>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)g.smem);
   if (e != cudaSuccess) return e;
@@ -331,11 +432,33 @@ cudaError_t launch(const Args &g) {
   return cudaGetLastError();
 }
 
+// The instantiation of one form for the twiddle mode, direction and lazy
+// flag.
+template <int LANE>
+cudaError_t dispatch(const Args &g, int tw_mode, int inverse, int lazy) {
+  if (tw_mode == 0) return launch<0, false, false, LANE>(g);
+  if (tw_mode == 1) {
+    if (inverse) return lazy ? launch<1, true, true, LANE>(g) : launch<1, true, false, LANE>(g);
+    return lazy ? launch<1, false, true, LANE>(g) : launch<1, false, false, LANE>(g);
+  }
+  if (tw_mode == 2) {
+    if (inverse) return lazy ? launch<2, true, true, LANE>(g) : launch<2, true, false, LANE>(g);
+    return lazy ? launch<2, false, true, LANE>(g) : launch<2, false, false, LANE>(g);
+  }
+  if (tw_mode == 3 && !lazy)  // Solinas: canonical only, no companion
+    return inverse ? launch<3, true, false, LANE>(g) : launch<3, false, false, LANE>(g);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The s8 digit stack (schemes "s8" and "s8b") in the ring-tile layout of
 // ops/ntt_mxu.py::tc_plane_tiles, with corr; the arguments of
-// sventt_mxu_ntt less u7, plus the launch geometry of
+// sventt_mxu_ntt less u7, plus the form (`lane`: 0 the strided view, 1
+// the lane layout, 2 the lane layout with the staged epilogue, for the
+// inverse with the pair twiddle only; the lane forms take
+// A = 1, sm = 1, sb = m, a twiddle in the same layout and 16-byte aligned
+// pointers) and the launch geometry of
 // ops/ntt_mxu.py::tc_geometry: nt columns a block (8, 16, 32 or 64), the
 // row split (gridDim.z) and the dynamic shared memory, which must be the
 // geometry's own.
@@ -344,15 +467,20 @@ extern "C" int sventt_mxu_ntt_tc(
     const void *tw_wp, long long A, int m, long long B, long long sa, long long sm,
     long long sb, long long ta, long long tm, long long tb, int tw_mode, int inverse,
     int lazy, unsigned long long N, unsigned long long nprime, unsigned long long c128,
-    unsigned long long mu, unsigned long long ninv, int nsub, int barrett, int nt, int split,
-    long long smem, void *stream) {
+    unsigned long long mu, unsigned long long ninv, int nsub, int barrett, int lane, int nt,
+    int split, long long smem, void *stream) {
   if (A <= 0 || B <= 0 || m < 2 || m > 1024 || corr == nullptr ||
       (tw_mode != 0 && tw_w == nullptr) || (tw_mode == 1) != (tw_wp != nullptr))
     return (int)cudaErrorInvalidValue;
   if (nt < WCOLS || nt % WCOLS != 0 || WARPS % (nt / WCOLS) != 0 || split < 1 ||
-      split > 65535)
+      split > 65535 || lane < 0 || lane > 2)
     return (int)cudaErrorInvalidValue;
-  const Geo geo(m, nt);
+  if (lane != 0) {
+    const uintptr_t bits = (uintptr_t)x | (uintptr_t)out | (uintptr_t)tw_w | (uintptr_t)tw_wp;
+    if (A != 1 || sm != 1 || sb != m || (tw_mode != 0 && (tm != 1 || tb != m)) || (bits & 15))
+      return (int)cudaErrorInvalidValue;
+  }
+  const Geo geo(m, nt, lane);
   if (smem != geo.smem || smem > MAX_SMEM || split > geo.n_rg) return (int)cudaErrorInvalidValue;
   const long long gy = A < 65535 ? A : 65535;
   const Args g{dim3((unsigned)((B + nt - 1) / nt), (unsigned)gy, (unsigned)split),
@@ -362,16 +490,10 @@ extern "C" int sventt_mxu_ntt_tc(
                (const long long *)corr, (const long long *)tw_w, (const long long *)tw_wp,
                A, m, B, sa, sm, sb, ta, tm, tb, nt, split,
                Consts{N, nprime, c128, mu, ninv, nsub, barrett}};
-  if (tw_mode == 0) return (int)launch<0, false, false>(g);
-  if (tw_mode == 1) {
-    if (inverse) return (int)(lazy ? launch<1, true, true>(g) : launch<1, true, false>(g));
-    return (int)(lazy ? launch<1, false, true>(g) : launch<1, false, false>(g));
+  if (lane == 1) return (int)dispatch<1>(g, tw_mode, inverse, lazy);
+  if (lane == 2) {  // the inverse with the pair twiddle only
+    if (tw_mode != 1 || !inverse) return (int)cudaErrorInvalidValue;
+    return (int)(lazy ? launch<1, true, true, 2>(g) : launch<1, true, false, 2>(g));
   }
-  if (tw_mode == 2) {
-    if (inverse) return (int)(lazy ? launch<2, true, true>(g) : launch<2, true, false>(g));
-    return (int)(lazy ? launch<2, false, true>(g) : launch<2, false, false>(g));
-  }
-  if (tw_mode == 3 && !lazy)  // Solinas: canonical only, no companion
-    return (int)(inverse ? launch<3, true, false>(g) : launch<3, false, false>(g));
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch<0>(g, tw_mode, inverse, lazy);
 }

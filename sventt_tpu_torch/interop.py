@@ -25,7 +25,10 @@ caller does the ``np.asarray`` on the JAX side), into the port's tensors:
   (hi, lo)}, (m, "pallas"): {"stage_ls": ..., "tw": ..., "scale": ...}
   or {"specs": ..., "tw": ...}}, "lane": {m1: {"stage_ls": ..., "tw": ...,
   "scale_scalar": ...} or {"specs": ..., "tw": ...}},
-  "split_tw": {(m0, m1): pair}, "split_tw_t": {...}}``;
+  "split_tw": {(m0, m1): pair}, "split_tw_t": {(m0, m1): pair}}`` (the
+  JAX package's transposed (m1, m0) table of an mxu root, if any, is
+  carried into the port's ``split_tw`` transposed back, once: the port's
+  root step reads its (m0, m1) layout);
 * a ``DistributedNTT``'s tables of one direction as ``{"tw": pair (the
   whole (n0, n1) inter-step matrix, as ``np.asarray`` gathers it), "col":
   PlanTables layout, "row": PlanTables layout}`` -> ``parallel.sixstep.
@@ -56,7 +59,7 @@ from .ops.ntt_pallas import (
     _compact,
     _const_tensors,
 )
-from .ops.twiddle import MontPair
+from .ops.twiddle import MontPair, montpair_map
 from .plan.planner import PlanTables
 from .utils.device import resolve_device
 
@@ -223,21 +226,18 @@ def tables_from_numpy(
             lane[m1] = lane_direction_from_numpy(
                 m1, inverse, fc.modmul, v["stage_ls"], v["tw"], v["scale_scalar"], device
             )
-    conv = {
-        name: {k: montpair_from_numpy(v, device) for k, v in arrays[name].items()}
-        for name in ("split_tw", "split_tw_t")
-    }
-    return PlanTables.from_parts(
-        plan, mod, fc, inverse, leaf=leaf, split_tw=conv["split_tw"],
-        split_tw_t=conv["split_tw_t"], lane=lane,
-    )
+    split_tw = {k: montpair_from_numpy(v, device) for k, v in arrays["split_tw"].items()}
+    for k, v in arrays.get("split_tw_t", {}).items():
+        split_tw[k] = montpair_map(lambda a: a.t().contiguous(), montpair_from_numpy(v, device))
+    return PlanTables.from_parts(plan, mod, fc, inverse, leaf=leaf, split_tw=split_tw, lane=lane)
 
 
 def distributed_tables_from_numpy(
     col_plan, row_plan, mod: Modulus, fc: FieldConsts, inverse: bool, arrays: dict, devices
 ):
     """A JAX ``DistributedNTT``'s tables of one direction (layout above;
-    its local plans were built with ``root_lead=False``) as the port's
+    its local plans were built with ``root_lead=False``, so no table is
+    transposed) as the port's
     ``DirectionTables``: shard d's columns [d*n1/D, (d+1)*n1/D) of the
     inter-step matrix on ``devices[d]``, the column and row PlanTables once
     per distinct device."""

@@ -36,16 +36,19 @@ its orientations and ``_mxu_lane_call``:
 
 * lead (``mxu_ntt``, K1): the transform runs along axis 0 of (m, B);
 * mid (``mxu_ntt_mid``, K2): along axis 1 of (A, m, B);
-* lane (``mxu_ntt_lane``, K3): along the last axis of (B, m), no twiddle.
+* lane (``mxu_ntt_lane``, K3): along the last axis of (B, m).  JAX's
+  lane kernel takes no twiddle; the port's takes one in the data's own
+  layout, which makes it the six-step root's row step without the two
+  transposes of JAX's (``sventt_tpu/plan/planner.py:563-574``).
 
 Each is one kernel over an (A, m, B) view with strides: the lane
 orientation is the view (1, m, B) of the (B, m) rows with transform stride
 1 and batch stride m, read in place.  ``kernel_for`` routes a call: the
-s8 and s8b schemes in the lead and mid orientations run on the int8
-tensor cores (``csrc/ntt_mxu_tc.cu``, launch geometry ``tc_geometry``);
-the lane orientation and the u7 scheme run on ``__dp4a``
-(``csrc/ntt_mxu.cu``).  An optional inter-step twiddle multiply is fused
-in: before the plane split on the forward, after the REDC on the inverse.
+s8 and s8b schemes run on the int8 tensor cores in every orientation
+(``csrc/ntt_mxu_tc.cu``, launch geometry ``tc_geometry``), the u7 scheme
+on ``__dp4a`` (``csrc/ntt_mxu.cu``).  An optional inter-step twiddle
+multiply is fused in: before the plane split on the forward, after the
+REDC on the inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
@@ -440,9 +443,10 @@ class TcGeometry:
     (``kp`` + 16: ldmatrix reads 8 rows in 8 bank groups); ``rg`` rows a row
     group (the 8 warps tile it 16 rows x 8 columns); ``split`` the row
     groups' split across blocks (gridDim.z); ``smem`` the dynamic shared
-    memory: the 8 byte planes of the block's columns and a 3-stage ring of
-    the 8 digit planes' (rg, 32) tiles.  The grid is (ceil(B / nt),
-    min(A, 65535), split).
+    memory: the 8 byte planes of the block's columns, a 3-stage ring of
+    the 8 digit planes' (rg, 32) tiles and, for the staged lane epilogue,
+    ``rg`` + 2 words a column.  The grid is (ceil(B / nt), min(A, 65535),
+    split).
     """
 
     nt: int
@@ -456,21 +460,47 @@ class TcGeometry:
 #: The tensor-core kernel's constants (csrc/ntt_mxu_tc.cu).
 TC_WARPS, TC_WARP_COLS, TC_KSTEP, TC_STAGES = 8, 8, 32, 3
 
+#: The tensor-core kernel's forms, in the order of its template flag LANE:
+#: any strided (A, m, B) view; the lane layout, stores from the mma
+#: fragment; the lane layout, the row group staged in shared memory and
+#: written a column's rows at a time (built for the inverse with the pair
+#: twiddle only).  ``tc_form`` picks one.
+TC_FORMS = ("strided", "lane", "lane_staged")
 
-def tc_geometry(m: int, B: int, A: int = 1, sms: int = 132) -> TcGeometry:
+
+def tc_form(orientation: str, inverse: bool, tw: MontPair | None) -> str:
+    """The tensor-core form of a call: "strided" for lead and mid; for the
+    lane orientation the staged epilogue where the inverse fuses the pair
+    twiddle there (its 16-byte twiddle loads; faster at the 2^24 and 2^26
+    roots, PERF.md section 6), else the stores from the fragment
+    (faster on the forward; the staged form spills in the other modes and
+    is not built for them)."""
+    if orientation != "lane":
+        return "strided"
+    return "lane_staged" if inverse and tw is not None and tw.wp is not None else "lane"
+
+
+def tc_geometry(m: int, B: int, A: int = 1, sms: int = 132, form: str = "strided") -> TcGeometry:
     """Launch geometry of the tensor-core kernel for an (A, m, B) call on
     a card of ``sms`` SMs: 32 columns a block at m <= 512, 16 above (the
     byte planes under 135 KB; two blocks share an SM at m <= 256); where
     the grid has fewer than two blocks an SM, the row groups are split
     across up to that many blocks (each splits the same columns into
-    planes and writes its own rows)."""
+    planes and writes its own rows).  A lane form (A = 1) takes the (B, m)
+    rows as its B columns: the 2^17 root (256 rows of 512) splits its row
+    groups, the 2^24 and 2^26 roots (65536 x 256, 131072 x 512) fill the
+    card without."""
     if not 2 <= m <= MAX_MXU:
         raise ValueError(f"tensor-core kernel takes 2 <= m <= {MAX_MXU}, got {m}")
+    if form not in TC_FORMS or (form != "strided" and A != 1):
+        raise ValueError(f"tensor-core kernel form {form!r} with A = {A}")
     nt = 32 if m <= 512 else 16
     kp = -(-m // TC_KSTEP) * TC_KSTEP
     rs = kp + 16
     rg = 16 * (TC_WARPS // (nt // TC_WARP_COLS))
     smem = NL_S8 * nt * rs + TC_STAGES * NL_S8 * rg * TC_KSTEP
+    if form == "lane_staged":
+        smem += 8 * nt * (rg + 2)
     n_rg = -(-m // rg)
     blocks = -(-B // nt) * A
     split = 1 if blocks >= 2 * sms else min(n_rg, -(-2 * sms // blocks))
@@ -502,20 +532,34 @@ def tc_plane_tile_bytes(m: int) -> int:
     return NL_S8 * -(-m // g.rg) * g.rg * g.kp
 
 
+def _aligned16(v: torch.Tensor) -> torch.Tensor:
+    """``v``, or a copy of it where its data is not 16-byte aligned (a view
+    at an odd word offset): the lane forms read and write 16 bytes at a
+    time."""
+    return v if v.data_ptr() % 16 == 0 else v.clone(memory_format=torch.preserve_format)
+
+
 def _launch_tc(
-    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
+    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None,
+    form: str = "strided",
 ) -> torch.Tensor:
     """Launch the int8 tensor-core kernel (csrc/ntt_mxu_tc.cu) on a dense
-    (A, m, B) view of s8 / s8b tables; raise on any error."""
+    (A, m, B) view of s8 / s8b tables in one of ``TC_FORMS`` (a lane form
+    takes the (1, m, B) view of contiguous rows); raise on any error."""
     from .. import _build
 
     if t.scheme == "u7" or t.tc_planes is None:
         raise ValueError("the tensor-core kernel takes s8 / s8b tables built on a CUDA device")
+    if form != "strided":
+        # the transposed view of contiguous rows keeps its strides
+        x = _aligned16(x[0].t()).t().unsqueeze(0)
+        if tw is not None:
+            tw = montpair_map(lambda v: _aligned16(v[0].t()).t().unsqueeze(0), tw)
     out, head, tail = _kernel_args(x, t, fc, tw, t.tc_planes)
     A, m, B = x.shape
-    geo = tc_geometry(m, B, A, sm_count(x.device.index))
+    geo = tc_geometry(m, B, A, sm_count(x.device.index), form)
     rc = _build.load().sventt_mxu_ntt_tc(
-        *head, *tail, geo.nt, geo.split, geo.smem,
+        *head, *tail, TC_FORMS.index(form), geo.nt, geo.split, geo.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
@@ -525,11 +569,10 @@ def _launch_tc(
 
 def kernel_for(scheme: str, orientation: str) -> str:
     """The kernel a CUDA call runs: "tensor_core" for the s8 digit stack
-    (schemes s8 and s8b) in the lead and mid orientations, "dp4a" for the
-    lane orientation and the u7 planes."""
+    (schemes s8 and s8b) in every orientation, "dp4a" for the u7 planes."""
     if scheme not in SCHEMES or orientation not in LAUNCHES:
         raise ValueError(f"unknown mxu scheme / orientation {scheme!r} / {orientation!r}")
-    return "tensor_core" if scheme != "u7" and orientation != "lane" else "dp4a"
+    return "tensor_core" if scheme != "u7" else "dp4a"
 
 
 def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
@@ -537,13 +580,21 @@ def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
     a function taking the (A, m, B) result back to the data's shape:
     lead (m, batch...) -> (1, m, B) with tw (1, m, B); mid (A, m, batch...)
     -> (A, m, B) with tw (A, m, 1); lane (batch..., m) -> the (1, m, B)
-    view of the contiguous (B, m) rows, transform stride 1."""
+    view of the contiguous (B, m) rows, transform stride 1, with tw in the
+    data's own layout viewed the same way."""
     if orientation == "lane":
         if x.shape[-1] != m:
             raise ValueError(f"trailing axis {x.shape[-1]} != transform length {m}")
         shape = tuple(x.shape)
-        rows = x.reshape(-1, m).contiguous()
-        return rows.t().unsqueeze(0), None, lambda y: y[0].t().reshape(shape)
+
+        def view(v):
+            return v.reshape(-1, m).contiguous().t().unsqueeze(0)
+
+        if tw is not None:
+            if tuple(tw.w.shape) != shape:
+                raise ValueError(f"lane twiddle {tuple(tw.w.shape)} != data {shape}")
+            tw = montpair_map(view, tw)
+        return view(x), tw, lambda y: y[0].t().reshape(shape)
     mid = orientation == "mid"
     if mid:
         if x.dim() < 2 or x.shape[1] != m:
@@ -566,7 +617,10 @@ def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
     x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
         kernel = kernel_for(t.scheme, orientation)
-        out = (_launch_tc if kernel == "tensor_core" else _launch)(x3, t, fc, tw3)
+        if kernel == "dp4a":
+            out = _launch(x3, t, fc, tw3)
+        else:
+            out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3))
         LAUNCHES[orientation] += 1
         KERNEL_LAUNCHES[kernel] += 1
         return back(out)
@@ -600,10 +654,19 @@ def mxu_ntt_mid(
     return _run(x, tables, fc, tw, "mid")
 
 
-def mxu_ntt_lane(x: torch.Tensor, tables: MxuDirection, fc: FieldConsts) -> torch.Tensor:
-    """Length-m matrix NTT along the LAST axis of (batch..., m), no twiddle:
-    the six-step row step on the natural layout, without transposes."""
-    return _run(x, tables, fc, None, "lane")
+def mxu_ntt_lane(
+    x: torch.Tensor, tables: MxuDirection, fc: FieldConsts, tw: MontPair | None = None
+) -> torch.Tensor:
+    """Length-m matrix NTT along the LAST axis of (batch..., m): the
+    six-step row step on the natural layout, without transposes.
+
+    ``tw``: optional inter-step MontPair in the SAME (batch..., m) layout as
+    the data (a level's (m0, m1) table), fused as prologue (forward) /
+    epilogue (inverse).  JAX's lane kernel takes none; with it the call
+    equals JAX's root step, a transpose, ``mxu_ntt`` with the transposed
+    table and a transpose back, bit for bit.
+    """
+    return _run(x, tables, fc, tw, "lane")
 
 
 def mxu_plain(
@@ -621,18 +684,37 @@ def mxu_plain(
 
 def _launch_dp4a_s8(
     x: torch.Tensor, tables: MxuDirection, fc: FieldConsts,
-    tw: MontPair | None = None, mid: bool = False,
+    tw: MontPair | None = None, mid: bool = False, lane: bool = False,
 ) -> torch.Tensor:
-    """``mxu_ntt`` (``mid=True``: ``mxu_ntt_mid``) of s8 / s8b tables on
-    the __dp4a kernel, which no path runs in these orientations: the A/B
-    point ``chip_smoke.py`` times beside the tensor-core kernel.  CUDA
-    tensors only; counted under ``KERNEL_LAUNCHES["dp4a"]`` alone."""
+    """``mxu_ntt`` (``mid=True``: ``mxu_ntt_mid``; ``lane=True``:
+    ``mxu_ntt_lane``) of s8 / s8b tables on the __dp4a kernel, which no
+    path runs for these schemes: the A/B point ``chip_smoke.py`` times
+    beside the tensor-core kernel.  CUDA tensors only; counted under
+    ``KERNEL_LAUNCHES["dp4a"]`` alone."""
     if tables.scheme == "u7" or not x.is_cuda:
         raise ValueError("the dp4a A/B point takes s8 / s8b tables and a CUDA tensor")
     check_companion(fc, tw)
-    x3, tw3, back = _as3(x, tw, tables.m, "mid" if mid else "lead")
+    x3, tw3, back = _as3(x, tw, tables.m, "lane" if lane else "mid" if mid else "lead")
     out = _launch(x3, tables, fc, tw3)
     KERNEL_LAUNCHES["dp4a"] += 1
+    return back(out)
+
+
+def _launch_lane_form(
+    x: torch.Tensor, tables: MxuDirection, fc: FieldConsts, form: str,
+    tw: MontPair | None = None,
+) -> torch.Tensor:
+    """``mxu_ntt_lane`` on the tensor cores in the lane form ``form``,
+    whichever ``tc_form`` picks: "lane" or "lane_staged" (an inverse with
+    the pair twiddle only), the A/B point of the two epilogues that
+    ``chip_smoke.py`` times.  CUDA tensors only; counted under
+    ``KERNEL_LAUNCHES["tensor_core"]`` alone."""
+    if form == "strided" or not x.is_cuda:
+        raise ValueError("the lane-form A/B point takes a lane form and a CUDA tensor")
+    check_companion(fc, tw)
+    x3, tw3, back = _as3(x, tw, tables.m, "lane")
+    out = _launch_tc(x3, tables, fc, tw3, form)
+    KERNEL_LAUNCHES["tensor_core"] += 1
     return back(out)
 
 
@@ -644,7 +726,8 @@ def reset_counts() -> None:
 
 
 # ctypes signatures of the C entries in csrc/ntt_mxu.cu (with u7) and
-# csrc/ntt_mxu_tc.cu (without it, with nt, split and the shared memory)
+# csrc/ntt_mxu_tc.cu (without it, with the form, nt, split and the shared
+# memory)
 _HEAD = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
@@ -653,4 +736,4 @@ _HEAD = (
 )
 _TAIL = [ctypes.c_ulonglong] * 5 + [ctypes.c_int] * 2
 _ARGTYPES = _HEAD + [ctypes.c_int] + _TAIL + [ctypes.c_void_p]
-_TC_ARGTYPES = _HEAD + _TAIL + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_TC_ARGTYPES = _HEAD + _TAIL + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]

@@ -65,7 +65,7 @@ from .ring import copy_all_to_all, ring_all_to_all
 class DirectionTables:
     """One direction's tables: ``tw[d]``, shard d's (n0, n1/D) columns of
     the inter-step twiddle matrix on mesh device d; ``col`` / ``row``, the
-    local plans' tables (``root_lead=False``) per distinct mesh device."""
+    local plans' tables per distinct mesh device."""
 
     tw: list[MontPair]
     col: dict[torch.device, PlanTables]
@@ -165,7 +165,7 @@ class DistributedNTT:
         cfg = self.config
         knobs = dict(
             block_b=cfg.block_b, spc=cfg.stages_per_call, rows=cfg.lane_rows,
-            max_r=cfg.max_r, tw_layout=cfg.tw_layout, root_lead=False,
+            max_r=cfg.max_r, tw_layout=cfg.tw_layout,
         )
         col, row = {}, {}
         for dev in dict.fromkeys(self.devices):

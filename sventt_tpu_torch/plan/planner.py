@@ -13,10 +13,12 @@ The counterpart of ``sventt_tpu/plan/planner.py`` for the matrix engine
 
 A row that is a leaf takes the inter-step twiddle multiply fused into its
 kernel.  It runs mid-axis when the node has batch axes (inner levels: no
-transposes).  At the unbatched root an mxu row runs lead-axis between two
-transposes, with the root's twiddle table stored transposed
-(``split_tw_t``); a pallas row runs lane-axis on the data as it lies, with
-the table in its natural (m0, m1) layout -- both as in the JAX package.
+transposes).  At the unbatched root it runs lane-axis on the data as it
+lies, with the level's table in its natural (m0, m1) layout: a pallas row
+as in the JAX package, an mxu row on the port's own choice -- the JAX
+package runs that one lead-axis between two transposes with the table
+stored transposed (``split_tw_t``), for Mosaic's sake
+(``sventt_tpu/plan/planner.py:555-574``), and the two agree bit for bit.
 Every other row step -- a batched pallas row with grouped tables (the
 mid kernel takes per-stage tables only) or a row subtree -- takes the JAX
 package's transpose fallback: the inter-step multiply as its own pass
@@ -76,7 +78,8 @@ def row_twiddles(
     ``w_only`` says (``ops.twiddle.inter_step_mul`` multiplies them).
 
     ``w_only`` drops the companion; None applies W_ONLY_THRESHOLD.
-    ``transposed`` returns the (n1, n0) layout of the lead-axis root step.
+    ``transposed`` returns the (n1, n0) layout, the JAX package's table of
+    a lead-axis root step (no plan of the port reads it).
     """
     if modmul != "solinas":
         modmul = "montgomery"
@@ -221,20 +224,18 @@ class PlanTables:
     ``leaf[(m, engine)]``: MxuDirection, FusedDirection or (``max_r`` > 1)
     GroupedDirection; ``lane[m1]``: LaneDirection or GroupedLaneDirection
     of a pallas row leaf, for the unbatched lane-axis step;
-    ``split_tw[(m0, m1)]``: (m0, m1) MontPair of a level; ``split_tw_t[(m0,
-    m1)]``: the (m1, m0) transposed table of an unbatched root whose row is
-    an mxu leaf (its lead-axis step).  ``root_lead=False`` keeps that
-    root's table in its (m0, m1) layout instead, for callers that always
-    enter the plan with a batch axis (the distributed local plans), so a
-    batched call never transposes it back.  The pallas knobs (``block_b``,
-    ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the pallas tables.
+    ``split_tw[(m0, m1)]``: the (m0, m1) MontPair of every level, the root's
+    included (the JAX package also keeps an mxu root's table transposed, in
+    ``split_tw_t``; the port has no such copy).  The pallas knobs
+    (``block_b``, ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the
+    pallas tables.
     """
 
     def __init__(
         self, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
         device=None, split_w_only: bool | None = None, block_b: int | None = None,
         spc: int | None = None, rows: int | None = None, max_r: int | None = None,
-        tw_layout: str | None = None, root_lead: bool = True,
+        tw_layout: str | None = None,
     ):
         check_ported(plan)
         self.plan = plan
@@ -248,13 +249,12 @@ class PlanTables:
         self.leaf: dict = {}
         self.lane: dict = {}
         self.split_tw: dict = {}
-        self.split_tw_t: dict = {}
-        self._prepare(plan, root=root_lead)
+        self._prepare(plan)
 
     @classmethod
     def from_parts(
         cls, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
-        leaf: dict, split_tw: dict, split_tw_t: dict, lane: dict | None = None,
+        leaf: dict, split_tw: dict, lane: dict | None = None,
     ) -> "PlanTables":
         """Tables assembled from prepared parts (see ``interop``)."""
         check_ported(plan)
@@ -264,11 +264,11 @@ class PlanTables:
         obj.device = (first.planes if isinstance(first, ntt_mxu.MxuDirection) else first.w).device
         obj.split_w_only = None
         obj.knobs, obj.rows = {}, None
-        obj.leaf, obj.split_tw, obj.split_tw_t = leaf, split_tw, split_tw_t
+        obj.leaf, obj.split_tw = leaf, split_tw
         obj.lane = lane or {}
         return obj
 
-    def _prepare(self, node, root: bool = False):
+    def _prepare(self, node):
         if isinstance(node, Leaf):
             key = (node.m, node.engine)
             if key in self.leaf:
@@ -284,15 +284,10 @@ class PlanTables:
                 )
             return
         key = (node.m0, node.m1)
-        # only an mxu root stores its table transposed: a pallas root's lane
-        # step reads the data's own (m0, m1) layout
-        transposed = root and _mxu_row(node)
-        store = self.split_tw_t if transposed else self.split_tw
-        if key not in store:
-            store[key] = row_twiddles(
+        if key not in self.split_tw:
+            self.split_tw[key] = row_twiddles(
                 self.mod, node.m0, node.m1, inverse=self.inverse,
-                w_only=self.split_w_only, modmul=self.fc.modmul,
-                transposed=transposed, device=self.device,
+                w_only=self.split_w_only, modmul=self.fc.modmul, device=self.device,
             )
         if _lane_row(node) and node.m1 not in self.lane:
             self.lane[node.m1] = ntt_pallas.make_lane_tables(
@@ -303,36 +298,23 @@ class PlanTables:
         self._prepare(node.row)
 
 
-def _split_tw(tables: PlanTables, key) -> MontPair:
-    """A level's (m0, m1) table, transposed back if only the root's
-    transposed copy is stored."""
-    tw = tables.split_tw.get(key)
-    return _transpose_pair(tables.split_tw_t[key]) if tw is None else tw
-
-
 def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torch.Tensor:
     """The row step of a Split on (m0, m1, batch...) data: a row leaf with
     the inter-step twiddle fused into its kernel (prologue forward,
-    epilogue inverse), else the transpose fallback."""
+    epilogue inverse) -- lane-axis at the unbatched root, mid-axis when
+    batched -- else the transpose fallback."""
     fc = tables.fc
-    key = (node.m0, node.m1)
+    tw = tables.split_tw[(node.m0, node.m1)]
     if _lane_row(node) and not batch:
-        return ntt_pallas.fused_ntt_lane(
-            mat, tables.lane[node.m1], fc, pre_tw=_split_tw(tables, key)
-        )
+        return ntt_pallas.fused_ntt_lane(mat, tables.lane[node.m1], fc, pre_tw=tw)
     if _mid_row(node, tables):
-        t = tables.leaf[(node.m1, "pallas")]
-        return ntt_pallas.fused_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
+        return ntt_pallas.fused_ntt_mid(mat, tables.leaf[(node.m1, "pallas")], fc, tw=tw)
     if not _mxu_row(node):
         return _transposed_row(mat, node, tables)
     t = tables.leaf[(node.m1, "mxu")]
     if batch:
-        return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=_split_tw(tables, key))
-    twt = tables.split_tw_t.get(key)
-    if twt is None:
-        twt = _transpose_pair(tables.split_tw[key])
-    mat = ntt_mxu.mxu_ntt(transpose01(mat), t, fc, tw=twt)
-    return transpose01(mat)
+        return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=tw)
+    return ntt_mxu.mxu_ntt_lane(mat, t, fc, tw=tw)
 
 
 def _transposed_row(mat: torch.Tensor, node: Split, tables: PlanTables) -> torch.Tensor:
@@ -340,7 +322,7 @@ def _transposed_row(mat: torch.Tensor, node: Split, tables: PlanTables) -> torch
     ``:595-599`` and ``:653-657``): forward, the inter-step multiply, a
     transpose to (m1, m0, batch...), the row transform along the leading
     axis, a transpose back; the inverse mirrors it."""
-    tw = _split_tw(tables, (node.m0, node.m1))
+    tw = tables.split_tw[(node.m0, node.m1)]
     if not tables.inverse:
         mat = transpose01(inter_step.mont_mul_bcast(tables.fc, mat, tw))
         return transpose01(run_forward(mat, node.row, tables))

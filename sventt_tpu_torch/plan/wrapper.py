@@ -124,11 +124,11 @@ class NTT:
         transpose fallback, as in the JAX package.  The mxu lines are the
         port's own, on purpose: the JAX ``describe`` has no mxu branch and
         prints "transposed row leaf m1=X" for every mxu row leaf, where
-        the port prints what runs -- "lead-axis mxu m1=X (fused twiddle,
-        between transposes)" for the unbatched root, "mid-axis mxu m1=X
-        (fused twiddle, no transposes)" for a batched row.  Mapping either
-        of those back to "transposed row leaf m1=X" gives the JAX text
-        line for line."""
+        the port prints what runs -- "lane-axis mxu m1=X (fused twiddle, no
+        transposes)" for the unbatched root (the JAX package runs that one
+        between two transposes), "mid-axis mxu m1=X (fused twiddle, no
+        transposes)" for a batched row.  Mapping either of those back to
+        "transposed row leaf m1=X" gives the JAX text line for line."""
         lines = []
 
         def walk(node, depth, batch):
@@ -145,7 +145,7 @@ class NTT:
                 if batch:
                     row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
                 else:
-                    row = f"lead-axis mxu m1={node.m1} (fused twiddle, between transposes)"
+                    row = f"lane-axis mxu m1={node.m1} (fused twiddle, no transposes)"
             else:
                 row = f"transposed row subtree m1={node.m1}"
             lines.append(f"{pad}split {node.m} = {node.m0} x {node.m1}: {row}")

@@ -119,7 +119,7 @@ def test_leaf_tables_match_built_tables(log2n, n0, kw):
     t = dntt._forward
     built = 0
     for tables in (t.col[torch.device("cpu")], t.row[torch.device("cpu")]):
-        built += sum(_tensor_bytes(getattr(tables, k)) for k in ("leaf", "lane", "split_tw", "split_tw_t"))
+        built += sum(_tensor_bytes(getattr(tables, k)) for k in ("leaf", "lane", "split_tw"))
     budget = distributed_memory_budget(cfg, 8, enable_inverse=False, device="cpu")
     assert budget.leaf_tables == built
     assert budget.directions == 1

@@ -98,7 +98,7 @@ def test_describe_and_get_m():
               enable_inverse=False, device="cpu")
     assert ntt.get_m() == 1 << 14
     assert ntt.describe().splitlines() == [
-        "split 16384 = 512 x 32: lead-axis mxu m1=32 (fused twiddle, between transposes)",
+        "split 16384 = 512 x 32: lane-axis mxu m1=32 (fused twiddle, no transposes)",
         "  split 512 = 16 x 32: mid-axis mxu m1=32 (fused twiddle, no transposes)",
         "    leaf m=16 engine=mxu",
     ]
@@ -111,7 +111,7 @@ def test_describe_and_get_m():
 
 #: The port's mxu row lines and the JAX package's text for the same row
 #: (its describe() has no mxu branch): the mapping the port documents.
-_MXU_ROW = re.compile(r"(lead|mid)-axis mxu m1=(\d+) \(fused twiddle, (between|no) transposes\)")
+_MXU_ROW = re.compile(r"(lane|mid)-axis mxu m1=(\d+) \(fused twiddle, no transposes\)")
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["unbatched", "batched"])
@@ -129,7 +129,7 @@ def test_describe_against_jax(engine, batched):
         assert port == jax_lines
         return
     root = "mid-axis mxu m1=32 (fused twiddle, no transposes)" if batched else (
-        "lead-axis mxu m1=32 (fused twiddle, between transposes)")
+        "lane-axis mxu m1=32 (fused twiddle, no transposes)")
     assert port == [
         f"split 16384 = 512 x 32: {root}",
         "  split 512 = 16 x 32: mid-axis mxu m1=32 (fused twiddle, no transposes)",

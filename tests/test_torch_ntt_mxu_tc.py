@@ -4,12 +4,16 @@
 The kernel itself runs only on the card (chip_smoke.py holds it against the
 plain version there, bitwise).  Here, on the CPU: which kernel each scheme
 and orientation launches (a pure function); the launch geometry the wrapper
-passes to the C entry, for every m; and an emulation of the kernel's
-accumulation -- 32-deep K steps, K zero-padded to the geometry's ``kp``,
-each (digit plane a, byte plane b) product added straight into plane a + b
-in the kernel's order -- against ``_plane_products`` (the plain version's
-planes) and, through the plain tail, against the JAX package's kernel in
-interpret mode.  Inputs are made with numpy from a seed; every comparison
+passes to the C entry, for every m and form (the lane forms of K3
+included); and an emulation of the kernel's accumulation -- 32-deep K
+steps, K zero-padded to the geometry's ``kp``, each (digit plane a, byte
+plane b) product added straight into plane a + b in the kernel's order --
+against ``_plane_products`` (the plain version's planes) and, through the
+plain tail, against the JAX package's kernel in interpret mode.  K3 with
+the fused twiddle (``mxu_ntt_lane(tw=)``) is held to the JAX package's mxu
+root step, a transpose, ``mxu_ntt`` with the transposed table and a
+transpose back, and the port's unbatched mxu plans, whose roots run it, to
+the JAX plans.  Inputs are made with numpy from a seed; every comparison
 is exact.
 """
 
@@ -22,16 +26,20 @@ from sventt_tpu.field.limb import u64_from_numpy, u64_to_numpy
 from sventt_tpu.field.modulus import Modulus as JModulus
 from sventt_tpu.ops import ntt_mxu as jmxu
 from sventt_tpu.ops.twiddle import MontPair as JMontPair
+from sventt_tpu.plan import NTT as JNTT
+from sventt_tpu.plan import NttConfig as JNttConfig
 from sventt_tpu_torch.field.limb import FieldConsts, _shr, from_numpy, to_numpy
 from sventt_tpu_torch.field.modulus import (
     FLAGSHIP_GENERATOR,
     FLAGSHIP_MODULUS,
+    GOLDILOCKS_MODULUS,
     TEST_GENERATOR,
     TEST_MODULUS,
     Modulus,
 )
 from sventt_tpu_torch.ops import ntt_mxu
 from sventt_tpu_torch.ops.twiddle import MontPair
+from sventt_tpu_torch.plan import NTT, NttConfig, planner
 
 #: Byte planes the kernel holds in registers at once (csrc/ntt_mxu_tc.cu BG):
 #: the order in which it adds the (a, b) products.
@@ -66,10 +74,23 @@ def _flagship():
 @pytest.mark.parametrize("orientation", ["lead", "mid", "lane"])
 @pytest.mark.parametrize("scheme", ntt_mxu.SCHEMES)
 def test_kernel_routing(scheme, orientation):
-    """s8 and s8b lead / mid run on the tensor cores; lane and u7 on
-    __dp4a."""
-    want = "tensor_core" if scheme != "u7" and orientation != "lane" else "dp4a"
+    """s8 and s8b run on the tensor cores in every orientation, K3 lane
+    included; u7 on __dp4a."""
+    want = "tensor_core" if scheme != "u7" else "dp4a"
     assert ntt_mxu.kernel_for(scheme, orientation) == want
+
+
+def test_tc_form():
+    """Lead and mid run the strided form; the lane orientation runs the
+    staged epilogue for the inverse with the pair twiddle (the only lane
+    form the kernel builds it for), else the stores from the fragment."""
+    z = torch.zeros(1, dtype=torch.int64)
+    pair, w = MontPair(z, z), MontPair(z, None)
+    for inverse in (False, True):
+        for tw in (None, pair, w):
+            assert ntt_mxu.tc_form("lead", inverse, tw) == ntt_mxu.tc_form("mid", inverse, tw) == "strided"
+            want = "lane_staged" if inverse and tw is pair else "lane"
+            assert ntt_mxu.tc_form("lane", inverse, tw) == want
 
 
 def test_kernel_routing_rejects():
@@ -95,6 +116,49 @@ def test_tc_geometry_every_m():
             per = -(-n_rg // g.split)
             assert 1 <= g.split <= n_rg and (g.split - 1) * per < n_rg, (m, B, A, g)
             assert (g.nt // ntt_mxu.TC_WARP_COLS) * (g.rg // 16) == ntt_mxu.TC_WARPS
+
+
+def test_tc_geometry_lane_forms():
+    """The lane forms (K3, A = 1, the rows as the B columns): the same
+    block as the strided form, the staged epilogue's rg + 2 words a column
+    on top (its 8-byte stores from the fragment in 16 distinct 8-byte bank
+    slots a half-warp), within a block's shared memory for every m, two
+    blocks an SM at m <= 256 where the byte planes allow; a lane form
+    refuses A > 1 and an unknown form."""
+    for m in range(2, ntt_mxu.MAX_MXU + 1):
+        for B in (1, 37, 256, 65536, 131072):
+            s, lane, staged = (ntt_mxu.tc_geometry(m, B, 1, form=f) for f in ntt_mxu.TC_FORMS)
+            assert lane == s, (m, B)
+            assert staged.smem == s.smem + 8 * s.nt * (s.rg + 2) <= 232448, (m, B)
+            assert staged.nt * staged.rg == 1024  # two 16-byte copies a thread
+            if m <= 256:
+                assert 2 * (staged.smem + 1024) <= 233472, m
+    # the fragment's half-warp: rows lane >> 2 (0-3), columns 2 (lane & 3) + e
+    for rg in (16, 32, 64, 128):
+        sw = rg + 2
+        for e in (0, 1):
+            slots = {((2 * (ln & 3) + e) * sw + (ln >> 2)) % 16 for ln in range(16)}
+            assert len(slots) == 16, rg
+    with pytest.raises(ValueError):
+        ntt_mxu.tc_geometry(256, 256, 2, form="lane")
+    with pytest.raises(ValueError):
+        ntt_mxu.tc_geometry(256, 256, form="row")
+
+
+def test_tc_geometry_lane_roots():
+    """The mxu plans' roots on K3: the 2^17 root (256 rows of 512) splits
+    its row groups to fill the card; the 2^24 root (65536 x 256) and the
+    2^26 root (131072 x 512, the planner's mxu split) fill it unsplit."""
+    roots = {}
+    for log2n in (17, 24, 26):
+        plan = planner.build_plan(1 << log2n, "mxu")
+        roots[log2n] = (plan.m0, plan.m1)
+    assert roots == {17: (256, 512), 24: (65536, 256), 26: (131072, 512)}
+    g17 = ntt_mxu.tc_geometry(512, 256, form="lane")
+    assert g17.split == -(-512 // g17.rg) == 16 and -(-256 // g17.nt) * g17.split >= 128
+    for rows, m in (roots[24], roots[26]):
+        g = ntt_mxu.tc_geometry(m, rows, form="lane")
+        assert g.split == 1 and -(-rows // g.nt) >= 2 * 132, (rows, m)
 
 
 def test_tc_geometry_main_path():
@@ -224,8 +288,8 @@ def test_tc_accumulation_through_tail_matches_jax(rng, monkeypatch, N, g, invers
 
 def test_cpu_counts_and_ab_point():
     """On the CPU the wrappers run the plain version and launch nothing;
-    the __dp4a A/B point and the tensor-core launcher refuse what they do
-    not take before touching a card."""
+    the __dp4a and staged-epilogue A/B points and the tensor-core launcher
+    refuse what they do not take before touching a card."""
     mod = _flagship()
     fc = FieldConsts.from_modulus(mod)
     t = ntt_mxu.make_mxu_tables(mod, 8, inverse=False, device="cpu")
@@ -236,10 +300,111 @@ def test_cpu_counts_and_ab_point():
     assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0, "dp4a": 0}
     ntt_mxu.mxu_ntt(x, t, fc)
     ntt_mxu.mxu_ntt_mid(x.reshape(1, 8, 3), t, fc)
-    assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": 1, "lane": 0}
+    ntt_mxu.mxu_ntt_lane(x.t(), t, fc, tw=MontPair(x.t(), None))
+    assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": 1, "lane": 1}
     assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0, "dp4a": 0}
+    with pytest.raises(ValueError):
+        ntt_mxu.mxu_ntt_lane(x.t(), t, fc, tw=MontPair(x, None))  # not the data's layout
     with pytest.raises(ValueError):
         ntt_mxu._launch_dp4a_s8(x, t, fc)  # a CPU tensor
     with pytest.raises(ValueError):
+        ntt_mxu._launch_dp4a_s8(x.t(), t, fc, lane=True)
+    with pytest.raises(ValueError):
+        ntt_mxu._launch_lane_form(x.t(), t, fc, "lane_staged")
+    with pytest.raises(ValueError):
         ntt_mxu._launch_tc(x.reshape(1, 8, 3), tu, fc, None)  # u7 planes
     ntt_mxu.reset_counts()
+
+
+def _jax_root_step(x, jt, jfc, w, wp):
+    """The JAX package's mxu root step on (rows, m) data with an (rows, m)
+    table: a transpose, ``mxu_ntt`` with the transposed table, a transpose
+    back (``sventt_tpu/plan/planner.py:563-574``, ``:623-634``)."""
+    jtw = JMontPair(u64_from_numpy(np.ascontiguousarray(w.T)),
+                    None if wp is None else u64_from_numpy(np.ascontiguousarray(wp.T)))
+    y = jmxu.mxu_ntt(u64_from_numpy(np.ascontiguousarray(x.T)), jt, jfc, tw=jtw)
+    return np.ascontiguousarray(u64_to_numpy(y).T)
+
+
+@pytest.mark.parametrize(
+    "N,g,mode,rows,emulate",
+    [
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, "pair", 37, True, id="flagship-pair-37-kernel"),
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, "w", 64, False, id="flagship-w-64"),
+        pytest.param(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, "solinas", 37, False, id="flagship-solinas-37"),
+        pytest.param(TEST_MODULUS, TEST_GENERATOR, "pair", 37, True, id="test62-lazy-pair-37-kernel"),
+        pytest.param(TEST_MODULUS, TEST_GENERATOR, "w", 64, False, id="test62-lazy-w-64"),
+        pytest.param(GOLDILOCKS_MODULUS, 7, "solinas", 37, False, id="goldilocks-solinas-37"),
+    ],
+)
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_lane_twiddle_matches_jax_root(rng, monkeypatch, N, g, mode, rows, emulate, inverse):
+    """``mxu_ntt_lane(x, tw=)`` (K3 with the level's (rows, m) table fused:
+    prologue forward, epilogue inverse) equals the JAX package's root step
+    bit for bit, lazy representatives included, before and after
+    ``normalize``: m = 32, 37 (ragged) or 64 rows, every twiddle mode --
+    pair, w, Solinas -- on the flagship, the lazy test modulus and
+    Goldilocks.  ``emulate``: the planes come from the emulation of the
+    kernel's K-chunked accumulation instead of the plain planes."""
+    m = 32
+    modmul = "solinas" if mode == "solinas" else "montgomery"
+    jmod, mod = JModulus(N, g), Modulus(N, g)
+    jfc = JFieldConsts.from_modulus(jmod, modmul=modmul)
+    fc = FieldConsts.from_modulus(mod, modmul=modmul)
+    jt = jmxu.make_mxu_tables(jmod, m, inverse=inverse)
+    pt = ntt_mxu.make_mxu_tables(mod, m, inverse=inverse, device="cpu")
+    x = rng.integers(0, N, (rows, m), dtype=np.uint64)
+    x[1] = N - 1
+    w = rng.integers(0, N, (rows, m), dtype=np.uint64)
+    w[:, 0] = N - 1
+    wp = None
+    if mode == "pair":
+        with np.errstate(over="ignore"):
+            wp = w * np.uint64(pow(N, -1, 1 << 64))
+    want = _jax_root_step(x, jt, jfc, w, wp)
+    if emulate:
+        monkeypatch.setattr(
+            ntt_mxu, "_plane_products", lambda x3, t: (_tc_planes(x3, t)[0], 8, t.m << 17)
+        )
+    ntt_mxu.reset_counts()
+    got = ntt_mxu.mxu_ntt_lane(from_numpy(x), pt, fc, tw=MontPair(
+        from_numpy(w), None if wp is None else from_numpy(wp)))
+    assert ntt_mxu.PLAIN_CALLS == {"lead": 0, "mid": 0, "lane": 1}
+    np.testing.assert_array_equal(to_numpy(got), want)
+    want_n = u64_to_numpy(jfc.normalize(u64_from_numpy(want)))
+    np.testing.assert_array_equal(to_numpy(fc.normalize(got)), want_n)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        pytest.param(dict(), id="64x64"),
+        pytest.param(dict(plan_spec="mxu:16,mxu:16,mxu"), id="spec-16x16x16"),
+    ],
+)
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_unbatched_mxu_plan_matches_jax(rng, monkeypatch, kw, inverse):
+    """The port's unbatched mxu plans at n = 2^12 (64 x 64; a three-level
+    plan by ``plan_spec``), forward and inverse,
+    equal the JAX package's plans elementwise: the root runs K3 with its
+    table fused (``PLAIN_CALLS["lane"]``) and no transpose."""
+    n = 1 << 12
+    N, g = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR
+    jntt = JNTT(JNttConfig(N, g, n, **kw), enable_forward=not inverse, enable_inverse=inverse)
+    ntt = NTT(NttConfig(N, g, n, **kw), enable_forward=not inverse, enable_inverse=inverse,
+              device="cpu")
+    assert ntt.describe().splitlines()[0].endswith(
+        "lane-axis mxu m1=%d (fused twiddle, no transposes)" % ntt.plan.m1)
+    transposes = []
+    inner = planner.transpose01
+    monkeypatch.setattr(planner, "transpose01", lambda v: transposes.append(1) or inner(v))
+    x = rng.integers(0, N, n, dtype=np.uint64)
+    ntt_mxu.reset_counts()
+    if inverse:
+        got, want = ntt.inverse_numpy(x), jntt.inverse_numpy(x)
+    else:
+        got, want = ntt.forward_numpy(x), jntt.forward_numpy(x)
+    levels = 2 if not kw else 3
+    assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": levels - 2, "lane": 1}
+    assert not transposes
+    np.testing.assert_array_equal(got, np.asarray(want))

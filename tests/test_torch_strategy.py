@@ -1,6 +1,6 @@
 """PyTorch port, the wrapper's strategies and the local plans' tables:
 ``NTT(strategy="six_step" | "iterative")`` against sventt_tpu's NTT, and
-``PlanTables(root_lead=False)`` against the JAX tables.
+the port's PlanTables against the JAX ``PlanTables(root_lead=False)``.
 
 The JAX side runs its ``engine="auto"`` (jnp off the TPU); the port runs
 its plain versions on the CPU.  Inputs are made with numpy from a seed;
@@ -87,9 +87,10 @@ def _pair(tw):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_root_lead_false_tables_match_jax(rng, inverse):
-    """PlanTables(root_lead=False) of an mxu-row root keep the (m0, m1)
-    table, as the JAX ones do, carried across through interop; batched
-    runs equal those of the root_lead=True tables."""
+    """The port keeps an mxu-row root's table in its (m0, m1) layout, as
+    the JAX root_lead=False tables do (carried across through interop),
+    and the JAX root_lead=True tables' transposed root table is carried
+    back into that layout; batched runs of the three agree."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     jmod = JModulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod)
@@ -105,14 +106,20 @@ def test_root_lead_false_tables_match_jax(rng, inverse):
         "split_tw_t": {k: _pair(v) for k, v in jpt.split_tw_t.items()},
     }
     carried = interop.tables_from_numpy(plan, mod, fc, inverse, arrays, device="cpu")
-    own = planner.PlanTables(plan, mod, fc, inverse, device="cpu", root_lead=False)
-    lead = planner.PlanTables(plan, mod, fc, inverse, device="cpu")
-    assert not own.split_tw_t and not jpt.split_tw_t
-    assert lead.split_tw_t.keys() == {(256, 16)} and lead.split_tw.keys() == {(16, 16)}
-    assert own.split_tw.keys() == carried.split_tw.keys() == {(256, 16), (16, 16)}
+    own = planner.PlanTables(plan, mod, fc, inverse, device="cpu")
+    jlead = jplanner.PlanTables(jplanner.build_plan(1 << 12, "mxu", 16), jmod,
+                                JFieldConsts.from_modulus(jmod), inverse)
+    assert not jpt.split_tw_t and jlead.split_tw_t.keys() == {(256, 16)}
+    lead = interop.tables_from_numpy(plan, mod, fc, inverse, {
+        **arrays, "split_tw": {k: _pair(v) for k, v in jlead.split_tw.items()},
+        "split_tw_t": {k: _pair(v) for k, v in jlead.split_tw_t.items()},
+    }, device="cpu")
+    assert not hasattr(own, "split_tw_t")
+    assert own.split_tw.keys() == carried.split_tw.keys() == lead.split_tw.keys() == {(256, 16), (16, 16)}
     for k, v in own.split_tw.items():
-        np.testing.assert_array_equal(to_numpy(carried.split_tw[k].w), to_numpy(v.w))
-        np.testing.assert_array_equal(to_numpy(carried.split_tw[k].wp), to_numpy(v.wp))
+        for c in (carried, lead):
+            np.testing.assert_array_equal(to_numpy(c.split_tw[k].w), to_numpy(v.w))
+            np.testing.assert_array_equal(to_numpy(c.split_tw[k].wp), to_numpy(v.wp))
     x = torch.from_numpy(rng.integers(0, FLAGSHIP_MODULUS, (1 << 12, 2), dtype=np.uint64).view(np.int64))
     run = planner.run_inverse if inverse else planner.run_forward
     got = run(x, plan, own)
