@@ -9,9 +9,9 @@ Phases, each printing its own lines:
 2. build: the CUDA kernels and the native golden oracle, from this checkout,
    with each kernel's -Xptxas -v lines; fails if an instantiation of one
    of the three redesigned kernels (the tensor-core matrix kernel
-   csrc/ntt_mxu_tc.cu, its 13 lane instantiations included, the grouped
-   and the radix-2 register kernels csrc/ntt_grouped.cu,
-   csrc/ntt_radix2.cu) spills;
+   csrc/mxu_tc.cuh, its 24 s8 instantiations in csrc/ntt_mxu_tc.cu and
+   its 44 u7 ones in csrc/ntt_mxu_tc_u7.cu, the grouped and the radix-2
+   register kernels csrc/ntt_grouped.cu, csrc/ntt_radix2.cu) spills;
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    same card tensors, bitwise, at the main paths' shapes --
    the s8 matrix NTT (K1 lead, K2 mid and K3 lane on the int8 tensor
@@ -32,11 +32,13 @@ Phases, each printing its own lines:
    batch, m = 2 ... 4096, the 2^17, 2^24 and 2^26 plans' launches, spc /
    block_b / lane_rows tiles, a strided (A, m, B) view and A = 70000
    slices;
-   the same matrix cases under the u7 and s8b plane schemes (s8b's K3 on
-   the tensor cores, u7's on __dp4a), with K1's
-   2^24 shape and, for u7, the m = 1024 all-ones input (against the golden
-   model too); K11 (the fused u7 prototype) at (128, 32768), with columns
-   0 and 7777 against the golden model;
+   the same matrix cases under the u7 and s8b plane schemes (on the
+   tensor cores; u7 to m = 1024, s8b to 512), with K1's 2^24 shape and,
+   for u7, the m = 1024 all-ones input (against the golden model too),
+   each u7 case also on the __dp4a A/B point; K11 (the fused u7
+   prototype, the u7 lead form) at (128, 32768) and (128, 300), also on
+   the __dp4a A/B point, with columns 0 and 7777 against the golden
+   model;
    the grouped kernel (K7 leaf, K8 lane) at max_r 2, 3 and 4 the same way,
    m = 2 and m = 8 included; the blocked transpose (K9a/K9b) at the 2^24
    root-row shapes with three block shapes, int64 and int32; the
@@ -61,7 +63,8 @@ Phases, each printing its own lines:
    ``transpose_pallas`` on the 2^24 root-row shapes against the torch
    copy; the u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
    ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
-   model, an exact roundtrip and s8; the Solinas engine
+   model, an exact roundtrip and s8, every launch on the tensor cores and
+   none on __dp4a; the Solinas engine
    (``modmul="solinas"``) on both engines at 2^17, 2^24 and 2^26, with
    ``max_r=3`` at 2^24 (radix-2, as in JAX: K7/K8 launch 0 times) and a
    ``strategy="six_step"`` 2^24 plan whose row subtree runs the
@@ -110,8 +113,11 @@ Phases, each printing its own lines:
    directions, Montgomery, Shoup on the test modulus, Solinas), the 2^17
    ones and the 2^26 ones, with the bound, the share of it and the
    Montgomery product floor; each Solinas kernel beside its
-   Montgomery form at the same shape; the u7 and s8b
-   kernels at K1/K2/K3's 2^24 shapes beside s8's, K11 at (128, 32768), and the round-5 A/B level
+   Montgomery form at the same shape; the u7 kernels at K1/K2/K3's 2^24
+   shapes and K11 at (128, 32768) as CUDA-graph replays in turns with the
+   __dp4a kernel, with the share of u7's own bound and of s8's; the u7
+   block's two builds (16 and 32 columns) in turns at m = 256 and 128;
+   s8b at the same shapes beside s8's; and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
    with it as a separate pass); the distributed 2^24 forward at D = 4
    and 8 per comm mode, as logical shards of one card;
@@ -279,14 +285,16 @@ def moduli():
 
 def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     """K1/K2/K3 of one plane scheme vs plain at the main path's shapes;
-    returns the largest mismatch per orientation.  s8 adds the m = 1024
-    crafted plane-minimizer input (lead and lane), u7 the m = 1024 all-ones
-    input; u7 and s8b add K1's 2^24 shape (K2's and K3's are in every
-    scheme's list).  K3 takes the fused twiddle in every mode (pair, w,
-    Solinas on the flagship and Goldilocks, the lazy inverse); on the
-    tensor cores every K3 case is also held on the __dp4a A/B point and
-    each pair inverse (the staged epilogue) on the fragment-store one,
-    after the counts are read."""
+    returns the largest mismatch per orientation.  Every scheme runs on
+    the tensor cores: m from one padded 32-step to 1024 (s8b to 512, as in
+    JAX), ragged batches, the 2^17 / 2^24 / 2^26 launches.  s8 adds the
+    m = 1024 crafted plane-minimizer input, u7 the m = 1024 all-ones input
+    (lead and lane, against the golden model too); u7 and s8b add K1's
+    2^24 shape (K2's and K3's are in every scheme's list).  K3 takes the
+    fused twiddle in every mode (pair, w, Solinas on the flagship and
+    Goldilocks, the lazy inverse).  After the counts are read, every K3
+    case (and every u7 case) is also held on the __dp4a A/B point and each
+    call that runs the staged epilogue on the fragment-store one."""
     import numpy as np
 
     from sventt_tpu_torch.field.golden import GoldenNTT
@@ -333,43 +341,42 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     ]
     if scheme != "s8":
         cases.append(("K1 lead 256x65536 pair fwd", flag, False, "lead", (256, 65536), "pair"))
-    if scheme != "u7":
-        # the tensor-core kernel's geometry (ntt_mxu.tc_geometry): m from
-        # one padded 32-step to m = 1024, batches that are not a multiple of
-        # its 32 (16) columns, the 2^17 plan's launches with their row
-        # split, A above the grid's 65535 slices
+    # the tensor-core kernel's geometry (ntt_mxu.tc_geometry): m from
+    # one padded 32-step to m = 1024, batches that are not a multiple of
+    # its 32 (16) columns, the 2^17 plan's launches with their row
+    # split, A above the grid's 65535 slices
+    cases += [
+        ("K1 lead 2x100 pair fwd", flag, False, "lead", (2, 100), "pair"),
+        ("K2 mid 5x8x77 w fwd TEST", test, False, "mid", (5, 8, 77), "w"),
+        ("K1 lead 32x333 pair inv TEST (lazy)", test, True, "lead", (32, 333), "pair"),
+        ("K2 mid 9x64x100 pair fwd", flag, False, "mid", (9, 64, 100), "pair"),
+        ("K1 lead 256x512 w inv (2^17 shape, row split)", flag, True, "lead", (256, 512), "w"),
+        ("K1 lead 512x256 pair inv (2^17 shape, row split)", flag, True, "lead", (512, 256),
+         "pair"),
+        ("K2 mid 70000x2x8 pair inv TEST (lazy, A > 65535)", test, True, "mid", (70000, 2, 8),
+         "pair"),
+        # K3: m from one padded 32-step to 1024, ragged rows, the
+        # 2^17 root (256 rows of 512: the row split) and the 2^26 root
+        # (131072 rows of 512, its table companion-free)
+        ("K3 lane 37x2 pair fwd", flag, False, "lane", (37, 2), "pair"),
+        ("K3 lane 5x2 w inv TEST (lazy)", test, True, "lane", (5, 2), "w"),
+        ("K3 lane 300x8 w inv TEST (lazy)", test, True, "lane", (300, 8), "w"),
+        ("K3 lane 100x32 pair inv", flag, True, "lane", (100, 32), "pair"),
+        ("K3 lane 77x64 solinas inv", flag, True, "lane", (77, 64), "solinas"),
+        ("K3 lane 256x512 pair fwd (2^17 root, row split)", flag, False, "lane", (256, 512),
+         "pair"),
+        ("K3 lane 256x512 pair inv (2^17 root, row split)", flag, True, "lane", (256, 512),
+         "pair"),
+        ("K3 lane 300x512 none fwd TEST (ragged)", test, False, "lane", (300, 512), None),
+    ]
+    if scheme != "s8b":  # s8b stops at m = 512, as in JAX
         cases += [
-            ("K1 lead 2x100 pair fwd", flag, False, "lead", (2, 100), "pair"),
-            ("K2 mid 5x8x77 w fwd TEST", test, False, "mid", (5, 8, 77), "w"),
-            ("K1 lead 32x333 pair inv TEST (lazy)", test, True, "lead", (32, 333), "pair"),
-            ("K2 mid 9x64x100 pair fwd", flag, False, "mid", (9, 64, 100), "pair"),
-            ("K1 lead 256x512 w inv (2^17 shape, row split)", flag, True, "lead", (256, 512), "w"),
-            ("K1 lead 512x256 pair inv (2^17 shape, row split)", flag, True, "lead", (512, 256),
-             "pair"),
-            ("K2 mid 70000x2x8 pair inv TEST (lazy, A > 65535)", test, True, "mid", (70000, 2, 8),
-             "pair"),
-            # K3: m from one padded 32-step to 1024, ragged rows, the
-            # 2^17 root (256 rows of 512: the row split) and the 2^26 root
-            # (131072 rows of 512, its table companion-free)
-            ("K3 lane 37x2 pair fwd", flag, False, "lane", (37, 2), "pair"),
-            ("K3 lane 5x2 w inv TEST (lazy)", test, True, "lane", (5, 2), "w"),
-            ("K3 lane 300x8 w inv TEST (lazy)", test, True, "lane", (300, 8), "w"),
-            ("K3 lane 100x32 pair inv", flag, True, "lane", (100, 32), "pair"),
-            ("K3 lane 77x64 solinas inv", flag, True, "lane", (77, 64), "solinas"),
-            ("K3 lane 256x512 pair fwd (2^17 root, row split)", flag, False, "lane", (256, 512),
-             "pair"),
-            ("K3 lane 256x512 pair inv (2^17 root, row split)", flag, True, "lane", (256, 512),
-             "pair"),
-            ("K3 lane 300x512 none fwd TEST (ragged)", test, False, "lane", (300, 512), None),
+            ("K1 lead 1024x1000 w inv (ragged)", flag, True, "lead", (1024, 1000), "w"),
+            ("K2 mid 3x1024x40 pair fwd TEST", test, False, "mid", (3, 1024, 40), "pair"),
+            ("K3 lane 130x1024 w inv (ragged)", flag, True, "lane", (130, 1024), "w"),
+            ("K3 lane 131072x512 w fwd (2^26 root)", flag, False, "lane", (131072, 512), "w"),
+            ("K3 lane 131072x512 w inv (2^26 root)", flag, True, "lane", (131072, 512), "w"),
         ]
-        if scheme == "s8":  # s8b stops at m = 512, as in JAX
-            cases += [
-                ("K1 lead 1024x1000 w inv (ragged)", flag, True, "lead", (1024, 1000), "w"),
-                ("K2 mid 3x1024x40 pair fwd TEST", test, False, "mid", (3, 1024, 40), "pair"),
-                ("K3 lane 130x1024 w inv (ragged)", flag, True, "lane", (130, 1024), "w"),
-                ("K3 lane 131072x512 w fwd (2^26 root)", flag, False, "lane", (131072, 512), "w"),
-                ("K3 lane 131072x512 w inv (2^26 root)", flag, True, "lane", (131072, 512), "w"),
-            ]
     worst = {"lead": 0, "mid": 0, "lane": 0}
     calls = {"lead": ntt_mxu.mxu_ntt, "mid": ntt_mxu.mxu_ntt_mid, "lane": ntt_mxu.mxu_ntt_lane}
     tag = "" if scheme == "s8" else f"{scheme} "
@@ -391,12 +398,13 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
               f"{tag}{name}: launched {ntt_mxu.KERNEL_LAUNCHES}, not the {route} kernel alone")
         err = mismatch(got, want)
         ab = ""
-        if orient == "lane" and route == "tensor_core":
-            # the A/B points at the same call: __dp4a, and for the inverse
-            # with the pair twiddle (which runs the staged epilogue) the
-            # stores from the fragment
-            others = {"dp4a": lambda: ntt_mxu._launch_dp4a_s8(x, t, fc, tw, lane=True)}
-            if inverse and mode == "pair":
+        if orient == "lane" or scheme == "u7":
+            # the A/B points at the same call: __dp4a, and where the call
+            # runs the staged epilogue (the lane inverse with the pair
+            # twiddle) the stores from the fragment
+            others = {"dp4a": lambda: ntt_mxu._launch_dp4a(
+                x, t, fc, tw, mid=orient == "mid", lane=orient == "lane")}
+            if orient == "lane" and ntt_mxu.tc_form(orient, inverse, tw, scheme) == "lane_staged":
                 others["fragment"] = lambda: ntt_mxu._launch_lane_form(x, t, fc, "lane", tw)
             errs = {k: mismatch(f(), want) for k, f in others.items()}
             ab = "; A/B points " + ", ".join(f"{k} {v}" for k, v in errs.items())
@@ -413,8 +421,9 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         what = "crafted plane minimizer"
     elif scheme == "u7":
         # m = 1024, 2^64 - 1 in every point: the 7-bit data planes 0-8 at
-        # 127, so the 19 unsigned product planes at the largest sums the
-        # tables allow (each < 2^27.4)
+        # 127 (plane 9 at 1), so the 19 unsigned product planes at the
+        # largest sums the tables allow (each < 2^27.4), the partial sums
+        # on the tensor cores with them
         t = ntt_mxu.make_mxu_tables(flag, 1024, inverse=False, scheme="u7", device=device)
         xc = np.full(1024, (1 << 64) - 1, dtype=np.uint64)
         what = "all-ones 2^64-1"
@@ -422,8 +431,7 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         return worst
     x = from_numpy(np.repeat(xc.reshape(1024, 1), 8, axis=1), device)
     golden = GoldenNTT(1024, flag).forward([int(v) % flag.modulus for v in xc])
-    lane = scheme == "s8"  # K3 on the tensor cores: the same input as rows
-    for orient in ("lead", "lane") if lane else ("lead",):
+    for orient in ("lead", "lane"):  # K3: the same input as rows
         xo = x.t().contiguous() if orient == "lane" else x
         ntt_mxu.reset_counts()
         if orient == "lane":
@@ -434,6 +442,8 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         route = ntt_mxu.kernel_for(scheme, orient)
         check(ntt_mxu.KERNEL_LAUNCHES[route] == 1, f"{tag}m=1024 {what} {orient}: not on {route}")
         err = mismatch(got, want)
+        if scheme == "u7":  # the __dp4a A/B point on the same input
+            err = max(err, mismatch(ntt_mxu._launch_dp4a(xo, t, fc, lane=orient == "lane"), want))
         worst[orient] = max(worst[orient], err)
         check(err <= TOL, f"{tag}m=1024 {what} {orient}: kernel != plain")
         got_h = to_numpy(got if orient == "lead" else got.t())
@@ -446,29 +456,39 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
 
 
 def fused_cases(device, rng):
-    """K11 at its own shape, (128, 32768), vs its plain version, and columns
-    0 and 7777 vs the golden model (as the JAX prototype checks them);
-    returns the largest mismatch."""
+    """K11 at its own shape, (128, 32768), and at a ragged (128, 300), vs
+    its plain version, on the tensor cores and on the __dp4a A/B point;
+    columns 0 and 7777 vs the golden model (as the JAX prototype checks
+    them); returns the largest mismatch."""
     from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
     from sventt_tpu_torch.field.golden import GoldenNTT
-    from sventt_tpu_torch.field.limb import to_numpy
+    from sventt_tpu_torch.field.limb import FieldConsts, to_numpy
+    from sventt_tpu_torch.ops import ntt_mxu
 
     flag, _ = moduli()
+    fc = FieldConsts.from_modulus(flag, lazy=False)
     stack = fused.make_fused_stack(flag, device=device)
-    x = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
-    got = fused.mxu_fused_ntt(x, stack, flag)
-    want = fused.mxu_fused_plain(x, stack, flag)
-    sync(device)
-    err = mismatch(got, want)
-    log(f"  K11 fused u7 128x32768: max_abs_err {err}")
-    check(err <= TOL, "K11: kernel != plain")
+    worst = 0
+    for cols in (300, 1 << 15):
+        x = rand_u64(rng, (128, cols), device, below=flag.modulus)
+        ntt_mxu.reset_counts()
+        got = fused.mxu_fused_ntt(x, stack, flag)
+        route = dict(ntt_mxu.KERNEL_LAUNCHES)
+        want = fused.mxu_fused_plain(x, stack, flag)
+        err_ab = mismatch(ntt_mxu._launch_dp4a(x, fused._direction(stack, flag), fc), want)
+        sync(device)
+        err = mismatch(got, want)
+        log(f"  K11 fused u7 128x{cols}: max_abs_err {err} ({route}); A/B point dp4a {err_ab}")
+        check(route == {"tensor_core": 1, "dp4a": 0}, f"K11: launched {route}, not the tensor cores")
+        check(max(err, err_ab) <= TOL, "K11: kernel != plain")
+        worst = max(worst, err, err_ab)
     golden = GoldenNTT(128, flag)
     xh, gh = to_numpy(x), to_numpy(got)
     for col in (0, 7777):
         ok = [int(v) for v in gh[:, col]] == golden.forward([int(v) for v in xh[:, col]])
         log(f"  K11 golden col {col}: {ok}")
         check(ok, f"K11 column {col} != golden")
-    return err
+    return worst
 
 
 def radix2_ab_point(x, t, fc, tw, orient: str, want) -> int:
@@ -1163,7 +1183,7 @@ def scheme_path(device, rng):
         check(ok and bool((back.t() == x).all()) and err_mid == 0, f"{scheme} path: mismatch")
         check(all(c["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
               f"{scheme}: an orientation never launched")
-        want_k = {"tensor_core": 0, "dp4a": 3} if scheme == "u7" else {"tensor_core": 3, "dp4a": 0}
+        want_k = {"tensor_core": 3, "dp4a": 0}
         check(c["mxu_kernels"] == want_k, f"{scheme}: kernel launches {c['mxu_kernels']} != {want_k}")
         check(no_plain(c), f"{scheme}: a plain version ran on the card")
     stack = fused.make_fused_stack(flag, device=device)
@@ -1177,9 +1197,11 @@ def scheme_path(device, rng):
     ok = all([int(v) for v in yh[:, col]] == g128.forward([int(v) for v in xh[:, col]])
              for col in (0, 1, 32767))
     log(f"  K11 mxu_fused_ntt 128x32768: columns 0, 1, 32767 == golden {ok}; "
-        f"launches {c['launches']['fused']}, plain calls {c['plain']}")
+        f"launches {c['launches']['fused']}, kernels {c['mxu_kernels']}, plain calls {c['plain']}")
     check(ok, "K11 path: != golden")
     check(c["launches"]["fused"]["fused"] > 0 and no_plain(c), "K11 did not launch, or a plain one ran")
+    check(c["mxu_kernels"] == {"tensor_core": c["launches"]["fused"]["fused"], "dp4a": 0},
+          f"K11: kernel launches {c['mxu_kernels']}, not the tensor cores alone")
     return out
 
 
@@ -1553,6 +1575,47 @@ def ab_level(device, fc, out: dict, bounds: dict, own: dict) -> None:
     log(f"  A/B level (a, m, b) = ({a}, {m}, {b}): every scheme == golden on 2 columns")
 
 
+def u7_geometry_ab(device, flag, fc, xl, twl, xr, tw3, x128, out: dict, ab: dict) -> None:
+    """The u7 block's two builds, 16 and 32 columns, as CUDA-graph replays
+    in turns, the rule's (``ntt_mxu.tc_geometry``) against the other: at
+    m = 256, the 2^24 K1 (pair) and K3 (no twiddle, and the pair inverse)
+    shapes -- 32 columns take 117,760 bytes of shared memory, one block an
+    SM, 16 take 104,960, two -- and at K11's m = 128, (128, 32768), where
+    both fit two (76,800 and 84,480 bytes).  The other block runs on the
+    same tables with their tile copy laid out for it
+    (``MxuDirection.tc_nt``), through the same entry points; its results
+    must equal the rule's first."""
+    import dataclasses
+
+    from sventt_tpu_torch.ops import ntt_mxu
+
+    fc0 = type(fc).from_modulus(flag, lazy=False)
+    calls = {
+        "K1 lead 256x65536 pair": (256, False, lambda t: ntt_mxu.mxu_ntt(xl, t, fc, twl)),
+        "K3 lane 65536x256": (256, False, lambda t: ntt_mxu.mxu_ntt_lane(xr, t, fc)),
+        "K3 lane 65536x256 pair inv": (256, True, lambda t: ntt_mxu.mxu_ntt_lane(xr, t, fc, tw3)),
+        "K11 lead 128x32768": (128, False, lambda t: ntt_mxu.mxu_ntt(x128, t, fc0)),
+    }
+    for key, (m, inv, call) in calls.items():
+        rule = ntt_mxu.tc_geometry(m, 1 << 15, scheme="u7")
+        other = 16 if rule.nt == 32 else 32
+        geo = ntt_mxu.tc_geometry(m, 1 << 15, scheme="u7", nt=other)
+        t_rule = ntt_mxu.make_mxu_tables(flag, m, inverse=inv, scheme="u7", device=device)
+        t_other = dataclasses.replace(t_rule, tc_nt=other)
+
+        def other_call(call=call, t=t_other):
+            return call(t)
+
+        check(mismatch(other_call(), call(t_rule)) == 0, f"u7 {key}: nt {other} != nt {rule.nt}")
+        log(f"  u7 {key}: the rule nt {rule.nt} (rg {rule.rg}, {rule.smem} bytes) against nt "
+            f"{geo.nt} (rg {geo.rg}, {geo.smem} bytes): equal")
+        key = f"u7 {key} nt={rule.nt}"
+        o1, n1, n2, o2 = (timed_graph(f, 3, 10) for f in
+                          (other_call, lambda: call(t_rule), lambda: call(t_rule), other_call))
+        out[key], out[f"{key} nt={other}"] = (n1 + n2) / 2, (o1 + o2) / 2
+        ab[key] = (f"nt={other}", o1, n1, n2, o2)
+
+
 def times(device, ntts, rng):
     """CUDA-event medians: transforms, and each kernel vs its plain
     version at the 2^24 plans' shapes; with each kernel's bound."""
@@ -1617,7 +1680,7 @@ def times(device, ntts, rng):
     # (mid, (256, 256) twiddle rows) and root step (lane, the (65536, 256)
     # table in the data's layout); K1, K2 and K3 on the tensor cores, each
     # beside the __dp4a kernel
-    dp4a = ntt_mxu._launch_dp4a_s8
+    dp4a = ntt_mxu._launch_dp4a
     t = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
     xl = rand_u64(rng, (256, 1 << 16), device, below=flag.modulus)
     twl = rand_twiddle(rng, (256, 1 << 16), flag, "pair", device)
@@ -1687,24 +1750,33 @@ def times(device, ntts, rng):
         kernel(f"K1 lead {shape[0]}x{shape[1]} (2^17)", lambda: ntt_mxu.mxu_ntt(x17, t17, fc),
                lambda: ntt_mxu.mxu_plain(x17, t17, fc), mxu_bound(1 << 17, m17, 0),
                old=lambda: dp4a(x17, t17, fc))
-    # the other plane schemes at the same three shapes, and K11 at its own
+    # the other plane schemes at the same three shapes, u7 as CUDA-graph
+    # replays in turns with the __dp4a kernel, and K11 at its own the same
+    # way
     for scheme in ("u7", "s8b"):
         ts = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, scheme=scheme, device=device)
         macs = SCHEME_MACS[scheme]
+        u7 = scheme == "u7"
         kernel(f"K1 lead 256x65536 pair {scheme}", lambda: ntt_mxu.mxu_ntt(xl, ts, fc, twl),
                lambda: ntt_mxu.mxu_plain(xl, ts, fc, twl), mxu_bound(n24, 256, 16 * n24),
-               mxu_bound(n24, 256, 16 * n24, macs)[0])
+               mxu_bound(n24, 256, 16 * n24, macs)[0],
+               old=(lambda: dp4a(xl, ts, fc, twl)) if u7 else None, graph=u7)
         kernel(f"K2 mid 256x256x256 pair {scheme}", lambda: ntt_mxu.mxu_ntt_mid(xm, ts, fc, twm),
                lambda: ntt_mxu.mxu_plain(xm, ts, fc, twm, mid=True),
-               mxu_bound(n24, 256, 16 * 65536), mxu_bound(n24, 256, 16 * 65536, macs)[0])
+               mxu_bound(n24, 256, 16 * 65536), mxu_bound(n24, 256, 16 * 65536, macs)[0],
+               old=(lambda: dp4a(xm, ts, fc, twm, mid=True)) if u7 else None, graph=u7)
         kernel(f"K3 lane 65536x256 {scheme}", lambda: ntt_mxu.mxu_ntt_lane(xr, ts, fc),
                lambda: ntt_mxu.mxu_plain(xr, ts, fc, lane=True), mxu_bound(n24, 256, 0),
-               mxu_bound(n24, 256, 0, macs)[0])
+               mxu_bound(n24, 256, 0, macs)[0],
+               old=(lambda: dp4a(xr, ts, fc, lane=True)) if u7 else None, graph=u7)
     stack = fused.make_fused_stack(flag, device=device)
     x128 = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
+    u7_geometry_ab(device, flag, fc, xl, twl, xr, tw3, x128, out, ab)
+    t128 = fused._direction(stack, flag)
     kernel("K11 fused 128x32768", lambda: fused.mxu_fused_ntt(x128, stack, flag),
            lambda: fused.mxu_fused_plain(x128, stack, flag), mxu_bound(1 << 22, 128, 0),
-           mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0])
+           mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0],
+           old=lambda: dp4a(x128, t128, fc), graph=True)
     del xl, twl, twls, xr, x128, tw3
     ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root.
@@ -1940,11 +2012,12 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
-    # the redesigned kernels: the tensor-core matrix kernel (24
-    # instantiations: the strided form's 11 -- no twiddle, pair and w in
-    # both directions, lazy or not, Solinas in both directions -- the lane
-    # form's 11, the staged lane epilogue's 2: the pair inverse, lazy or
-    # not), the grouped register kernel (36 instantiations: INV x {Montgomery, lazy
+    # the redesigned kernels: the tensor-core matrix kernel (68
+    # instantiations: s8's 24 -- the strided form's 11: no twiddle, pair
+    # and w in both directions, lazy or not, Solinas in both directions;
+    # the lane form's 11; the staged lane epilogue's 2, the pair inverse,
+    # lazy or not -- and u7's 22 for each of its 16- and 32-column blocks,
+    # no staged form), the grouped register kernel (36 instantiations: INV x {Montgomery, lazy
     # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
     # 3 or 4 ranks) and the radix-2 register kernel (48: INV x {Montgomery,
     # lazy Montgomery, Shoup, Solinas} x {lane, leaf / mid swizzled, leaf /
@@ -1961,8 +2034,8 @@ def main() -> int:
             check("0 bytes spill stores, 0 bytes spill loads" in line,
                   f"a redesigned kernel spills: {entry.strip()}: {line.strip()}")
     cached = kernel_build["log"] == "(cached)"
-    check(cached or entries["mxu_tc_kernel"] == 24,
-          f"{entries['mxu_tc_kernel']} -Xptxas -v entries of the tensor-core kernel, not 24")
+    check(cached or entries["mxu_tc_kernel"] == 68,
+          f"{entries['mxu_tc_kernel']} -Xptxas -v entries of the tensor-core kernel, not 68")
     check(cached or entries["grouped_reg_kernel"] == 36,
           f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
           "not 36")
@@ -2155,24 +2228,34 @@ def main() -> int:
         if k in own:
             extra += f"   (the scheme's own products: {own[k]:.4f} ms)"
         log(f"  {k}: {v:.4f}{extra}")
-    log("[A/B] the s8 matrix NTT on the int8 tensor cores (csrc/ntt_mxu_tc.cu) against "
-        "the __dp4a kernel (csrc/ntt_mxu.cu), timed in turns dp4a, tc, tc, dp4a:")
+    log("[A/B] the matrix NTT on the int8 tensor cores (csrc/mxu_tc.cuh: s8 "
+        "csrc/ntt_mxu_tc.cu, u7 and K11 csrc/ntt_mxu_tc_u7.cu) against the __dp4a kernel "
+        "(csrc/ntt_mxu.cu), timed in turns dp4a, tc, tc, dp4a; int8 TOP/s of the scheme's own "
+        "products (s8 64, u7 100 multiply-adds a point per unit of m):")
     for k, (old_name, o1, n1, n2, o2) in ab.items():
         if old_name != "dp4a":
             continue
-        m = 512 if k.startswith("K1 lead 512") else 256
-        points = 1 << (17 if "(2^17)" in k else 24)
-        tops = [2 * 64 * m * points / (v * 1e-3) / 1e12 for v in (ms[k], ms[k + " dp4a"])]
+        m = 128 if k.startswith("K11") else 512 if k.startswith("K1 lead 512") else 256
+        points = 1 << (22 if k.startswith("K11") else 17 if "(2^17)" in k else 24)
+        macs = SCHEME_MACS["u7" if k.startswith("K11") or k.endswith("u7") else "s8"]
+        tops = [2 * macs * m * points / (v * 1e-3) / 1e12 for v in (ms[k], ms[k + " dp4a"])]
+        own_bound = f", {100 * own[k] / ms[k]:.1f}% of its own {own[k]:.4f} ms" if k in own else ""
         log(f"  {k}: dp4a {o1:.4f} / {o2:.4f} ms, tensor cores {n1:.4f} / {n2:.4f} ms: "
             f"{ms[k + ' dp4a'] / ms[k]:.2f}x; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
-            f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound) "
+            f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound{own_bound}) "
             f"against {tops[1]:.1f}")
+    log("[A/B] the u7 block's geometry at m = 256 (the rule against the other) and its K3 "
+        "pair-inverse epilogues, CUDA-graph replays in turns other, rule, rule, other:")
+    for k, (old_name, o1, n1, n2, o2) in ab.items():
+        if k.startswith("u7 "):
+            log(f"  {k}: {old_name} {o1:.4f} / {o2:.4f} ms, the rule {n1:.4f} / {n2:.4f} ms: "
+                f"{ms[f'{k} {old_name}'] / ms[k]:.3f}x")
     log("[A/B] the mxu root step: K3 with the twiddle fused (mxu_ntt_lane) against the "
         "sandwich of transpose, K1 (transposed twiddle) and transpose, CUDA-graph replays in "
         "turns sandwich, K3, K3, sandwich; and K3's staged epilogue (the pair inverse's) "
         "against the stores from the fragment (fragment, staged, staged, fragment):")
     for k, (old_name, o1, n1, n2, o2) in ab.items():
-        if old_name not in ("sandwich", "fragment"):
+        if old_name not in ("sandwich", "fragment") or k.startswith("u7 "):
             continue
         new_name = "K3" if old_name == "sandwich" else "staged"
         log(f"  {k}: {old_name} {o1:.4f} / {o2:.4f} ms, {new_name} {n1:.4f} / {n2:.4f} ms: "
@@ -2282,10 +2365,11 @@ def main() -> int:
             ("K2", "mid", "mxu_ntt_mid", "K2 mid 256x256x256 pair", 680),
             ("K3", "lane", "mxu_ntt_lane", "K3 lane 65536x256", 527),
         ):
-            tc = ntt_mxu.kernel_for(scheme, orient) == "tensor_core"
-            src = "ntt_mxu_tc.cu" if tc else "ntt_mxu.cu"
+            check(ntt_mxu.kernel_for(scheme, orient) == "tensor_core", f"{scheme} {orient} route")
+            src = "ntt_mxu_tc_u7.cu" if scheme == "u7" else "ntt_mxu_tc.cu"
             record["kernels"].append(entry(
-                f"{k} {scheme} matrix NTT, {orient} ({fn}, make_mxu_tables(scheme={scheme!r}))",
+                f"{k} {scheme} matrix NTT, {orient}, int8 tensor cores ({fn}, "
+                f"make_mxu_tables(scheme={scheme!r}))",
                 f"{key} {scheme}", src, f"sventt_tpu/ops/ntt_mxu.py:{line}",
                 ls[orient], ws[orient]))
     ws, lsol = worst["solinas"], c_sol["launches"]
@@ -2313,8 +2397,8 @@ def main() -> int:
         "sventt_tpu/plan/planner.py:376", c_ss["launches"]["inter_step"]["inter_step"],
         ws["inter_step"]))
     record["kernels"].append(entry(
-        "K11 fused u7 prototype, 128 points (mxu_fused_ntt; the u7 lead instantiation)",
-        "K11 fused 128x32768", "ntt_mxu.cu", "experimental/mxu_fused_kernel.py:91",
+        "K11 fused u7 prototype, 128 points (mxu_fused_ntt; the u7 lead form on the int8 "
+        "tensor cores)", "K11 fused 128x32768", "ntt_mxu_tc_u7.cu", "experimental/mxu_fused_kernel.py:91",
         c_schemes["fused"]["launches"]["fused"]["fused"], worst["fused"]))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

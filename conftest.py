@@ -70,6 +70,7 @@ FILE_SECONDS = {
     "tests/test_budget.py": 51.5,
     "tests/test_torch_ring.py": 26.3,
     "tests/test_limb.py": 21.1,
+    "tests/test_torch_ntt_mxu_tc_u7.py": 19.1,
     "tests/test_torch_budget.py": 15.0,
     "tests/test_torch_solinas.py": 13.0,
     "tests/test_torch_twiddle.py": 11.0,

@@ -118,6 +118,7 @@ def load() -> ctypes.CDLL:
             for fn, argtypes in (
                 (lib.sventt_mxu_ntt, ntt_mxu._ARGTYPES),
                 (lib.sventt_mxu_ntt_tc, ntt_mxu._TC_ARGTYPES),
+                (lib.sventt_mxu_ntt_tc_u7, ntt_mxu._TC_ARGTYPES),
                 (lib.sventt_butterfly_ntt, ntt_pallas._ARGTYPES),
                 (lib.sventt_radix2_ntt, ntt_pallas._RADIX2_ARGTYPES),
                 (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_REG_ARGTYPES),

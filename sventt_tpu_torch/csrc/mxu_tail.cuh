@@ -1,7 +1,7 @@
 // The matrix NTT's per-point arithmetic around the products, shared by the
 // __dp4a kernel (csrc/ntt_mxu.cu) and the int8 tensor-core kernel
-// (csrc/ntt_mxu_tc.cu): the plane formats, the split of a data word into
-// its planes, the recombination of the product planes into a canonical
+// (csrc/mxu_tc.cuh): the plane formats, the split of a data word into its
+// planes (one word, or a point quad at once), the recombination of the product planes into a canonical
 // residue (_mxu_plain's tail in sventt_tpu_torch/ops/ntt_mxu.py), and the
 // fused inter-step twiddle multiply.  Both kernels run this code as it is,
 // so their outputs agree with the plain version bit for bit whatever
@@ -37,13 +37,59 @@ __device__ __forceinline__ signed char data_plane(u64 v, int i) {
   return (signed char)(((v >> (8 * i)) & 0xFF) ^ 0x80);
 }
 
-// The product planes (+ corr) -> canonical residue (_mxu_plain's tail).
+// The data planes of a point quad, four words at once, for the tensor-core
+// kernel: w[i] holds plane i of v[0..3] in its bytes 0..3.  s8: a 4 x 8
+// byte transpose, then each byte offset by -128 (^ 0x80).  u7: each word's
+// 7-bit fields 0-7 (bits 0-55) spread into its 8 bytes by three masked
+// shifts (28-bit halves into 32-bit lanes, 14-bit quarters into 16-bit
+// lanes, 7-bit fields into bytes), transposed the same way; fields 8 (bits
+// 56-62) and 9 (bit 63 alone) as a third half.
+__device__ __forceinline__ void quad_transpose(const unsigned *h, unsigned *w) {
+  const unsigned t01 = __byte_perm(h[0], h[1], 0x5140), u01 = __byte_perm(h[0], h[1], 0x7362);
+  const unsigned t23 = __byte_perm(h[2], h[3], 0x5140), u23 = __byte_perm(h[2], h[3], 0x7362);
+  w[0] = __byte_perm(t01, t23, 0x5410);
+  w[1] = __byte_perm(t01, t23, 0x7632);
+  w[2] = __byte_perm(u01, u23, 0x5410);
+  w[3] = __byte_perm(u01, u23, 0x7632);
+}
+
 template <bool U7>
-__device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
-                                         const Consts &k) {
+__device__ __forceinline__ void quad_planes(const u64 *v, unsigned *w) {
+  unsigned lo[4], hi[4], top[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    u64 s = v[i];
+    if constexpr (U7) {
+      s &= 0x00FFFFFFFFFFFFFFull;
+      s = (s & 0x000000000FFFFFFFull) | ((s & 0x00FFFFFFF0000000ull) << 4);
+      s = (s & 0x00003FFF00003FFFull) | ((s & 0x0FFFC0000FFFC000ull) << 2);
+      s = (s & 0x007F007F007F007Full) | ((s & 0x3F803F803F803F80ull) << 1);
+      top[i] = (unsigned)((v[i] >> 56) & 0x7F) | (unsigned)(v[i] >> 63) << 8;
+    }
+    lo[i] = (unsigned)s;
+    hi[i] = (unsigned)(s >> 32);
+  }
+  quad_transpose(lo, w);
+  quad_transpose(hi, w + 4);
+  if constexpr (U7) {
+    unsigned t[4];
+    quad_transpose(top, t);  // planes 8 and 9; bytes 2 and 3 of top are 0
+    w[8] = t[0];
+    w[9] = t[1];
+  } else {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) w[b] ^= 0x80808080u;
+  }
+}
+
+// The product planes -> the six 32-bit words of their 192-bit sum, each
+// held in a u64 with its carries (the first half of _mxu_plain's tail).
+template <bool U7>
+__device__ __forceinline__ void plane_words(const int *P, int m, u64 *w) {
   using PL = PlaneFormat<U7>;
   const int bias = U7 ? 0 : m << 17;  // == make_mxu_tables'
-  u64 w[6] = {0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w[i] = 0;
 #pragma unroll
   for (int t = 0; t < PL::OUT; ++t) {
     // s8: a biased plane lies in [0, 2^28], so it is exact as a u32; times
@@ -55,6 +101,12 @@ __device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
     u64 &acc = w[(PL::STEP * t) >> 5];
     asm("mad.wide.u32 %0, %1, %2, %0;" : "+l"(acc) : "r"(v), "r"(1u << ((PL::STEP * t) & 31)));
   }
+}
+
+// Those words (+ corr, s8's) -> canonical residue: carries, fold, Barrett
+// or subtracts, Montgomery REDC (the second half).
+template <bool U7>
+__device__ __forceinline__ u64 reduce_words(u64 *w, u64 corr, const Consts &k) {
   if (!U7) {
     w[0] += corr & 0xFFFFFFFFull;
     w[1] += corr >> 32;
@@ -85,6 +137,15 @@ __device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
   u64 d = T_hi - qn1;
   u64 res = T_hi < qn1 ? d + k.N : d;
   return res < k.N ? res : res - k.N;
+}
+
+// The product planes (+ corr) -> canonical residue (_mxu_plain's tail).
+template <bool U7>
+__device__ __forceinline__ u64 recombine(const int *P, u64 corr, int m,
+                                         const Consts &k) {
+  u64 w[6];
+  plane_words<U7>(P, m, w);
+  return reduce_words<U7>(w, corr, k);
 }
 
 // The inter-step twiddle multiply of v by the twiddle w (wp its companion,

@@ -41,8 +41,8 @@
 // column, block (a, 0) = digit plane a, is the s8 digit stack, and the
 // wrapper passes that (8m, m) slice; the zero blocks are skipped and the
 // results are bitwise s8's.  u7 does 100 products a column
-// and quad against s8's 64: on Hopper the products set the pace, so u7 is
-// kept as the A/B point, not as a faster path.
+// and quad against s8's 64: on Hopper the products set the pace, so no plan
+// runs u7 (as in the JAX package).
 //
 // What bounds it on the H100: per point, 64 * m (u7: 100 * m) int8
 // multiply-adds against 8 bytes of x (plus 8 or 16 of twiddle) in and 8
@@ -58,13 +58,13 @@
 // 15 int32 plane sums in registers (u7: 2 x 19).  The ragged edge of the
 // batch is masked here (the JAX wrapper pads B to 128 instead).
 //
-// Where it runs now.  The s8 (and s8b) lead and mid orientations, K1 and
-// K2 on every plan's path, run on the int8 tensor cores in
-// csrc/ntt_mxu_tc.cu; this kernel's s8 lead / mid instantiations are
-// reached only by ops/ntt_mxu.py::_launch_dp4a_s8, the A/B point that
-// chip_smoke.py times beside it.  The lane orientation (K3), the u7 plane
-// format (K1-K3 u7) and K11 still run here.  The recombination tail and
-// the twiddle multiply are csrc/mxu_tail.cuh, shared with that kernel.
+// Where it runs now: nowhere on a path.  Every scheme and orientation (K1,
+// K2, K3, the u7 planes and K11) runs on the int8 tensor cores
+// (csrc/mxu_tc.cuh: csrc/ntt_mxu_tc.cu for the s8 digit stack,
+// csrc/ntt_mxu_tc_u7.cu for the u7 planes); this kernel is reached only by
+// ops/ntt_mxu.py::_launch_dp4a, the A/B point that chip_smoke.py holds to
+// the same outputs and times beside it.  The recombination tail and the
+// twiddle multiply are csrc/mxu_tail.cuh, shared with that kernel.
 
 #include <cuda_runtime.h>
 

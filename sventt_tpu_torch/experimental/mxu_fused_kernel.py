@@ -9,10 +9,14 @@ REDC.  The JAX file builds its tables and data and times itself when it is
 imported; here the pieces are functions, and importing this module computes
 nothing.
 
-On a CUDA tensor ``mxu_fused_ntt`` launches the u7 lead instantiation of the
-matrix kernel (``csrc/ntt_mxu.cu``) at m = R with no twiddle, counted under
-``LAUNCHES["fused"]``; on a CPU tensor it runs the u7 plain version
-(``ops.ntt_mxu._mxu_plain``), counted under ``PLAIN_CALLS["fused"]``.
+On a CUDA tensor ``mxu_fused_ntt`` launches the kernel that
+``ops.ntt_mxu.kernel_for("u7", "lead")`` names, the u7 lead form of the
+int8 tensor-core matrix kernel (``csrc/ntt_mxu_tc_u7.cu``) at m = R with no
+twiddle, counted under ``LAUNCHES["fused"]`` (and under
+``ntt_mxu.KERNEL_LAUNCHES``); on a CPU tensor it runs the u7 plain version
+(``ops.ntt_mxu._mxu_plain``), counted under ``PLAIN_CALLS["fused"]``.  The
+tables of a stack (its copy in the kernel's tile layout) are built at its
+first call and kept for the last few stacks.
 
 K11's own tail differs from ``_mxu_body``'s: it drops the carry out of the
 high word after the fold and always does two conditional subtracts.  The
@@ -37,6 +41,11 @@ R_FUSED = 128
 LAUNCHES = {"fused": 0}
 PLAIN_CALLS = {"fused": 0}
 
+#: (id(stack), stack._version, N) -> (stack, its tables), the last few
+#: stacks' (the entry holds the stack, so its id is not reused meanwhile).
+_TABLES: dict = {}
+_TABLES_KEPT = 4
+
 
 def make_fused_stack(mod: Modulus, R: int = R_FUSED, device=None) -> torch.Tensor:
     """The (10R, R) int8 u7 stack: 7-bit plane k of M[p, j] = R64 *
@@ -51,9 +60,14 @@ def _direction(stack: torch.Tensor, mod: Modulus) -> ntt_mxu.MxuDirection:
     if stack.dtype != torch.int8 or tuple(stack.shape) != (ntt_mxu.NL * R, R):
         raise ValueError(f"expected a (10R, R) int8 stack, got {stack.dtype} {tuple(stack.shape)}")
     N = mod.modulus
-    return ntt_mxu.MxuDirection(
-        R, False, stack.contiguous(), None, N, pow(2, 128, N), pow(N, -1, 1 << 64), "u7"
-    )
+    key = (id(stack), stack._version, N)
+    if key not in _TABLES:
+        if len(_TABLES) >= _TABLES_KEPT:
+            del _TABLES[next(iter(_TABLES))]
+        _TABLES[key] = (stack, ntt_mxu.MxuDirection(
+            R, False, stack.contiguous(), None, N, pow(2, 128, N), pow(N, -1, 1 << 64), "u7"
+        ))
+    return _TABLES[key][1]
 
 
 def _as3(x: torch.Tensor, R: int) -> torch.Tensor:
@@ -69,7 +83,7 @@ def mxu_fused_ntt(x: torch.Tensor, stack: torch.Tensor, mod: Modulus) -> torch.T
     x3 = _as3(x, t.m)
     fc = FieldConsts.from_modulus(mod, lazy=False)
     if x.is_cuda:
-        out = ntt_mxu._launch(x3, t, fc, None)
+        out = ntt_mxu._launch_kernel(x3, t, fc, None, "lead")
         LAUNCHES["fused"] += 1
     elif x.device.type == "cpu":
         PLAIN_CALLS["fused"] += 1
@@ -88,6 +102,7 @@ def mxu_fused_plain(x: torch.Tensor, stack: torch.Tensor, mod: Modulus) -> torch
 
 
 def reset_counts() -> None:
-    """Set the launch and plain-call counts to zero."""
+    """Set the launch and plain-call counts to zero (``ntt_mxu``'s own
+    ``reset_counts`` sets its ``KERNEL_LAUNCHES``)."""
     LAUNCHES["fused"] = 0
     PLAIN_CALLS["fused"] = 0

@@ -30,9 +30,9 @@ The planes recombine into a 192-bit value, the top word folds via
 below N, and a Montgomery REDC (whose R^-1 cancels R64) lands in canonical
 [0, N).
 
-Two CUDA kernels replace the Pallas kernels
-``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` (body ``_mxu_body``) in both of
-its orientations and ``_mxu_lane_call``:
+The int8 tensor-core kernel (``csrc/mxu_tc.cuh``) replaces the Pallas
+kernels ``sventt_tpu/ops/ntt_mxu.py::_mxu_call`` (body ``_mxu_body``) in
+both of its orientations and ``_mxu_lane_call``:
 
 * lead (``mxu_ntt``, K1): the transform runs along axis 0 of (m, B);
 * mid (``mxu_ntt_mid``, K2): along axis 1 of (A, m, B);
@@ -43,12 +43,14 @@ its orientations and ``_mxu_lane_call``:
 
 Each is one kernel over an (A, m, B) view with strides: the lane
 orientation is the view (1, m, B) of the (B, m) rows with transform stride
-1 and batch stride m, read in place.  ``kernel_for`` routes a call: the
-s8 and s8b schemes run on the int8 tensor cores in every orientation
-(``csrc/ntt_mxu_tc.cu``, launch geometry ``tc_geometry``), the u7 scheme
-on ``__dp4a`` (``csrc/ntt_mxu.cu``).  An optional inter-step twiddle
-multiply is fused in: before the plane split on the forward, after the
-REDC on the inverse.
+1 and batch stride m, read in place.  ``kernel_for`` names the kernel a
+call runs: every scheme runs on the int8 tensor cores in every
+orientation, s8 and s8b as ``csrc/ntt_mxu_tc.cu``'s instantiations, u7 as
+``csrc/ntt_mxu_tc_u7.cu``'s, with the launch geometry of ``tc_geometry``.
+The first port's ``__dp4a`` kernel (``csrc/ntt_mxu.cu``) is kept only as
+the A/B point ``_launch_dp4a``.  An optional inter-step twiddle multiply
+is fused in: before the plane split on the forward, after the REDC on the
+inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
@@ -102,8 +104,8 @@ C8_PLUS = 127 * _K8
 LAUNCHES = {"lead": 0, "mid": 0, "lane": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
-#: Kernel launches per kernel: "tensor_core" csrc/ntt_mxu_tc.cu, "dp4a"
-#: csrc/ntt_mxu.cu (K11 counts its own).
+#: Kernel launches per kernel: "tensor_core" csrc/mxu_tc.cuh (K11's
+#: launches too), "dp4a" csrc/ntt_mxu.cu (the A/B point alone).
 KERNEL_LAUNCHES = {"tensor_core": 0, "dp4a": 0}
 
 
@@ -127,12 +129,15 @@ class MxuDirection:
     s8b the banded (15m, 8m) matrix.  ``corr``: (m,) int64, the
     per-output-row offset correction (mod N) of s8 and s8b, None for u7.
     ``c128`` / ``nprime``: 2^128 mod N and N^-1 mod 2^64.
-    ``kernel_planes`` (derived, not a field): the planes the __dp4a kernel
-    reads, ``planes`` itself, or for s8b G's first block column -- block
-    (a, 0) is digit plane a, so that column is the s8 stack and s8b runs
-    the s8 kernels.  ``tc_planes`` (derived, s8 / s8b tables on a CUDA
-    device, else None): that stack in the tensor-core kernel's ring-tile
-    layout, ``tc_plane_tiles``.
+    ``kernel_planes`` (derived, not a field): the planes the kernels read,
+    ``planes`` itself, or for s8b G's first block column -- block (a, 0)
+    is digit plane a, so that column is the s8 stack and s8b runs the s8
+    kernels.  ``tc_planes`` (derived, tables on a CUDA device, else None):
+    those planes in the tensor-core kernel's ring-tile layout,
+    ``tc_plane_tiles``, for blocks of ``tc_nt`` columns: every call on the
+    tables launches with that block.  None (the default) is
+    ``tc_columns``' rule; another width is the geometry A/B point that
+    ``chip_smoke.py`` times (``dataclasses.replace(t, tc_nt=...)``).
     """
 
     m: int
@@ -143,6 +148,7 @@ class MxuDirection:
     c128: int
     nprime: int
     scheme: str = "s8"
+    tc_nt: int | None = None
 
     def __post_init__(self):
         kp = self.planes
@@ -150,8 +156,8 @@ class MxuDirection:
             kp = kp[: NL_S8 * self.m, : self.m].contiguous()
         object.__setattr__(self, "kernel_planes", kp)
         tiles = None
-        if self.scheme != "u7" and kp.is_cuda:
-            tiles = tc_plane_tiles(kp, self.m)
+        if kp.is_cuda:
+            tiles = tc_plane_tiles(kp, self.m, self.scheme, self.tc_nt)
         object.__setattr__(self, "tc_planes", tiles)
 
 
@@ -418,35 +424,19 @@ def _kernel_args(
     return out, head, tail
 
 
-def _launch(
-    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None
-) -> torch.Tensor:
-    """Launch the __dp4a kernel (csrc/ntt_mxu.cu) on a dense (A, m, B)
-    view; raise on any error."""
-    from .. import _build
-
-    out, head, tail = _kernel_args(x, t, fc, tw, t.kernel_planes)
-    rc = _build.load().sventt_mxu_ntt(
-        *head, int(t.scheme == "u7"), *tail, torch.cuda.current_stream(x.device).cuda_stream
-    )
-    if rc != 0:
-        raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
-    return out
-
-
 @dataclass(frozen=True)
 class TcGeometry:
-    """The tensor-core kernel's launch geometry (csrc/ntt_mxu_tc.cu).
+    """The tensor-core kernel's launch geometry (csrc/mxu_tc.cuh).
 
     ``nt`` batch columns a block; ``kp`` the transform length padded to the
-    mma depth of 32; ``rs`` the byte-plane row stride in shared memory
+    mma depth of 32; ``rs`` the data-plane row stride in shared memory
     (``kp`` + 16: ldmatrix reads 8 rows in 8 bank groups); ``rg`` rows a row
     group (the 8 warps tile it 16 rows x 8 columns); ``split`` the row
     groups' split across blocks (gridDim.z); ``smem`` the dynamic shared
-    memory: the 8 byte planes of the block's columns, a 3-stage ring of
-    the 8 digit planes' (rg, 32) tiles and, for the staged lane epilogue,
-    ``rg`` + 2 words a column.  The grid is (ceil(B / nt), min(A, 65535),
-    split).
+    memory: the data planes of the block's columns (8 of them, u7 10), a
+    3-stage ring of the matrix planes' (rg, 32) tiles and, for the staged
+    lane epilogue, ``rg`` + 2 words a column.  The grid is (ceil(B / nt),
+    min(A, 65535), split).
     """
 
     nt: int
@@ -457,8 +447,33 @@ class TcGeometry:
     smem: int
 
 
-#: The tensor-core kernel's constants (csrc/ntt_mxu_tc.cu).
+#: The tensor-core kernel's constants (csrc/mxu_tc.cuh).
 TC_WARPS, TC_WARP_COLS, TC_KSTEP, TC_STAGES = 8, 8, 32, 3
+
+#: A block's shared memory on sm_90 (the C entries refuse more).
+TC_MAX_SMEM = 232448
+
+
+def _tc_format(scheme: str) -> str:
+    """The tensor-core kernel's plane format of a scheme: s8b runs s8's."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown mxu plane scheme {scheme!r}")
+    return "u7" if scheme == "u7" else "s8"
+
+
+def tc_block_columns(scheme: str) -> tuple[int, ...]:
+    """The block widths the tensor-core kernel is built for under a
+    scheme: s8's digit stack takes any multiple of 8 that tiles the 8
+    warps (a kernel argument), u7 16 and 32 only (a template constant)."""
+    return (16, 32) if _tc_format(scheme) == "u7" else (8, 16, 32, 64)
+
+
+def tc_columns(m: int, scheme: str = "s8") -> int:
+    """Batch columns a block of the tensor-core kernel takes by rule at
+    length m: s8 (and s8b) 32 at m <= 512, 16 above; u7 32 at m <= 128, 16
+    above (``tc_geometry`` says why)."""
+    return 32 if m <= (128 if _tc_format(scheme) == "u7" else 512) else 16
+
 
 #: The tensor-core kernel's forms, in the order of its template flag LANE:
 #: any strided (A, m, B) view; the lane layout, stores from the mma
@@ -468,39 +483,57 @@ TC_WARPS, TC_WARP_COLS, TC_KSTEP, TC_STAGES = 8, 8, 32, 3
 TC_FORMS = ("strided", "lane", "lane_staged")
 
 
-def tc_form(orientation: str, inverse: bool, tw: MontPair | None) -> str:
+def tc_form(orientation: str, inverse: bool, tw: MontPair | None, scheme: str = "s8") -> str:
     """The tensor-core form of a call: "strided" for lead and mid; for the
     lane orientation the staged epilogue where the inverse fuses the pair
     twiddle there (its 16-byte twiddle loads; faster at the 2^24 and 2^26
-    roots, PERF.md section 6), else the stores from the fragment
+    roots under s8, PERF.md section 6), else the stores from the fragment
     (faster on the forward; the staged form spills in the other modes and
-    is not built for them)."""
+    is not built for them, nor for u7)."""
     if orientation != "lane":
         return "strided"
-    return "lane_staged" if inverse and tw is not None and tw.wp is not None else "lane"
+    staged = _tc_format(scheme) == "s8" and inverse and tw is not None and tw.wp is not None
+    return "lane_staged" if staged else "lane"
 
 
-def tc_geometry(m: int, B: int, A: int = 1, sms: int = 132, form: str = "strided") -> TcGeometry:
-    """Launch geometry of the tensor-core kernel for an (A, m, B) call on
-    a card of ``sms`` SMs: 32 columns a block at m <= 512, 16 above (the
-    byte planes under 135 KB; two blocks share an SM at m <= 256); where
-    the grid has fewer than two blocks an SM, the row groups are split
-    across up to that many blocks (each splits the same columns into
-    planes and writes its own rows).  A lane form (A = 1) takes the (B, m)
-    rows as its B columns: the 2^17 root (256 rows of 512) splits its row
-    groups, the 2^24 and 2^26 roots (65536 x 256, 131072 x 512) fill the
-    card without."""
+def tc_geometry(
+    m: int, B: int, A: int = 1, sms: int = 132, form: str = "strided", scheme: str = "s8",
+    nt: int | None = None,
+) -> TcGeometry:
+    """Launch geometry of the tensor-core kernel for an (A, m, B) call of a
+    plane scheme on a card of ``sms`` SMs: ``nt`` columns a block (one of
+    ``tc_block_columns``; a block over ``TC_MAX_SMEM`` raises), by default
+    ``tc_columns``' rule (s8: 32 at m <= 512, 16 above: the byte planes
+    under 135 KB; two
+    blocks share an SM at m <= 256.  u7, whose 10 planes take 5/4 of s8's
+    shared memory: 32 at m <= 128 (K11's 76,800 bytes), 16 above, so that
+    two blocks still share an SM at m = 256 (104,960 bytes; 32 columns
+    there take 117,760, one block an SM, PERF.md section 6); u7 has no
+    staged lane epilogue); where the grid has fewer than two
+    blocks an SM, the row groups are split across up to that many blocks
+    (each splits the same columns into planes and writes its own rows).  A
+    lane form (A = 1) takes the (B, m) rows as its B columns: the 2^17
+    root (256 rows of 512) splits its row groups, the 2^24 and 2^26 roots
+    (65536 x 256, 131072 x 512) fill the card without."""
     if not 2 <= m <= MAX_MXU:
         raise ValueError(f"tensor-core kernel takes 2 <= m <= {MAX_MXU}, got {m}")
-    if form not in TC_FORMS or (form != "strided" and A != 1):
-        raise ValueError(f"tensor-core kernel form {form!r} with A = {A}")
-    nt = 32 if m <= 512 else 16
+    fmt = _tc_format(scheme)
+    if form not in TC_FORMS or (form != "strided" and A != 1) or (form, fmt) == ("lane_staged", "u7"):
+        raise ValueError(f"tensor-core kernel form {form!r} with A = {A} under {scheme!r}")
+    npl = NL if fmt == "u7" else NL_S8
+    if nt is None:
+        nt = tc_columns(m, scheme)
+    elif nt not in tc_block_columns(scheme):
+        raise ValueError(f"tensor-core kernel under {scheme!r} takes blocks of "
+                         f"{tc_block_columns(scheme)} columns, got {nt}")
     kp = -(-m // TC_KSTEP) * TC_KSTEP
     rs = kp + 16
     rg = 16 * (TC_WARPS // (nt // TC_WARP_COLS))
-    smem = NL_S8 * nt * rs + TC_STAGES * NL_S8 * rg * TC_KSTEP
+    smem = npl * nt * rs + TC_STAGES * npl * rg * TC_KSTEP
     if form == "lane_staged":
         smem += 8 * nt * (rg + 2)
+    if smem > TC_MAX_SMEM:
+        raise ValueError(f"tensor-core block of {nt} columns at m = {m} takes {smem} bytes")
     n_rg = -(-m // rg)
     blocks = -(-B // nt) * A
     split = 1 if blocks >= 2 * sms else min(n_rg, -(-2 * sms // blocks))
@@ -508,28 +541,35 @@ def tc_geometry(m: int, B: int, A: int = 1, sms: int = 132, form: str = "strided
     return TcGeometry(nt, kp, rs, rg, split, smem)
 
 
-def tc_plane_tiles(planes: torch.Tensor, m: int) -> torch.Tensor:
-    """The s8 digit stack (8m, m) in the tensor-core kernel's ring-tile
-    layout: one contiguous tile of (8 planes, rg rows, 32 points) per (row
-    group, 32-point step), in that order, zero past m, each 32-byte row's
-    two 16-byte halves swapped in rows 4-7 of every 8 (the kernel's
-    ``a_slot`` swizzle, against ldmatrix bank conflicts).  int8, flat."""
-    g = tc_geometry(m, 1)
+def tc_plane_tiles(
+    planes: torch.Tensor, m: int, scheme: str = "s8", nt: int | None = None
+) -> torch.Tensor:
+    """The matrix planes of a scheme's kernel (the s8 digit stack (8m, m),
+    the u7 planes (10m, m)) in the tensor-core kernel's ring-tile layout:
+    one contiguous tile of (planes, rg rows, 32 points) per (row group,
+    32-point step), in that order, rg that of ``tc_geometry(m, 1,
+    scheme=scheme, nt=nt)`` (the rows of a block of ``nt`` columns, by
+    default the rule's), zero past m, each 32-byte row's two 16-byte halves
+    swapped in rows 4-7 of every 8 (the kernel's ``a_slot`` swizzle,
+    against ldmatrix bank conflicts).  int8, flat."""
+    g = tc_geometry(m, 1, scheme=scheme, nt=nt)
+    npl = NL if _tc_format(scheme) == "u7" else NL_S8
     n_rg = -(-m // g.rg)
-    D = torch.zeros(NL_S8, n_rg * g.rg, g.kp, dtype=torch.int8, device=planes.device)
-    D[:, :m, :m] = planes.reshape(NL_S8, m, m)
+    D = torch.zeros(npl, n_rg * g.rg, g.kp, dtype=torch.int8, device=planes.device)
+    D[:, :m, :m] = planes.reshape(npl, m, m)
     # (plane, row group, row, step, half, 16) -> (row group, step, plane, row, half, 16)
-    T = D.reshape(NL_S8, n_rg, g.rg, g.kp // TC_KSTEP, 2, 16).permute(1, 3, 0, 2, 4, 5)
+    T = D.reshape(npl, n_rg, g.rg, g.kp // TC_KSTEP, 2, 16).permute(1, 3, 0, 2, 4, 5)
     swap = ((torch.arange(g.rg, device=planes.device) >> 2) & 1).bool()
     T = torch.where(swap.reshape(1, 1, 1, g.rg, 1, 1), T.flip(4), T)
     return T.contiguous().reshape(-1)
 
 
-def tc_plane_tile_bytes(m: int) -> int:
-    """Bytes of ``tc_plane_tiles(planes, m)`` without building it: the 8
-    digit planes, m rounded up to whole row groups, times ``kp``."""
-    g = tc_geometry(m, 1)
-    return NL_S8 * -(-m // g.rg) * g.rg * g.kp
+def tc_plane_tile_bytes(m: int, scheme: str = "s8") -> int:
+    """Bytes of ``tc_plane_tiles(planes, m, scheme)`` without building it:
+    the matrix planes (8, u7 10), m rounded up to whole row groups, times
+    ``kp``."""
+    g = tc_geometry(m, 1, scheme=scheme)
+    return (NL if _tc_format(scheme) == "u7" else NL_S8) * -(-m // g.rg) * g.rg * g.kp
 
 
 def _aligned16(v: torch.Tensor) -> torch.Tensor:
@@ -543,13 +583,15 @@ def _launch_tc(
     x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None,
     form: str = "strided",
 ) -> torch.Tensor:
-    """Launch the int8 tensor-core kernel (csrc/ntt_mxu_tc.cu) on a dense
-    (A, m, B) view of s8 / s8b tables in one of ``TC_FORMS`` (a lane form
-    takes the (1, m, B) view of contiguous rows); raise on any error."""
+    """Launch the int8 tensor-core kernel (csrc/mxu_tc.cuh: the s8 entry
+    of csrc/ntt_mxu_tc.cu for s8 / s8b tables, the u7 entry of
+    csrc/ntt_mxu_tc_u7.cu for u7 ones) on a dense (A, m, B) view in one of
+    ``TC_FORMS`` (a lane form takes the (1, m, B) view of contiguous
+    rows); raise on any error."""
     from .. import _build
 
-    if t.scheme == "u7" or t.tc_planes is None:
-        raise ValueError("the tensor-core kernel takes s8 / s8b tables built on a CUDA device")
+    if t.tc_planes is None:
+        raise ValueError("the tensor-core kernel takes tables built on a CUDA device")
     if form != "strided":
         # the transposed view of contiguous rows keeps its strides
         x = _aligned16(x[0].t()).t().unsqueeze(0)
@@ -557,8 +599,10 @@ def _launch_tc(
             tw = montpair_map(lambda v: _aligned16(v[0].t()).t().unsqueeze(0), tw)
     out, head, tail = _kernel_args(x, t, fc, tw, t.tc_planes)
     A, m, B = x.shape
-    geo = tc_geometry(m, B, A, sm_count(x.device.index), form)
-    rc = _build.load().sventt_mxu_ntt_tc(
+    geo = tc_geometry(m, B, A, sm_count(x.device.index), form, t.scheme, t.tc_nt)
+    lib = _build.load()
+    entry = lib.sventt_mxu_ntt_tc_u7 if t.scheme == "u7" else lib.sventt_mxu_ntt_tc
+    rc = entry(
         *head, *tail, TC_FORMS.index(form), geo.nt, geo.split, geo.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -568,11 +612,22 @@ def _launch_tc(
 
 
 def kernel_for(scheme: str, orientation: str) -> str:
-    """The kernel a CUDA call runs: "tensor_core" for the s8 digit stack
-    (schemes s8 and s8b) in every orientation, "dp4a" for the u7 planes."""
+    """The kernel a CUDA call runs, a ``KERNEL_LAUNCHES`` key:
+    "tensor_core" for every scheme in every orientation (K11, the u7 lead
+    form, included); the __dp4a kernel runs only as the A/B point."""
     if scheme not in SCHEMES or orientation not in LAUNCHES:
         raise ValueError(f"unknown mxu scheme / orientation {scheme!r} / {orientation!r}")
-    return "tensor_core" if scheme != "u7" else "dp4a"
+    return "tensor_core"
+
+
+def _launch_kernel(x3: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw3, orientation: str):
+    """Launch the kernel ``kernel_for`` names on the (A, m, B) view of a
+    CUDA call in ``tc_form``'s form, and count it under
+    ``KERNEL_LAUNCHES``."""
+    kernel = kernel_for(t.scheme, orientation)
+    out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3, t.scheme))
+    KERNEL_LAUNCHES[kernel] += 1
+    return out
 
 
 def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
@@ -616,13 +671,8 @@ def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
     check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
-        kernel = kernel_for(t.scheme, orientation)
-        if kernel == "dp4a":
-            out = _launch(x3, t, fc, tw3)
-        else:
-            out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3))
+        out = _launch_kernel(x3, t, fc, tw3, orientation)
         LAUNCHES[orientation] += 1
-        KERNEL_LAUNCHES[kernel] += 1
         return back(out)
     if x.device.type != "cpu":
         raise ValueError(f"mxu engine runs on cpu or cuda tensors, got {x.device}")
@@ -682,20 +732,28 @@ def mxu_plain(
     return back(_mxu_plain(x3, tables, fc, tw3))
 
 
-def _launch_dp4a_s8(
+def _launch_dp4a(
     x: torch.Tensor, tables: MxuDirection, fc: FieldConsts,
     tw: MontPair | None = None, mid: bool = False, lane: bool = False,
 ) -> torch.Tensor:
     """``mxu_ntt`` (``mid=True``: ``mxu_ntt_mid``; ``lane=True``:
-    ``mxu_ntt_lane``) of s8 / s8b tables on the __dp4a kernel, which no
-    path runs for these schemes: the A/B point ``chip_smoke.py`` times
-    beside the tensor-core kernel.  CUDA tensors only; counted under
-    ``KERNEL_LAUNCHES["dp4a"]`` alone."""
-    if tables.scheme == "u7" or not x.is_cuda:
-        raise ValueError("the dp4a A/B point takes s8 / s8b tables and a CUDA tensor")
+    ``mxu_ntt_lane``) of any scheme's tables on the first port's __dp4a
+    kernel (csrc/ntt_mxu.cu), which no path runs: the A/B point
+    ``chip_smoke.py`` times beside the tensor-core kernel.  CUDA tensors
+    only; counted under ``KERNEL_LAUNCHES["dp4a"]`` alone; raises on any
+    error."""
+    from .. import _build
+
+    if not x.is_cuda:
+        raise ValueError("the dp4a A/B point takes a CUDA tensor")
     check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, tables.m, "lane" if lane else "mid" if mid else "lead")
-    out = _launch(x3, tables, fc, tw3)
+    out, head, tail = _kernel_args(x3, tables, fc, tw3, tables.kernel_planes)
+    rc = _build.load().sventt_mxu_ntt(
+        *head, int(tables.scheme == "u7"), *tail, torch.cuda.current_stream(x.device).cuda_stream
+    )
+    if rc != 0:
+        raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["dp4a"] += 1
     return back(out)
 
@@ -726,8 +784,8 @@ def reset_counts() -> None:
 
 
 # ctypes signatures of the C entries in csrc/ntt_mxu.cu (with u7) and
-# csrc/ntt_mxu_tc.cu (without it, with the form, nt, split and the shared
-# memory)
+# csrc/ntt_mxu_tc.cu / csrc/ntt_mxu_tc_u7.cu (without it, with the form,
+# nt, split and the shared memory)
 _HEAD = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]

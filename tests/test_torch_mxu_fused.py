@@ -136,9 +136,11 @@ def test_fused_carry_divergence(k11):
 
 
 def test_fused_counts_and_rejects():
-    """CPU tensors count plain calls, never launches; a stack or data of the
-    wrong shape raises; importing the module computed nothing."""
+    """CPU tensors count plain calls, never launches; on a CUDA tensor K11
+    runs the u7 lead form's kernel, the tensor-core one; a stack or data of
+    the wrong shape raises; importing the module computed nothing."""
     assert not any(isinstance(v, torch.Tensor) for v in vars(fused).values())
+    assert ntt_mxu.kernel_for("u7", "lead") == "tensor_core"
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     stack = fused.make_fused_stack(mod, R=16, device="cpu")
     x = from_numpy(np.random.default_rng(3).integers(0, mod.modulus, (16, 5), dtype=np.uint64))

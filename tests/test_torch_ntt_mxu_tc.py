@@ -1,5 +1,6 @@
 """PyTorch port, the s8 matrix NTT on the int8 tensor cores
-(csrc/ntt_mxu_tc.cu): its routing, its launch geometry and its arithmetic.
+(csrc/ntt_mxu_tc.cu): its routing, its launch geometry and its arithmetic
+(the u7 planes' instantiations: tests/test_torch_ntt_mxu_tc_u7.py).
 
 The kernel itself runs only on the card (chip_smoke.py holds it against the
 plain version there, bitwise).  Here, on the CPU: which kernel each scheme
@@ -74,10 +75,10 @@ def _flagship():
 @pytest.mark.parametrize("orientation", ["lead", "mid", "lane"])
 @pytest.mark.parametrize("scheme", ntt_mxu.SCHEMES)
 def test_kernel_routing(scheme, orientation):
-    """s8 and s8b run on the tensor cores in every orientation, K3 lane
-    included; u7 on __dp4a."""
-    want = "tensor_core" if scheme != "u7" else "dp4a"
-    assert ntt_mxu.kernel_for(scheme, orientation) == want
+    """Every scheme runs on the tensor cores in every orientation, K3 lane
+    included: s8 and s8b on the s8 digit stack's instantiations, u7 on its
+    own; the __dp4a kernel is only the A/B point."""
+    assert ntt_mxu.kernel_for(scheme, orientation) == "tensor_core"
 
 
 def test_tc_form():
@@ -306,13 +307,17 @@ def test_cpu_counts_and_ab_point():
     with pytest.raises(ValueError):
         ntt_mxu.mxu_ntt_lane(x.t(), t, fc, tw=MontPair(x, None))  # not the data's layout
     with pytest.raises(ValueError):
-        ntt_mxu._launch_dp4a_s8(x, t, fc)  # a CPU tensor
+        ntt_mxu._launch_dp4a(x, t, fc)  # a CPU tensor
     with pytest.raises(ValueError):
-        ntt_mxu._launch_dp4a_s8(x.t(), t, fc, lane=True)
+        ntt_mxu._launch_dp4a(x.t(), tu, fc, lane=True)
     with pytest.raises(ValueError):
         ntt_mxu._launch_lane_form(x.t(), t, fc, "lane_staged")
-    with pytest.raises(ValueError):
-        ntt_mxu._launch_tc(x.reshape(1, 8, 3), tu, fc, None)  # u7 planes
+    # u7 tables take the tensor-core route too; tables built on the CPU
+    # hold no tile copy, and the launcher refuses them before any card
+    assert t.tc_planes is None and tu.tc_planes is None
+    for tables in (t, tu):
+        with pytest.raises(ValueError, match="CUDA device"):
+            ntt_mxu._launch_tc(x.reshape(1, 8, 3), tables, fc, None)
     ntt_mxu.reset_counts()
 
 
