@@ -89,7 +89,22 @@ Phases, each printing its own lines:
    step and held to the port's memory budget; each distributed path's
    CUDA tables hold exactly the bytes the budget counts (``leaf_tables``,
    the tensor-core tile copy of the mxu digit planes included).  Where the
-   machine has two or more cards, the 2^24 ring path over distinct cards;
+   machine has two or more cards, the 2^24 ring path over distinct cards.
+   Then the applications and the portable engine: ``magic_series_count``
+   at m = 100 and 101 mod TEST_MODULUS (native generators, a 2^20-point
+   convolution on K1 / K2 / K3) and M(100) through the chunked path (2^16
+   blocks on one 2^17-point NTT), against the exact counts mod N, every
+   launch on the tensor cores and no plain call; the Kinnaes closed form
+   on the card at m = 100 and 101 at 64 and 62 bits, against the same
+   counts; ``engine="jnp"`` at 2^17 and 2^24 and two 2^24 ``plan_spec``
+   trees with jnp rows (over K1 / K2 with a K3 root, over K4 / K5 with a
+   K6 root) against the oracle, with an exact roundtrip; the jnp
+   ``DistributedNTT`` at 2^24, 4 logical shards, comm "ring" (K10);
+   ``forward_step`` / ``inverse_step`` of the flagship 2^17 mxu plan
+   captured in a CUDA graph and replayed bitwise against the compute
+   calls, and ``DistributedNTT``'s step helpers against its compute
+   calls; with the seconds of each item and the replay, eager and jnp
+   times;
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
@@ -143,6 +158,24 @@ import sys
 import time
 
 TOL = 0  # exact integer arithmetic: outputs must agree bit for bit
+
+#: The exact counts of magic series of order 100 and 101 (OEIS A052456 at
+#: the reference's test scale): reconstructed by CRT from the convolution
+#: pipeline over 17 independent 62-bit NTT primes, checked against held-out
+#: moduli and the Kinnaes closed form over a (width 64..61 x 2 primes)
+#: matrix (``sventt_tpu_torch.examples.magic_series_reference_scale``).
+M100 = int(
+    "9043007368088944265747933022406939112612349423987481545280521717243052"
+    "7904558345986101135781355626074636685064666906216989017828082488599537"
+    "5485156399921958991796250954308603011799192842071430359668946052264146"
+    "938445899732873114858199920"
+)
+M101 = int(
+    "6517428685211505994232177388427365631933896727256173046091895410609480"
+    "7534843021101708794185168653839829071357636233748162115685478414828310"
+    "4866179994202618028615736621185423913319338987817995082551755913561634"
+    "157004344784632798600635226832"
+)
 
 #: H100 SXM peaks used for the least time a kernel could take: HBM bytes/s;
 #: int8 tensor-core ops/s (a multiply-add is two); 32-bit integer
@@ -1406,6 +1439,166 @@ def multi_card(oracles: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the magic-series applications, the portable engine and the step helpers
+# ---------------------------------------------------------------------------
+
+
+def pipeline_run(device, smi: str) -> dict:
+    """``magic_series_count(m)`` mod TEST_MODULUS at m = 100 and 101 (a
+    2^20-point convolution on the matrix engine: K1, K2 and K3 on the
+    tensor cores) and M(100) again through the chunked path (``chunk`` =
+    2^16, one 2^17-point NTT reused), each against the exact count mod N,
+    with the launch counts set to 0 before and read after.  The native
+    generators' seconds are timed apart.  Returns the seconds per item."""
+    from sventt_tpu_torch.apps import make_convolver, magic_series_count, series
+    from sventt_tpu_torch.field.modulus import TEST_GENERATOR, TEST_MODULUS
+
+    N, G = TEST_MODULUS, TEST_GENERATOR
+    secs = {}
+    for m, exact, chunk in ((100, M100, None), (101, M101, None), (100, M100, 1 << 16)):
+        r = m * m * (m - 1) // 2
+        label = f"M({m})" + ("" if chunk is None else f" chunk={chunk}")
+        t0 = time.perf_counter()
+        series.restricted_partition_series(m, r, N)
+        series._qbinom_numerator(m * m, m, r, N)
+        host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if chunk is None:
+            size = 1 << (2 * r).bit_length()  # the linear convolution's length
+        else:
+            size = 1 << max(2, (2 * chunk - 1).bit_length())
+        ntt = make_convolver(N, G, size, device=device)
+        sync(device)
+        tables = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        got = magic_series_count(m, N, G, ntt=ntt, chunk=chunk)
+        sync(device)
+        total = time.perf_counter() - t0
+        c = counts()
+        log(f"  {label}: mod N {got}, exact mod N {exact % N}: {'equal' if got == exact % N else 'DIFFER'}; "
+            f"{size}-point NTT (tables {tables:.2f} s); {total:.3f} s in all, of which the native "
+            f"generators alone take {host:.3f} s ({smi})")
+        log(f"    launches {c['launches']['mxu']}, mxu kernels {c['mxu_kernels']}, "
+            f"plain calls {c['plain']['mxu']}")
+        check(got == exact % N, f"{label}: the pipeline's count != the exact count mod N")
+        orients = ("lead", "mid", "lane") if chunk is None else ("lead", "lane")  # 2^17: 256 x 512
+        check(all(c["launches"]["mxu"][k] > 0 for k in orients)
+              and mxu_on_tensor_cores(c) and no_plain(c),
+              f"{label}: not every mxu orientation ran on the tensor cores, or a plain version ran")
+        secs[label] = (total, host)
+    return secs
+
+
+def kinnaes_run(device, smi: str) -> dict:
+    """``kinnaes_magic_series_count`` at m = 100 and 101 on the card (n/2 =
+    247,521 and 252,513 lanes, an m-step product loop) at the 64- and
+    62-bit widths of ``kinnaes_parameters``, against the exact counts."""
+    from sventt_tpu_torch.apps import kinnaes_magic_series_count, kinnaes_parameters
+
+    secs = {}
+    for m, exact in ((100, M100), (101, M101)):
+        for bits in (64, 62):
+            Np, g, n = kinnaes_parameters(m, bits=bits)
+            t0 = time.perf_counter()
+            got = kinnaes_magic_series_count(m, Np, g, n, device=device)
+            dt = time.perf_counter() - t0
+            log(f"  Kinnaes m={m} N={Np:#x} ({bits} bits) n={n}: "
+                f"{'equal' if got == exact % Np else 'DIFFER'} to the exact count mod N "
+                f"({dt:.3f} s, {smi})")
+            check(got == exact % Np, f"Kinnaes m={m} {bits} bits: != the exact count mod N")
+            secs[f"Kinnaes m={m} {bits} bits"] = dt
+    return secs
+
+
+def jnp_paths(device, oracles: dict) -> dict:
+    """``engine="jnp"`` at 2^17 and 2^24 and two mixed ``plan_spec`` trees at
+    2^24 against the native oracle (``slice_run``): jnp rows over K1 / K2
+    with a K3 root, and over K4 / K5 with a K6 root.  Returns the NTTs."""
+    flag, _ = moduli()
+    F, G = flag.modulus, flag.generator
+    jnp = dict(engine="jnp")
+    ntts, c = slice_run(device, [(f"jnp 2^{k}", F, G, 1 << k, jnp) for k in (17, 24)], oracles)
+    log(f"  launches {c['launches']}, plain calls {c['plain']}")
+    check(not any(c["launches"][k][o] for k in ("mxu", "pallas") for o in c["launches"][k])
+          and no_plain(c), "the jnp engine launched an NTT kernel, or a plain version ran")
+    check(c["launches"]["inter_step"]["inter_step"] > 0,
+          "the jnp rows' inter-step multiply never launched its kernel")
+    for spec, engine in (("mxu:256,jnp:16,mxu:256,mxu", "mxu"),
+                         ("pallas:256,jnp:16,pallas:256,pallas", "pallas")):
+        tree, c = slice_run(device, [(f"plan_spec {spec} 2^24", F, G, 1 << 24,
+                                      dict(plan_spec=spec))], oracles)
+        ntts.update(tree)
+        log(f"    launches {c['launches']}, plain calls {c['plain']}")
+        orients = ("lead", "mid", "lane") if engine == "mxu" else ("leaf", "mid", "lane")
+        check(all(c["launches"][engine][o] > 0 for o in orients) and no_plain(c),
+              f"plan_spec {spec}: a kernel of the tree never ran, or a plain version ran")
+        check(mxu_on_tensor_cores(c) if engine == "mxu" else radix2_routed(c),
+              f"plan_spec {spec}: the launches ran the wrong kernels")
+        check("mid-axis jnp m1=16" in next(iter(tree.values())).describe(),
+              f"plan_spec {spec}: no jnp row")
+    return ntts
+
+
+def step_helpers(device, ntt_mxu17, dist_cfg, mesh, smi: str) -> dict:
+    """``NTT.forward_step`` / ``inverse_step`` of the flagship 2^17 mxu plan
+    captured once each in a ``torch.cuda.CUDAGraph`` and replayed on two
+    inputs, bitwise against ``compute_forward`` / ``compute_inverse``, the
+    replay timed beside the eager call; ``DistributedNTT.forward_step`` /
+    ``inverse_step`` against the compute calls (eager)."""
+    import torch
+
+    from sventt_tpu_torch.field.modulus import FLAGSHIP_MODULUS
+    from sventt_tpu_torch.parallel import DistributedNTT
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    ms = {}
+    n = ntt_mxu17.get_m()
+    xs = [device_fill(n, FLAGSHIP_MODULUS, device), device_fill(2 * n, FLAGSHIP_MODULUS, device)[n:]]
+    for name, helper, compute in (("forward", ntt_mxu17.forward_step, ntt_mxu17.compute_forward),
+                                  ("inverse", ntt_mxu17.inverse_step, ntt_mxu17.compute_inverse)):
+        step, tabs = helper()
+        static_x = xs[0].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(static_x, *tabs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        reset_counts()
+        with torch.cuda.graph(graph):
+            static_out = step(static_x, *tabs)
+        c = counts()
+        for x in xs:
+            static_x.copy_(x)
+            graph.replay()
+            want = compute(x)
+            sync(device)
+            check(torch.equal(static_out, want), f"the captured {name}_step != compute_{name}")
+        ms[f"mxu 2^17 {name} graph replay"] = timed(graph.replay, 3, 20)
+        ms[f"mxu 2^17 {name} eager"] = timed(lambda: compute(xs[0]), 3, 20)
+        log(f"  {name}_step captured ({c['mxu_kernels']['tensor_core']} tensor-core launches in "
+            f"the capture): two replays equal compute_{name} bitwise; replay "
+            f"{ms[f'mxu 2^17 {name} graph replay']:.4f} ms, eager "
+            f"{ms[f'mxu 2^17 {name} eager']:.4f} ms by CUDA events ({smi})")
+        check(c["mxu_kernels"]["tensor_core"] > 0 and c["mxu_kernels"]["dp4a"] == 0,
+              f"the captured {name}_step ran no tensor-core kernel")
+        del graph, static_out
+    dntt = DistributedNTT(dist_cfg, mesh, comm="ring")
+    shards = dntt.shard(device_fill(dist_cfg.n, dist_cfg.modulus, device))
+    step, tabs = dntt.forward_step()
+    fwd = dntt.compute_forward(shards)
+    ok_f = all(torch.equal(a, b) for a, b in zip(step(shards, *tabs), fwd))
+    step, tabs = dntt.inverse_step()
+    ok_i = all(torch.equal(a, b) for a, b in zip(step(fwd, *tabs), dntt.compute_inverse(fwd)))
+    sync(device)
+    log(f"  DistributedNTT({dist_cfg.engine} 2^{dist_cfg.n.bit_length() - 1} D={dntt.D} ring) "
+        f"forward_step == compute_forward {ok_f}, inverse_step == compute_inverse {ok_i}")
+    check(ok_f and ok_i, "DistributedNTT's step helpers != its compute calls")
+    return ms
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take
 # ---------------------------------------------------------------------------
 
@@ -2215,6 +2408,39 @@ def main() -> int:
         "transform")
     dist_2p28(device)
     multi_card(oracles)
+    from sventt_tpu_torch.plan import NttConfig
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    t_apps = time.perf_counter()
+    log("[apps pipeline] magic_series_count(m) mod TEST_MODULUS at the reference's scale, "
+        "native generators, the mxu convolver; against the exact counts mod N")
+    app_secs = pipeline_run(device, smi)
+    log("[apps kinnaes] kinnaes_magic_series_count on the card at m = 100 and 101, two widths; "
+        "against the exact counts mod N")
+    app_secs.update(kinnaes_run(device, smi))
+    log("[slice jnp] NTT(engine='jnp') and mixed plan_spec trees vs the native oracle, "
+        "elementwise")
+    ntts_jnp = jnp_paths(device, oracles)
+    log("[distributed jnp] DistributedNTT(engine='jnp'), 4 logical shards, comm ring, vs the "
+        "native oracle: the row leaf along axis 1, no local transpose")
+    dist_run(device, [("jnp 2^24 D=4 ring", F, G, 1 << 24, dict(engine="jnp"), m4, "ring")],
+             oracles)
+    log("[step helpers] forward_step / inverse_step captured in a CUDA graph; DistributedNTT's "
+        "against its compute calls")
+    step_ms = step_helpers(device, ntts_mxu["mxu 2^17"],
+                           NttConfig(F, G, 1 << 24, strategy="six_step", engine="jnp"), m4, smi)
+    for label in ("jnp 2^17", "jnp 2^24"):
+        ntt = ntts_jnp[label]
+        x = device_fill(ntt.get_m(), F, device)
+        step_ms[f"{label} forward"] = timed(lambda: ntt.compute_forward(x), 1, 5)
+        step_ms[f"{label} inverse"] = timed(lambda: ntt.compute_inverse(x), 1, 5)
+    del ntts_jnp, x
+    log(f"[apps times] {smi}; seconds (pipeline: in all, native generators alone): "
+        + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}" if isinstance(v, tuple) else f"{k} {v:.3f}"
+                    for k, v in app_secs.items()))
+    log("  ms by CUDA events (median): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in step_ms.items()))
+    log(f"  the phase took {time.perf_counter() - t_apps:.1f} s")
     del oracles
     torch.cuda.empty_cache()
 

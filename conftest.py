@@ -41,6 +41,7 @@ FILE_SECONDS = {
     "tests/test_ntt_grouped.py": 666.5,
     "tests/test_parallel.py": 502.4,
     "tests/test_apps.py": 487.6,
+    "tests/test_torch_ntt_jnp.py": 333.9,
     "tests/test_torch_ntt_radix2_regs.py": 295.4,
     "tests/test_torch_parallel.py": 261.1,
     "tests/test_wrapper.py": 236.4,
@@ -50,6 +51,7 @@ FILE_SECONDS = {
     "tests/test_torch_solinas_plan.py": 177.8,
     "tests/test_ntt_mxu.py": 153.5,
     "tests/test_torch_solinas_rows.py": 136.9,
+    "tests/test_torch_apps.py": 123.9,
     "tests/test_torch_transpose.py": 108.7,
     "tests/test_ntt_jnp.py": 103.2,
     "tests/test_ring.py": 103.1,
@@ -81,6 +83,7 @@ FILE_SECONDS = {
     "tests/test_modulus.py": 1.7,
     "tests/test_truetime.py": 1.0,
     "tests/test_native.py": 0.1,
+    "tests/test_torch_native_series.py": 0.2,
     "tests/test_golden.py": 0.1,
 }
 

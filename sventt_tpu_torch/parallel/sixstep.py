@@ -15,6 +15,10 @@ six-step schedule are all-to-alls between the shards.  Forward:
   5. row NTTs over the full local leading axis n1
   6. local transpose -> (n0/D, n1): the flat bit-reversed output, row-sharded
 
+(a jnp row leaf runs steps 4-6 as the all-to-all and the row NTTs along
+axis 1 of the (n0/D, n1) shard, with no local transpose, as in the JAX
+package),
+
 which gives the single-device ``NTT`` wrapper's output, equal mod N, shard
 by shard; the inverse runs the mirror schedule.  The local transforms are
 the port's plans and kernels on each shard's device, the inter-step
@@ -37,8 +41,9 @@ Divergences from the JAX package: ``engine="auto"`` is the matrix engine
 ``block_b``, ``stages_per_call``, ``lane_rows``, ``tw_layout``) reach the
 local plans, which the JAX package builds with its defaults (residues
 agree mod N either way).  A collective axis that leaves mesh axes out
-(shards replicated over them) is not ported, nor are ``forward_step`` /
-``inverse_step`` (ROADMAP Queue 1 items 5 and 11).
+(shards replicated over them) is not ported.  ``forward_step`` /
+``inverse_step`` return the schedule and its tables, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -134,10 +139,14 @@ class DistributedNTT:
         if sorted(axes) != sorted(mesh.axis_names):
             raise NotImplementedError(
                 f"axes {axes} leave mesh axes of {mesh.axis_names} out; shards "
-                "replicated over them are not ported yet (ROADMAP Queue 1 item 11)"
+                "replicated over them are not ported yet (ROADMAP Queue 1, the "
+                "distributed leftovers: a partial collective axis in parallel/sixstep.py)"
             )
         if config.tune:
-            raise NotImplementedError("tune=True is not ported yet (ROADMAP Queue 1 item 10)")
+            raise NotImplementedError(
+                "tune=True is not ported yet (ROADMAP Queue 1: the autotuner, "
+                "plan/autotune.py, and its cache, utils/cache.py)"
+            )
         self.config = config
         self.mesh = mesh
         self.axes = axes
@@ -216,6 +225,20 @@ class DistributedNTT:
     def normalize(self, shards) -> list[torch.Tensor]:
         return [self.fc.normalize(s) for s in shards]
 
+    def forward_step(self):
+        """(step, tables): ``step(shards, *tables)`` is
+        ``compute_forward(shards)`` without the input checks, as in the JAX
+        package's API."""
+        if self._forward is None:
+            raise RuntimeError("forward transform was not enabled")
+        return self._forward_local, (self._forward,)
+
+    def inverse_step(self):
+        """Mirror of ``forward_step`` for the inverse transform."""
+        if self._inverse is None:
+            raise RuntimeError("inverse transform was not enabled")
+        return self._inverse_local, (self._inverse,)
+
     def compute_forward(self, x, on_step=None) -> list[torch.Tensor]:
         """The forward transform of the shards ``x``; ``on_step(name)``, if
         given, is called after each step of the schedule ("comm1",
@@ -268,10 +291,15 @@ class DistributedNTT:
         return inter_step.mont_mul_bcast(self.tw_fc, mat, tw)
 
     def _rows(self, mat: torch.Tensor, tables: PlanTables, inverse: bool) -> torch.Tensor:
-        """Row NTTs of an (n0/D, n1) shard between two local transposes.
-        The JAX package runs a jnp row leaf along axis 1 in place instead
-        (``sixstep.py:301-305``); the port builds no jnp plan (the portable
-        engine is ROADMAP Queue 1 item 7), so every row takes this path."""
+        """Row NTTs of an (n0/D, n1) shard: a jnp row leaf along axis 1 with
+        no local transposes (``planner._jnp_mid_chunked``, its twiddles
+        already applied under the column sharding), as the JAX package
+        runs it; every other row plan between two local transposes."""
+        row = self._row_plan
+        if isinstance(row, planner.Leaf) and row.engine == "jnp":
+            return planner._jnp_mid_chunked(
+                mat, tables.leaf[(self.n1, "jnp")], self.fc, None, inverse
+            )
         run = planner.run_inverse if inverse else planner.run_forward
         mat = transpose01_u64(mat, self.config.transpose)  # (n1, n0/D)
         mat = run(mat, self._row_plan, tables)

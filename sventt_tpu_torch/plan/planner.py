@@ -1,11 +1,13 @@
 """Recursive transform planner: leaves composed by six-step splits.
 
-The counterpart of ``sventt_tpu/plan/planner.py`` for the matrix engine
-("mxu") and the butterfly engine ("pallas", radix-2 or, with ``max_r`` >
-1, radix-2^R grouped).  A plan is a static tree:
+The counterpart of ``sventt_tpu/plan/planner.py`` for its three engines:
+the matrix engine ("mxu"), the butterfly engine ("pallas", radix-2 or,
+with ``max_r`` > 1, radix-2^R grouped) and the portable engine ("jnp",
+plain torch ops, ``ops.ntt_jnp``).  A plan is a static tree:
 
 * ``Leaf(m, engine)`` -- a length-m NTT along the leading axis
-  (``ops.ntt_mxu.mxu_ntt`` or ``ops.ntt_pallas.fused_ntt``).
+  (``ops.ntt_mxu.mxu_ntt``, ``ops.ntt_pallas.fused_ntt`` or, chunked,
+  ``ops.ntt_jnp.ntt_forward`` / ``ntt_inverse``).
 * ``Split(m, m0, m1)`` -- the six-step decomposition m = m0*m1: column
   NTTs (the ``col`` subtree, length m0), then the row step (the ``row``
   subtree, length m1).  The output is bit-reversed like a Leaf of the same
@@ -19,13 +21,14 @@ as in the JAX package, an mxu row on the port's own choice -- the JAX
 package runs that one lead-axis between two transposes with the table
 stored transposed (``split_tw_t``), for Mosaic's sake
 (``sventt_tpu/plan/planner.py:555-574``), and the two agree bit for bit.
-Every other row step -- a batched pallas row with grouped tables (the
-mid kernel takes per-stage tables only) or a row subtree -- takes the JAX
-package's transpose fallback: the inter-step multiply as its own pass
-(``ops.inter_step``), a transpose, the row as a leading-axis transform, a
-transpose back (mirrored on the inverse).  Plans with jnp leaves are built
-(``build_plan_spec`` validates them as the JAX package does) but running
-them raises ``NotImplementedError``.
+A jnp row runs along axis 1 at every level, batched or not, in chunks of
+rows, each chunk's inter-step multiply (``ops.inter_step``) and row
+transform together (``_jnp_mid_chunked``).  Every other row step -- a
+batched pallas row with grouped tables (the mid kernel takes per-stage
+tables only) or a row subtree -- takes the JAX package's transpose
+fallback: the inter-step multiply as its own pass (``ops.inter_step``), a
+transpose, the row as a leading-axis transform, a transpose back
+(mirrored on the inverse).
 """
 
 from __future__ import annotations
@@ -37,9 +40,12 @@ import torch
 from ..field.limb import FieldConsts
 from ..field.modulus import Modulus
 from ..ops import inter_step, ntt_mxu, ntt_pallas
+from ..ops.ntt_jnp import ntt_forward, ntt_forward_mid, ntt_inverse, ntt_inverse_mid
 from ..ops.transpose import transpose01
 from ..ops.twiddle import (
     MontPair,
+    forward_tables,
+    inverse_tables,
     montpair_map,
     sixstep_row_twiddles,
     sixstep_row_twiddles_device,
@@ -56,15 +62,14 @@ DEVICE_TWIDDLE_THRESHOLD = 1 << 16
 #: dropped (the multiply computes it in flight), halving twiddle memory.
 W_ONLY_THRESHOLD = 1 << 26
 
-#: Largest jnp leaf, for plan_spec validation only (the engine is unported).
-_JNP_SPEC_CAP = 1 << 22
+#: Largest element count of one chunk of a jnp leaf or jnp row step, the
+#: JAX package's value (sized there for a TPU core's vector memory, not
+#: tuned for the GPU).  A chunk's stage chain holds a few temporaries of
+#: its size, so the chunks bound the engine's scratch memory on the card.
+JNP_RESIDENT_ELEMS = 1 << 21
 
-#: The engines whose leaves and row steps run.
-PORTED_ENGINES = ("mxu", "pallas")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+#: Largest jnp leaf a ``plan_spec`` may name.
+JNP_SPEC_CAP = 1 << 22
 
 
 def row_twiddles(
@@ -109,7 +114,7 @@ def _transpose_pair(tw: MontPair) -> MontPair:
 @dataclass(frozen=True)
 class Leaf:
     m: int
-    engine: str  # "mxu" | "pallas" run; "jnp" is not ported
+    engine: str  # "mxu" | "pallas" | "jnp"
 
 
 @dataclass(frozen=True)
@@ -125,14 +130,13 @@ def build_plan(n: int, engine: str, max_fused: int | None = None) -> "Leaf | Spl
     """Static plan tree for a length-n transform.
 
     log2(n) is cut into the fewest near-equal factors, each <= max_fused
-    (512 for mxu, ``ntt_pallas.MAX_FUSED`` = 256 for pallas), left-deep:
-    the row side is a leaf, the column side recurses.  mxu: 2^17 -> 256 x
-    512, 2^24 -> (256 x 256) x 256; pallas: 2^17 -> (32 x 64) x 64.
+    (512 for mxu, ``ntt_pallas.MAX_FUSED`` = 256 for pallas, 2^13 for jnp),
+    left-deep: the row side is a leaf, the column side recurses.  mxu: 2^17
+    -> 256 x 512, 2^24 -> (256 x 256) x 256; pallas: 2^17 -> (32 x 64) x
+    64; jnp: 2^17 -> 256 x 512, 2^24 -> 4096 x 4096.
     """
-    if engine not in PORTED_ENGINES:
-        raise _not_ported(f"engine={engine!r}", "Queue 1 item 7")
     if max_fused is None:
-        max_fused = 512 if engine == "mxu" else ntt_pallas.MAX_FUSED
+        max_fused = {"mxu": 512, "pallas": ntt_pallas.MAX_FUSED}.get(engine, 1 << 13)
     if n <= max_fused:
         return Leaf(n, engine)
     log2n = n.bit_length() - 1
@@ -147,7 +151,7 @@ def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
     """Explicit plan tree from a spec string, top-down: ``engine:m1`` per
     Split level (its row leaf), then a bare engine for the column leaf.
     Validates exactly as ``sventt_tpu.plan.planner.build_plan_spec``."""
-    caps = {"jnp": _JNP_SPEC_CAP, "pallas": ntt_pallas.MAX_FUSED, "mxu": ntt_mxu.MAX_MXU}
+    caps = {"jnp": JNP_SPEC_CAP, "pallas": ntt_pallas.MAX_FUSED, "mxu": ntt_mxu.MAX_MXU}
 
     def leaf(m: int, engine: str) -> Leaf:
         if engine not in caps:
@@ -181,16 +185,6 @@ def build_plan_spec(n: int, spec: str) -> "Leaf | Split":
     return rec(n, parts)
 
 
-def check_ported(node) -> None:
-    """Raise NotImplementedError unless every leaf is an mxu or pallas leaf."""
-    if isinstance(node, Leaf):
-        if node.engine not in PORTED_ENGINES:
-            raise _not_ported(f"engine={node.engine!r} leaves", "Queue 1 item 7")
-        return
-    check_ported(node.row)
-    check_ported(node.col)
-
-
 def _row_engine(node) -> str | None:
     """The engine of a Split's row leaf (None for a Leaf or a row subtree)."""
     if isinstance(node, Split) and isinstance(node.row, Leaf):
@@ -200,6 +194,12 @@ def _row_engine(node) -> str | None:
 
 def _mxu_row(node) -> bool:
     return _row_engine(node) == "mxu"
+
+
+def _jnp_row(node) -> bool:
+    """Split nodes whose row child is a jnp leaf: along axis 1 in chunks,
+    the inter-step multiply with each chunk (``_jnp_mid_chunked``)."""
+    return _row_engine(node) == "jnp"
 
 
 def _lane_row(node) -> bool:
@@ -222,22 +222,23 @@ class PlanTables:
     direction, on one device (None: the CUDA card).
 
     ``leaf[(m, engine)]``: MxuDirection, FusedDirection or (``max_r`` > 1)
-    GroupedDirection; ``lane[m1]``: LaneDirection or GroupedLaneDirection
+    GroupedDirection, or ForwardTables / InverseTables of a jnp leaf;
+    ``lane[m1]``: LaneDirection or GroupedLaneDirection
     of a pallas row leaf, for the unbatched lane-axis step;
     ``split_tw[(m0, m1)]``: the (m0, m1) MontPair of every level, the root's
     included (the JAX package also keeps an mxu root's table transposed, in
     ``split_tw_t``; the port has no such copy).  The pallas knobs
     (``block_b``, ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the
-    pallas tables.
+    pallas tables; ``chunk_elems`` (None: ``JNP_RESIDENT_ELEMS``) bounds a
+    chunk of the jnp leaves and rows.
     """
 
     def __init__(
         self, plan, mod: Modulus, fc: FieldConsts, inverse: bool, *,
         device=None, split_w_only: bool | None = None, block_b: int | None = None,
         spc: int | None = None, rows: int | None = None, max_r: int | None = None,
-        tw_layout: str | None = None,
+        tw_layout: str | None = None, chunk_elems: int | None = None,
     ):
-        check_ported(plan)
         self.plan = plan
         self.mod = mod
         self.fc = fc
@@ -246,6 +247,7 @@ class PlanTables:
         self.split_w_only = split_w_only
         self.knobs = dict(block_b=block_b, spc=spc, max_r=max_r, tw_layout=tw_layout)
         self.rows = rows
+        self.chunk_elems = chunk_elems
         self.leaf: dict = {}
         self.lane: dict = {}
         self.split_tw: dict = {}
@@ -257,13 +259,12 @@ class PlanTables:
         leaf: dict, split_tw: dict, lane: dict | None = None,
     ) -> "PlanTables":
         """Tables assembled from prepared parts (see ``interop``)."""
-        check_ported(plan)
         obj = object.__new__(cls)
         obj.plan, obj.mod, obj.fc, obj.inverse = plan, mod, fc, inverse
         first = next(iter(leaf.values()))
         obj.device = (first.planes if isinstance(first, ntt_mxu.MxuDirection) else first.w).device
         obj.split_w_only = None
-        obj.knobs, obj.rows = {}, None
+        obj.knobs, obj.rows, obj.chunk_elems = {}, None, None
         obj.leaf, obj.split_tw = leaf, split_tw
         obj.lane = lane or {}
         return obj
@@ -277,6 +278,9 @@ class PlanTables:
                 self.leaf[key] = ntt_mxu.make_mxu_tables(
                     self.mod, node.m, inverse=self.inverse, device=self.device
                 )
+            elif node.engine == "jnp":
+                build = inverse_tables if self.inverse else forward_tables
+                self.leaf[key] = build(self.mod, node.m, modmul=self.fc.modmul, device=self.device)
             else:
                 self.leaf[key] = ntt_pallas.make_leaf_tables(
                     self.mod, node.m, inverse=self.inverse, modmul=self.fc.modmul,
@@ -302,9 +306,13 @@ def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torc
     """The row step of a Split on (m0, m1, batch...) data: a row leaf with
     the inter-step twiddle fused into its kernel (prologue forward,
     epilogue inverse) -- lane-axis at the unbatched root, mid-axis when
-    batched -- else the transpose fallback."""
+    batched; a jnp row along axis 1 with the multiply in each chunk -- else
+    the transpose fallback."""
     fc = tables.fc
     tw = tables.split_tw[(node.m0, node.m1)]
+    if _jnp_row(node):
+        return _jnp_mid_chunked(mat, tables.leaf[(node.m1, "jnp")], fc, tw, tables.inverse,
+                                tables.chunk_elems)
     if _lane_row(node) and not batch:
         return ntt_pallas.fused_ntt_lane(mat, tables.lane[node.m1], fc, pre_tw=tw)
     if _mid_row(node, tables):
@@ -334,7 +342,66 @@ def _leaf(x: torch.Tensor, node: Leaf, tables: PlanTables) -> torch.Tensor:
     t = tables.leaf[(node.m, node.engine)]
     if node.engine == "pallas":
         return ntt_pallas.fused_ntt(x, t, tables.fc)
+    if node.engine == "jnp":
+        fn = ntt_inverse if tables.inverse else ntt_forward
+        return _jnp_chunked(x, t, tables.fc, fn, tables.chunk_elems)
     return ntt_mxu.mxu_ntt(x, t, tables.fc)
+
+
+# The jnp engine's chunk loops.  The JAX package unrolls few chunks and runs
+# many under a lax.fori_loop of dynamic slices (``MAX_UNROLLED_CHUNKS``), a
+# bound on its TPU compile time; eager torch has no compile step, so one
+# Python loop writes the chunks into a preallocated output.  The chunk size
+# changes no value: each chunk's columns (rows) are transformed alone.
+
+
+def _jnp_chunked(x: torch.Tensor, t, fc: FieldConsts, fn, chunk_elems: int | None = None):
+    """A leading-axis jnp transform ``fn`` of (m, batch...) data, in chunks
+    of batch columns of at most ``chunk_elems`` elements (None:
+    ``JNP_RESIDENT_ELEMS``); one call when the whole fits, the batch is 1
+    or the chunk does not divide it."""
+    resident = chunk_elems or JNP_RESIDENT_ELEMS
+    m = x.shape[0]
+    b = x[0].numel()
+    chunk_b = max(1, resident // m)
+    if m * b <= resident or b == 1 or b % chunk_b:
+        return fn(x, t, fc)
+    xm = x.reshape(m, b)
+    out = torch.empty_like(xm)
+    for i in range(0, b, chunk_b):
+        out[:, i:i + chunk_b] = fn(xm[:, i:i + chunk_b], t, fc)
+    return out.reshape(x.shape)
+
+
+def _jnp_mid_chunked(
+    x: torch.Tensor, t, fc: FieldConsts, tw: MontPair | None, inverse: bool,
+    chunk_elems: int | None = None,
+) -> torch.Tensor:
+    """The six-step row step on (m0, m1, batch...) without transposes: the
+    axis-1 jnp transform in chunks of rows of at most ``chunk_elems``
+    elements, each chunk's inter-step multiply (``inter_step``) with it --
+    forward before the row NTT, inverse after.  ``tw=None`` runs the bare
+    axis-1 transform (the distributed schedule applies its twiddles under
+    another sharding)."""
+    m0, m1 = x.shape[0], x.shape[1]
+    b = x[0, 0].numel()
+    fn = ntt_inverse_mid if inverse else ntt_forward_mid
+
+    def run(v: torch.Tensor, w: MontPair | None) -> torch.Tensor:
+        if w is None:
+            return fn(v, t, fc)
+        if not inverse:
+            return fn(inter_step.mont_mul_bcast(fc, v, w), t, fc)
+        return inter_step.mont_mul_bcast(fc, fn(v, t, fc), w)
+
+    chunk_a = max(1, (chunk_elems or JNP_RESIDENT_ELEMS) // (m1 * b))
+    if chunk_a >= m0 or m0 % chunk_a:
+        return run(x, tw)
+    out = torch.empty_like(x)
+    for i in range(0, m0, chunk_a):
+        sl = slice(i, i + chunk_a)
+        out[sl] = run(x[sl], None if tw is None else montpair_map(lambda a: a[sl], tw))
+    return out
 
 
 def run_forward(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:

@@ -15,9 +15,14 @@ Data is an int64 tensor of u64 bit patterns, shape ``(n,)`` or
 CUDA card (``RuntimeError`` where there is none); ``device="cpu"`` runs
 every kernel's plain PyTorch version.
 
+``forward_step`` / ``inverse_step`` return the planner's program and its
+tables, as the JAX package's do for its chained timing: here the step is
+what a ``torch.cuda.CUDAGraph`` captures (it synchronizes nothing and
+builds no table).
+
 Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
 engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
-engine off the TPU, which is not ported yet.
+engine off the TPU; here ``engine="jnp"`` asks for it.
 """
 
 from __future__ import annotations
@@ -45,13 +50,7 @@ def _resolve_modmul(config: NttConfig) -> str:
 
 def _resolve_engine(engine: str) -> str:
     """'auto' -> 'mxu' on every device (see the module docstring)."""
-    if engine == "auto":
-        return "mxu"
-    if engine not in planner.PORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP Queue 1 item 7)"
-        )
-    return engine
+    return "mxu" if engine == "auto" else engine
 
 
 class NTT:
@@ -67,7 +66,8 @@ class NTT:
     ):
         if config.tune:
             raise NotImplementedError(
-                "tune=True is not ported yet (ROADMAP Queue 1 item 10)"
+                "tune=True is not ported yet (ROADMAP Queue 1: the autotuner, "
+                "plan/autotune.py, and its cache, utils/cache.py)"
             )
         self.config = config
         self.device = resolve_device(device)
@@ -77,10 +77,12 @@ class NTT:
         )
         self.engine = _resolve_engine(config.engine)
         self.plan = self._build_plan()
+        # NttConfig.transpose allows only "auto" and "xla", the torch copy
+        # the planner's fallback runs either way: no table takes it
         tables = dict(
             device=self.device, split_w_only=config.split_w_only,
             block_b=config.block_b, spc=config.stages_per_call, rows=config.lane_rows,
-            max_r=config.max_r, tw_layout=config.tw_layout,
+            max_r=config.max_r, tw_layout=config.tw_layout, chunk_elems=config.chunk_elems,
         )
         self._fwd_tables = self._inv_tables = None
         if enable_forward:
@@ -118,8 +120,8 @@ class NTT:
         Split's row step takes.  ``batched`` describes the schedule for
         inputs with trailing batch dims.
 
-        The leaf and pallas lines are the JAX package's wording, its quirk
-        included: a batched pallas row with grouped tables (``max_r`` > 1)
+        The leaf, pallas and jnp lines are the JAX package's wording, its
+        quirk included: a batched pallas row with grouped tables (``max_r`` > 1)
         reads "mid-axis pallas ... (no transposes)" although it runs the
         transpose fallback, as in the JAX package.  The mxu lines are the
         port's own, on purpose: the JAX ``describe`` has no mxu branch and
@@ -146,6 +148,9 @@ class NTT:
                     row = f"mid-axis mxu m1={node.m1} (fused twiddle, no transposes)"
                 else:
                     row = f"lane-axis mxu m1={node.m1} (fused twiddle, no transposes)"
+            elif planner._jnp_row(node):
+                row = (f"mid-axis jnp m1={node.m1} "
+                       "(chunked VMEM-resident, fused twiddle, no transposes)")
             else:
                 row = f"transposed row subtree m1={node.m1}"
             lines.append(f"{pad}split {node.m} = {node.m0} x {node.m1}: {row}")
@@ -155,6 +160,23 @@ class NTT:
 
         walk(self.plan, 0, batched)
         return "\n".join(lines)
+
+    def forward_step(self):
+        """(step, tables): ``step(x, *tables)`` is ``compute_forward(x)``
+        without the input checks -- the same planner program on prepared
+        tables, which does no host synchronization and builds nothing, so
+        a ``torch.cuda.CUDAGraph`` can capture it."""
+        if self._fwd_tables is None:
+            raise RuntimeError("forward transform was not enabled")
+        plan = self.plan
+        return (lambda v, t: planner.run_forward(v, plan, t)), (self._fwd_tables,)
+
+    def inverse_step(self):
+        """Mirror of ``forward_step`` for the inverse transform."""
+        if self._inv_tables is None:
+            raise RuntimeError("inverse transform was not enabled")
+        plan = self.plan
+        return (lambda v, t: planner.run_inverse(v, plan, t)), (self._inv_tables,)
 
     def compute_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fwd_tables is None:

@@ -144,20 +144,32 @@ def test_describe_against_jax(engine, batched):
 
 
 @pytest.mark.parametrize(
+    "kw", [dict(tune=True)], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items())
+)
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
+
+
+@pytest.mark.parametrize(
     "kw",
     [
         dict(engine="jnp"),
-        dict(tune=True),
-        # six_step is ported; its local plans on the unported jnp engine are not
         pytest.param(dict(strategy="six_step", engine="jnp"), id="strategy=six_step"),
         dict(plan_spec="pallas:64,jnp"),
         dict(plan_spec="jnp:64,mxu"),
     ],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
 )
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
+def test_jnp_options_run(rng, kw):
+    """The jnp options that raised while the portable engine was unported
+    now build and run: equal to the native oracle, exact roundtrip."""
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw)
+    ntt = NTT(cfg, device="cpu")
+    x = rng.integers(0, cfg.modulus, cfg.n, dtype=np.uint64)
+    fwd = ntt.forward_numpy(x)
+    np.testing.assert_array_equal(fwd, native.golden_forward(x, cfg.modulus, cfg.generator))
+    np.testing.assert_array_equal(ntt.inverse_numpy(fwd), x)
 
 
 @pytest.mark.parametrize(
@@ -250,8 +262,9 @@ def _path_strings(path: pathlib.Path) -> list[str]:
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, imports jax or sventt_tpu;
-    no module of the port names a path into sventt_tpu/, and the oracle
-    source it compiles lies in the port."""
+    no module of the port names a path into sventt_tpu/, and the native
+    sources it compiles (the oracle and the q-series generators) lie in
+    the port."""
     files = sorted((REPO / "sventt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
@@ -263,5 +276,7 @@ def test_port_imports_no_jax():
         for text in _path_strings(path):
             assert not into_jax_pkg.search(text), f"{path}: path into sventt_tpu/: {text!r}"
     port = (REPO / "sventt_tpu_torch").resolve()
-    source = pathlib.Path(native.SOURCE).resolve()
-    assert source.is_relative_to(port) and source.exists(), native.SOURCE
+    assert native.SOURCE in native.SOURCES and native.SERIES_SOURCE in native.SOURCES
+    for src in native.SOURCES:
+        source = pathlib.Path(src).resolve()
+        assert source.is_relative_to(port) and source.exists(), src
