@@ -104,7 +104,22 @@ Phases, each printing its own lines:
    captured in a CUDA graph and replayed bitwise against the compute
    calls, and ``DistributedNTT``'s step helpers against its compute
    calls; with the seconds of each item and the replay, eager and jnp
-   times;
+   times.
+   Then the autotuner: the full race (``plan.autotune.tune``: jnp, pallas
+   and mxu, modmul, each engine's knobs, the playoff, the winner checked
+   elementwise against the untuned config) of the flagship transform at
+   2^17 and 2^24 into a temporary cache, failing if any candidate failed;
+   a second ``tune`` must hit the cache without searching; the winner
+   timed beside the untuned mxu config in turns by the same timer (CUDA-
+   graph replays), with each race's seconds and peak allocation; and
+   ``NTT(tune=True)`` at 2^24 from the shipped cache against the oracle.
+   ``donate_input``: the mxu forward at 2^26 (against the oracle) and 2^28
+   (donated bitwise against kept) with and without it, the peak
+   allocation of each (the saving must be one n-word buffer within 5%).
+   ``phase_breakdown`` of the 2^24 mxu and pallas plans, and ``trace``
+   writing its Chrome trace.  The partial collective axis: the (2, 4)
+   ("dcn", "ici") logical mesh with ``axis="ici"`` at 2^24, comm "xla" and
+   "overlap", every replica group's output against the oracle;
 5. times: CUDA-event medians of the transforms and of each kernel alone
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
@@ -1064,7 +1079,6 @@ def slice_run(device, configs, oracles: dict):
     Returns the NTTs and the launch and plain-call counts of the run."""
     import numpy as np
 
-    from sventt_tpu_torch import native
     from sventt_tpu_torch.field.limb import from_numpy, to_numpy
     from sventt_tpu_torch.plan import NTT, NttConfig
     from sventt_tpu_torch.utils.fill import host_fill
@@ -1094,9 +1108,7 @@ def slice_run(device, configs, oracles: dict):
         back_h = to_numpy(ntt.normalize(back))
         del fwd, inv, back, xd
         t0 = time.perf_counter()
-        if (N, n) not in oracles:
-            oracles[(N, n)] = (native.golden_forward(x, N, g), native.golden_inverse(x, N, g))
-        want_f, want_i = oracles[(N, n)]
+        want_f, want_i = oracle(oracles, N, g, n)
         osecs = time.perf_counter() - t0
         bad_f = int(np.count_nonzero(fwd_h != want_f))
         bad_i = int(np.count_nonzero(inv_h != want_i))
@@ -1250,11 +1262,12 @@ def logical_mesh(device, D: int, shape=None):
 
 
 def dist_run(device, paths, oracles: dict):
-    """Each (label, modulus, generator, n, config keywords, mesh, comm)
-    distributed path: forward and inverse of the ``host_fill`` input
-    against the native oracle (``oracles`` per (modulus, n)), and an exact
-    roundtrip, with the launch counts set to 0 before and read after.
-    Returns the counts per label."""
+    """Each (label, modulus, generator, n, config keywords, mesh, comm[,
+    axis]) distributed path (axis: every mesh axis by default): forward and
+    inverse of the ``host_fill`` input against the native oracle
+    (``oracles`` per (modulus, n)), every replica group's output where the
+    axis leaves mesh axes out, and an exact roundtrip, with the launch
+    counts set to 0 before and read after.  Returns the counts per label."""
     import numpy as np
     import torch
 
@@ -1264,11 +1277,12 @@ def dist_run(device, paths, oracles: dict):
     from sventt_tpu_torch.utils.fill import host_fill
 
     out = {}
-    for label, N, g, n, kw, mesh, comm in paths:
+    for label, N, g, n, kw, mesh, comm, *axis in paths:
         t0 = time.perf_counter()
         axes = mesh.axis_names
+        axis = axis[0] if axis else axes[0] if len(axes) == 1 else axes
         dntt = DistributedNTT(NttConfig(N, g, n, strategy="six_step", **kw), mesh,
-                              axis=axes[0] if len(axes) == 1 else axes, comm=comm)
+                              axis=axis, comm=comm)
         sync(device)
         build = time.perf_counter() - t0
         x = host_fill(n, N)
@@ -1281,12 +1295,15 @@ def dist_run(device, paths, oracles: dict):
         sync(device)
         secs = time.perf_counter() - t0
         c = counts()
-        got = [to_numpy(torch.cat(dntt.normalize(v))) for v in (fwd, inv, back)]
-        del fwd, inv, back, shards
+        D, R = dntt.D, len(dntt.replicas)
         want_f, want_i = oracles[(N, n)]
-        bad = [int(np.count_nonzero(a != b)) for a, b in zip(got, (want_f, want_i, x))]
-        log(f"  {label}: D={dntt.D} comm={comm} {dntt.fc.modmul} on {len(set(dntt.devices))} "
-            f"card(s); forward {bad[0]} / inverse {bad[1]} elements differ from the oracle, "
+        bad = [sum(int(np.count_nonzero(to_numpy(torch.cat(dntt.normalize(v[r * D:(r + 1) * D])))
+                                        != want)) for r in range(R))
+               for v, want in ((fwd, want_f), (inv, want_i), (back, x))]
+        del fwd, inv, back, shards
+        log(f"  {label}: D={D} x {R} replica group(s), comm={comm} {dntt.fc.modmul} on "
+            f"{len(set(dntt.devices))} card(s); forward {bad[0]} / inverse {bad[1]} elements "
+            "differ from the oracle (all groups), "
             f"roundtrip {bad[2]} differ (tables {build:.2f} s; 3 transforms {secs * 1e3:.1f} ms "
             "incl. first-call set-up)")
         log(f"    launches {c['launches']}, plain calls {c['plain']}")
@@ -1596,6 +1613,184 @@ def step_helpers(device, ntt_mxu17, dist_cfg, mesh, smi: str) -> dict:
         f"forward_step == compute_forward {ok_f}, inverse_step == compute_inverse {ok_i}")
     check(ok_f and ok_i, "DistributedNTT's step helpers != its compute calls")
     return ms
+
+
+# ---------------------------------------------------------------------------
+# the autotuner, donation, profiling and the partial collective axis
+# ---------------------------------------------------------------------------
+
+
+def oracle(oracles: dict, N: int, g: int, n: int):
+    """The native oracle's (forward, inverse) of ``host_fill(n, N)``, cached
+    in ``oracles`` per (modulus, n)."""
+    from sventt_tpu_torch import native
+    from sventt_tpu_torch.utils.fill import host_fill
+
+    if (N, n) not in oracles:
+        x = host_fill(n, N)
+        oracles[(N, n)] = (native.golden_forward(x, N, g), native.golden_inverse(x, N, g))
+    return oracles[(N, n)]
+
+
+def autotune_phase(device, smi: str, oracles: dict) -> dict:
+    """The full race (``plan.autotune.tune``, the three engines, the
+    playoff, the winner's elementwise check) of the flagship transform at
+    2^17 and 2^24 into a temporary cache: no candidate may fail, a second
+    ``tune`` must hit the cache without searching, and the winner is timed
+    beside the untuned config (``engine="auto"``: mxu) in turns (untuned,
+    winner, winner, untuned) by the same timer.  Then ``NTT(tune=True)`` at
+    2^24 from the shipped cache (the race's cache where the shipped one has
+    no entry for this card) against the native oracle.  Returns the ms."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from sventt_tpu_torch.plan import NttConfig, autotune
+
+    flag, _ = moduli()
+    F, G = flag.modulus, flag.generator
+    ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / "autotune_cache.json"
+        for log2n in (17, 24):
+            cfg = NttConfig(F, G, 1 << log2n)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            best = autotune.tune(cfg, device=device, cache_path=cache)
+            secs = time.perf_counter() - t0
+            entry = autotune._load_cache(cache)[autotune.cache_key(cfg, device)]
+            failed = [k for k, v in entry["timings"].items() if v is None]
+            log(f"  2^{log2n}: {len(entry['timings'])} timings, winner {autotune._tag(best)} "
+                f"at {entry['best_ms']} ms (verified elementwise against the untuned config); "
+                f"race {secs:.1f} s; peak {torch.cuda.max_memory_allocated()} bytes ({smi})")
+            log("    " + "; ".join(f"{k} {v}" for k, v in entry["timings"].items()))
+            check(not failed, f"2^{log2n}: candidates failed: {failed}")
+            search = autotune.search
+
+            def boom(*a, **k):
+                raise AssertionError("search ran on a cache hit")
+
+            autotune.search = boom
+            try:
+                again = autotune.tune(cfg, device=device, cache_path=cache)
+            finally:
+                autotune.search = search
+            check(again == best, f"2^{log2n}: the cache hit returned another config")
+            turns = []
+            for c in (cfg, best, best, cfg):
+                turns.append(autotune._time_candidate(c, autotune.CHAIN_SECONDS, device=device))
+            untuned, won = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            ms[f"2^{log2n} untuned (mxu)"], ms[f"2^{log2n} tuned"] = untuned, won
+            log(f"    in turns untuned, winner, winner, untuned: "
+                + ", ".join(f"{t:.4f}" for t in turns)
+                + f" ms: the winner {untuned / won:.2f}x the untuned mxu config ({smi})")
+        shipped = autotune._load_cache(autotune._DEFAULT_CACHE)
+        key = autotune.cache_key(NttConfig(F, G, 1 << 24), device)
+        where = "the shipped cache"
+        env = os.environ.get(autotune.CACHE_ENV)
+        if key not in shipped:
+            where = "the race's cache (the shipped one has no entry for this card)"
+            os.environ[autotune.CACHE_ENV] = str(cache)
+        try:
+            log(f"  NTT(tune=True) 2^24 from {where}:")
+            ntts, c = slice_run(device, [("tuned 2^24", F, G, 1 << 24, dict(tune=True))], oracles)
+        finally:
+            if env is None:
+                os.environ.pop(autotune.CACHE_ENV, None)
+            else:
+                os.environ[autotune.CACHE_ENV] = env
+        log(f"    {autotune._tag(ntts['tuned 2^24'].config)}; launches {c['launches']}, "
+            f"plain calls {c['plain']}")
+        check(no_plain(c), "the tuned NTT ran a plain version")
+    torch.cuda.empty_cache()
+    return ms
+
+
+def donate_phase(device, smi: str, oracles: dict) -> None:
+    """The flagship mxu forward with and without ``donate_input`` at 2^26
+    (both against the native oracle) and 2^28 (donated bitwise against the
+    kept-input output): the call's peak allocation above the tables (the
+    input included), by ``max_memory_allocated``, and the time of one
+    forward of a fresh copy of the input by CUDA events."""
+    import torch
+
+    from sventt_tpu_torch.field.limb import to_numpy
+    from sventt_tpu_torch.plan import NTT, NttConfig
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    flag, _ = moduli()
+    F, G = flag.modulus, flag.generator
+    for log2n in (26, 28):
+        n = 1 << log2n
+        outs, peaks, times_ms = {}, {}, {}
+        for donate in (False, True):
+            torch.cuda.empty_cache()
+            ntt = NTT(NttConfig(F, G, n), enable_inverse=False, donate_input=donate, device=device)
+            sync(device)
+            before = torch.cuda.memory_allocated()
+            x = device_fill(n, F, device)
+            sync(device)
+            torch.cuda.reset_peak_memory_stats()
+            y = ntt.compute_forward(x)
+            sync(device)
+            peaks[donate] = torch.cuda.max_memory_allocated() - before
+            check(x.untyped_storage().nbytes() == (0 if donate else 8 * n),
+                  f"2^{log2n}: the input was {'kept' if donate else 'released'}")
+            del x
+            outs[donate] = ntt.normalize(y) if log2n == 28 else to_numpy(ntt.normalize(y))
+            del y
+            src = device_fill(n, F, device)
+            times_ms[donate] = timed(lambda: ntt.compute_forward(src.clone()), 1, 5)
+            del src, ntt
+        saving = peaks[False] - peaks[True]
+        if log2n == 26:
+            want = oracle(oracles, F, G, n)[0]
+            ok = all(bool((outs[d] == want).all()) for d in outs)
+            what = "both equal the native oracle"
+        else:
+            ok = torch.equal(outs[False], outs[True])
+            what = "donated == kept, bitwise"
+        log(f"  mxu 2^{log2n} forward: {what}: {ok}; peak above the tables kept "
+            f"{peaks[False]} / donated {peaks[True]} bytes: saving {saving} bytes = "
+            f"{saving / (8 * n):.4f} n-word buffers; forward of a copy kept {times_ms[False]:.4f} / "
+            f"donated {times_ms[True]:.4f} ms ({smi})")
+        check(ok, f"2^{log2n}: the donated forward differs")
+        check(abs(saving - 8 * n) <= 0.05 * 8 * n,
+              f"2^{log2n}: donation saved {saving} bytes, not one n-word buffer")
+        del outs
+    torch.cuda.empty_cache()
+
+
+def profiling_phase(device, smi: str, ntts: dict) -> None:
+    """``phase_breakdown`` of the 2^24 mxu and pallas plans (CUDA-graph
+    replays at the plan's shapes), and ``trace`` writing its Chrome trace."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from sventt_tpu_torch.utils import device_fill, phase_breakdown, trace
+
+    for label in ("mxu 2^24", "pallas 2^24"):
+        bd = phase_breakdown(ntts[label], seconds=0.05)
+        log(f"  {label}: " + "; ".join(f"{k} {v:.4f}" for k, v in bd.items())
+            + f" ms ({smi})")
+        check(all(v > 0 for v in bd.values()) and "total" in bd, f"{label}: empty breakdown")
+    ntt = ntts["mxu 2^24"]
+    x = device_fill(ntt.get_m(), ntt.mod.modulus, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            ntt.compute_forward(x)
+            torch.cuda.synchronize()
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        cuda_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        log(f"  trace: {[f.name for f in files]}, {sum(f.stat().st_size for f in files)} bytes; "
+            f"device time in it {cuda_us / 1e3:.4f} ms")
+        check(len(files) == 1 and files[0].stat().st_size > 0, "trace wrote no file")
 
 
 # ---------------------------------------------------------------------------
@@ -2441,6 +2636,25 @@ def main() -> int:
     log("  ms by CUDA events (median): "
         + "; ".join(f"{k} {v:.4f}" for k, v in step_ms.items()))
     log(f"  the phase took {time.perf_counter() - t_apps:.1f} s")
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    log("[autotune] the full race of the flagship transform at 2^17 and 2^24 (three engines, "
+        "the playoff, the winner verified elementwise), the cache hit, the winner beside the "
+        "untuned mxu config; NTT(tune=True) from the shipped cache vs the native oracle")
+    tune_ms = autotune_phase(device, smi, oracles)
+    log("[donate] the mxu forward with and without donate_input at 2^26 and 2^28: outputs and "
+        "peak allocations")
+    donate_phase(device, smi, oracles)
+    log("[profiling] phase_breakdown of the 2^24 mxu and pallas plans; trace")
+    profiling_phase(device, smi, {**ntts_mxu, **ntts_pal})
+    log("[distributed partial axis] the (2, 4) ('dcn', 'ici') logical mesh, axis 'ici' (the "
+        "vector replicated over 'dcn'), 2^24, comm xla and overlap, vs the native oracle")
+    m24 = logical_mesh(device, 8, (2, 4))
+    dist_run(device, [(f"mxu 2^24 (2, 4) axis ici {comm}", F, G, 1 << 24, {}, m24, comm, "ici")
+                      for comm in ("xla", "overlap")], oracles)
+    log(f"  the phases [autotune] to [distributed partial axis] took "
+        f"{time.perf_counter() - t_new:.1f} s; autotune ms: "
+        + "; ".join(f"{k} {v:.4f}" for k, v in tune_ms.items()))
     del oracles
     torch.cuda.empty_cache()
 

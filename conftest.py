@@ -43,7 +43,7 @@ FILE_SECONDS = {
     "tests/test_apps.py": 487.6,
     "tests/test_torch_ntt_jnp.py": 333.9,
     "tests/test_torch_ntt_radix2_regs.py": 295.4,
-    "tests/test_torch_parallel.py": 261.1,
+    "tests/test_torch_parallel.py": 222.7,
     "tests/test_wrapper.py": 236.4,
     "tests/test_ntt_mid.py": 205.2,
     "tests/test_torch_ntt_pallas.py": 182.5,
@@ -67,13 +67,15 @@ FILE_SECONDS = {
     "tests/test_torch_solinas_kernels.py": 78.0,
     "tests/test_utils.py": 71.3,
     "tests/test_torch_ntt_mxu.py": 68.0,
-    "tests/test_torch_ntt.py": 63.6,
+    "tests/test_torch_ntt.py": 83.5,
     "tests/test_torch_ntt_mxu_tc.py": 58.5,
     "tests/test_budget.py": 51.5,
     "tests/test_torch_ring.py": 26.3,
     "tests/test_limb.py": 21.1,
     "tests/test_torch_ntt_mxu_tc_u7.py": 19.1,
-    "tests/test_torch_budget.py": 15.0,
+    "tests/test_torch_budget.py": 14.0,
+    "tests/test_torch_autotune.py": 29.9,
+    "tests/test_torch_utils.py": 7.4,
     "tests/test_torch_solinas.py": 13.0,
     "tests/test_torch_twiddle.py": 11.0,
     "tests/test_native_series.py": 6.9,

@@ -249,4 +249,4 @@ def distributed_tables_from_numpy(
     for dev in dict.fromkeys(devices):
         col[dev] = tables_from_numpy(col_plan, mod, fc, inverse, arrays["col"], dev)
         row[dev] = tables_from_numpy(row_plan, mod, fc, inverse, arrays["row"], dev)
-    return DirectionTables(tw, col, row)
+    return DirectionTables(tw, col, row, tuple(devices))

@@ -14,8 +14,11 @@ tables (``device="cpu"``) have no such copy.
 
 The data terms follow the JAX rule where the port holds the same buffers:
 the input shard (``coefficients``), and the all-to-all's fresh output
-beside a second buffer (``transient``): the port never donates, so it is
-always two shards.  The eager port also holds, while one shard's local
+beside a second buffer (``transient``): two shards, or one with
+``donate_input=True``, the JAX rule (``sventt_tpu/parallel/budget.py:123``).
+For ``DistributedNTT`` donation means that the caller hands its list of
+shards over and keeps no reference to them: the schedule already drops
+each step's input as soon as its output exists.  The eager port also holds, while one shard's local
 transform runs, the intermediates of its kernel chain that XLA would fuse
 away: a transposed copy and the outputs of two kernels beside that
 shard's input and output, two shards' worth (``step_scratch``, the port's
@@ -123,7 +126,7 @@ class MemoryBudget:
     n: int
     devices: int
     coefficients: int  # input/output shard
-    transient: int  # the non-donated input beside the all-to-all's output
+    transient: int  # the all-to-all's output beside the non-donated input
     inter_step_twiddles: int  # sharded (n0, n1) matrix, per direction
     leaf_tables: int  # replicated, per direction
     directions: int
@@ -150,14 +153,15 @@ def distributed_memory_budget(
     *,
     enable_forward: bool = True,
     enable_inverse: bool = True,
+    donate_input: bool = False,
     device: str = "cuda",
 ) -> MemoryBudget:
     """Per-device budget of ``DistributedNTT(config, mesh)`` over
-    ``devices`` shards, without constructing anything.  ``device``: the
-    type of device the tables will live on, "cuda" (the port's default)
-    or "cpu"; nothing is built, so no card is needed.  No
-    ``donate_input``: the JAX package's donation is its single-device
-    ``NTT``'s, which the port does not have."""
+    ``devices`` shards, without constructing anything.  ``donate_input``:
+    the caller keeps no reference to its input shards (one shard of
+    ``transient``, not two).  ``device``: the type of device the tables
+    will live on, "cuda" (the port's default) or "cpu"; nothing is built,
+    so no card is needed."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     n0, n1 = config.split
@@ -181,7 +185,7 @@ def distributed_memory_budget(
         n=n,
         devices=devices,
         coefficients=shard,
-        transient=2 * shard,
+        transient=shard if donate_input else 2 * shard,
         inter_step_twiddles=tw,
         leaf_tables=leaf,
         directions=directions,
@@ -191,8 +195,9 @@ def distributed_memory_budget(
 
 def validate_2p30(devices: int = 8) -> MemoryBudget:
     """The row-sharded 2^30 flagship transform over ``devices`` devices must
-    fit one device's memory, one direction at a time (the caller's input
-    kept: the port does not donate).  Returns the budget."""
+    fit one device's memory, one direction at a time, with the caller's
+    input kept: unlike the JAX rule's, no donated distributed peak has been
+    measured on the card.  Returns the budget."""
     from ..field.modulus import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS
 
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 30, strategy="six_step")

@@ -66,6 +66,32 @@ class Mesh:
         return tuple(self.devices[i] for i in order)
 
 
+    def replica_groups(self, axes: tuple[str, ...]) -> tuple[tuple[torch.device, ...], ...]:
+        """The devices along the collective axis ``axes`` (row-major over
+        ``axes`` as given), once per combination of the other axes'
+        indices (row-major in the mesh's order): the groups among which a
+        vector sharded over ``axes`` is replicated, as ``P(axes)`` lays it
+        out in ``shard_map``.  One group when ``axes`` names every axis."""
+        if len(set(axes)) != len(axes) or not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} are not distinct axes of {self.axis_names}")
+        strides, step = {}, 1
+        for name, size in reversed(tuple(zip(self.axis_names, self.axis_sizes))):
+            strides[name] = step
+            step *= size
+
+        def offsets(names) -> list[int]:
+            out = [0]
+            for name in names:
+                out = [i + j * strides[name] for i in out for j in range(self.shape[name])]
+            return out
+
+        rest = [a for a in self.axis_names if a not in axes]
+        along = offsets(axes)
+        return tuple(
+            tuple(self.devices[base + i] for i in along) for base in offsets(rest)
+        )
+
+
 def _devices(devices, count: int | None) -> tuple[torch.device, ...]:
     if devices is not None:
         devices = [torch.device(d) for d in devices]

@@ -36,14 +36,19 @@ the torch copy with the column step and [comm 2] chunked
 stream of each card while chunk c+1's column NTTs run, joined by events.
 All three give the same bits.
 
+A collective ``axis`` that leaves mesh axes out runs the schedule within
+each group of devices along it (``Mesh.replica_groups``), the vector
+replicated over the other axes, as ``P(axis)`` lays it out in JAX's
+``shard_map``: the list then holds R x D shards, group r's D shards at
+[r*D, (r+1)*D), every group holding the whole vector.
+
 Divergences from the JAX package: ``engine="auto"`` is the matrix engine
 ("mxu", see ``plan.wrapper``), and the config's pallas knobs (``max_r``,
 ``block_b``, ``stages_per_call``, ``lane_rows``, ``tw_layout``) reach the
 local plans, which the JAX package builds with its defaults (residues
-agree mod N either way).  A collective axis that leaves mesh axes out
-(shards replicated over them) is not ported.  ``forward_step`` /
-``inverse_step`` return the schedule and its tables, as in the JAX
-package.
+agree mod N either way).  As in the JAX package, ``tune`` is not read.
+``forward_step`` / ``inverse_step`` return the schedule and its tables, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,13 +73,21 @@ from .ring import copy_all_to_all, ring_all_to_all
 
 @dataclass
 class DirectionTables:
-    """One direction's tables: ``tw[d]``, shard d's (n0, n1/D) columns of
-    the inter-step twiddle matrix on mesh device d; ``col`` / ``row``, the
-    local plans' tables per distinct mesh device."""
+    """One direction's tables: ``tw[i]``, shard i's (n0, n1/D) columns of
+    the inter-step twiddle matrix on its device ``devices[i]``; ``col`` /
+    ``row``, the local plans' tables per distinct mesh device."""
 
     tw: list[MontPair]
     col: dict[torch.device, PlanTables]
     row: dict[torch.device, PlanTables]
+    devices: tuple[torch.device, ...]
+
+    def group(self, r: int, D: int) -> "DirectionTables":
+        """The tables of replica group r's D shards."""
+        if len(self.tw) == D:
+            return self
+        sl = slice(r * D, (r + 1) * D)
+        return DirectionTables(self.tw[sl], self.col, self.row, self.devices[sl])
 
 
 def shard_columns(tw: MontPair, devices) -> list[MontPair]:
@@ -101,9 +114,12 @@ class DistributedNTT:
     representatives (``normalize``).  Requires ``n0 % D == 0`` and
     ``n1 % D == 0``.  ``axis`` may be a tuple of mesh axis names (a
     hierarchical ``("dcn", "ici")`` mesh): the shard dimension is their
-    combined axis, row-major.  ``comm="ring"`` needs a 1-D mesh whose axis
-    is the collective axis; ``overlap_chunks`` is reduced until it divides
-    n1/D.
+    combined axis, row-major.  An ``axis`` that leaves mesh axes out gives
+    R replica groups (see the module docstring): D is the size of the
+    collective axis, and the lists hold R x D shards.  ``comm="ring"``
+    needs a 1-D mesh whose axis is the collective axis; ``overlap_chunks``
+    is reduced until it divides n1/D.  ``config.tune`` is not read, as in
+    the JAX package: the local plans take the config's knobs as given.
     """
 
     def __init__(
@@ -136,25 +152,16 @@ class DistributedNTT:
                 f"collective axis (mesh {mesh.axis_names}, axes {axes}); "
                 "hierarchical meshes use comm='xla'"
             )
-        if sorted(axes) != sorted(mesh.axis_names):
-            raise NotImplementedError(
-                f"axes {axes} leave mesh axes of {mesh.axis_names} out; shards "
-                "replicated over them are not ported yet (ROADMAP Queue 1, the "
-                "distributed leftovers: a partial collective axis in parallel/sixstep.py)"
-            )
-        if config.tune:
-            raise NotImplementedError(
-                "tune=True is not ported yet (ROADMAP Queue 1: the autotuner, "
-                "plan/autotune.py, and its cache, utils/cache.py)"
-            )
         self.config = config
         self.mesh = mesh
         self.axes = axes
         self.comm = comm
         self.D = D
         self.n0, self.n1 = n0, n1
-        #: shard d's device: the mesh devices along the combined axis
-        self.devices = mesh.devices_along(axes)
+        #: each replica group's devices along the collective axis
+        self.replicas = mesh.replica_groups(axes)
+        #: shard i's device: group i // D's device i % D
+        self.devices = tuple(dev for group in self.replicas for dev in group)
         self.mod = config.mod  # API parity with NTT: apps duck-type over both
         self.fc = FieldConsts.from_modulus(
             self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
@@ -180,28 +187,36 @@ class DistributedNTT:
         for dev in dict.fromkeys(self.devices):
             col[dev] = PlanTables(self._col_plan, self.mod, self.fc, inverse, device=dev, **knobs)
             row[dev] = PlanTables(self._row_plan, self.mod, self.fc, inverse, device=dev, **knobs)
-        return DirectionTables(self._shard_twiddles(inverse), col, row)
+        return DirectionTables(self._shard_twiddles(inverse), col, row, self.devices)
 
     def _shard_twiddles(self, inverse: bool) -> list[MontPair]:
         """Each shard's (n0, n1/D) block of the inter-step matrix on its
-        device.  Above DEVICE_TWIDDLE_THRESHOLD each block is generated on
+        device, one block per (column block, device) pair that the shards
+        name.  Above DEVICE_TWIDDLE_THRESHOLD each block is generated on
         its device alone, so no device ever holds the whole matrix (at
         2^28 the whole matrix and its blocks would be 4 GiB at once)."""
-        n0, n1 = self.n0, self.n1
+        n0, n1, D = self.n0, self.n1, self.D
         w_only = self.config.split_w_only
+        cut = None
         if n0 * n1 <= planner.DEVICE_TWIDDLE_THRESHOLD:
             full = row_twiddles(self.mod, n0, n1, inverse=inverse, w_only=w_only, device="cpu")
-            return shard_columns(full, self.devices)
-        if w_only is None:
+            cut = shard_columns(full, ["cpu"] * D)
+        elif w_only is None:
             w_only = n0 * n1 >= planner.W_ONLY_THRESHOLD
-        w = n1 // self.D
-        return [
-            sixstep_row_twiddles_device(
-                self.mod, n0, n1, inverse=inverse, with_companion=not w_only,
-                columns=(d * w, w), device=dev,
-            )
-            for d, dev in enumerate(self.devices)
-        ]
+        w = n1 // D
+        blocks: dict[tuple[int, torch.device], MontPair] = {}
+        for i, dev in enumerate(self.devices):
+            d = i % D
+            if (d, dev) in blocks:
+                continue
+            if cut is not None:
+                blocks[(d, dev)] = montpair_map(lambda a, dev=dev: a.to(dev), cut[d])
+            else:
+                blocks[(d, dev)] = sixstep_row_twiddles_device(
+                    self.mod, n0, n1, inverse=inverse, with_companion=not w_only,
+                    columns=(d * w, w), device=dev,
+                )
+        return [blocks[(i % D, dev)] for i, dev in enumerate(self.devices)]
 
     # -- public API ---------------------------------------------------------
 
@@ -210,17 +225,20 @@ class DistributedNTT:
 
     def shard(self, x) -> list[torch.Tensor]:
         """A flat (n,) vector (int64 tensor or numpy uint64) as the D
-        row-sharded blocks on their devices (new memory)."""
+        row-sharded blocks on their devices, once per replica group (new
+        memory)."""
         if isinstance(x, np.ndarray):
             x = from_numpy(x, "cpu")
         if x.shape != (self.config.n,):
             raise ValueError(f"expected shape ({self.config.n},), got {tuple(x.shape)}")
-        k = self.config.n // self.D
-        return [x[d * k:(d + 1) * k].to(dev, copy=True) for d, dev in enumerate(self.devices)]
+        D, k = self.D, self.config.n // self.D
+        return [x[i % D * k:(i % D + 1) * k].to(dev, copy=True)
+                for i, dev in enumerate(self.devices)]
 
     def gather(self, shards) -> torch.Tensor:
-        """The flat vector of ``shards``, on the host."""
-        return torch.cat([s.cpu() for s in shards])
+        """The flat vector of ``shards`` (the first replica group's), on the
+        host."""
+        return torch.cat([s.cpu() for s in shards[:self.D]])
 
     def normalize(self, shards) -> list[torch.Tensor]:
         return [self.fc.normalize(s) for s in shards]
@@ -256,8 +274,8 @@ class DistributedNTT:
         return self._inverse_local(self._check(x), self._inverse, on_step)
 
     def _check(self, shards) -> list[torch.Tensor]:
-        if len(shards) != self.D:
-            raise ValueError(f"expected {self.D} shards, got {len(shards)}")
+        if len(shards) != len(self.devices):
+            raise ValueError(f"expected {len(self.devices)} shards, got {len(shards)}")
         k = self.config.n // self.D
         for s, dev in zip(shards, self.devices):
             if s.dtype != torch.int64:
@@ -270,14 +288,16 @@ class DistributedNTT:
 
     # -- per-shard steps ----------------------------------------------------
 
-    def _map(self, f, mats: list) -> list[torch.Tensor]:
-        """``f(d, mats[d])`` for every shard, with its device current,
-        dropping ``mats[d]`` once shard d's output exists: a step holds one
-        shard's input and output beside the lists, not two whole lists.
-        ``mats`` must be the caller's own list (a copy keeps the entries)."""
+    @staticmethod
+    def _map(f, mats: list, devices) -> list[torch.Tensor]:
+        """``f(d, mats[d])`` for every shard of a group, with its device
+        ``devices[d]`` current, dropping ``mats[d]`` once shard d's output
+        exists: a step holds one shard's input and output beside the lists,
+        not two whole lists.  ``mats`` must be the caller's own list (a copy
+        keeps the entries)."""
         out = []
         for d in range(len(mats)):
-            with _guard(self.devices[d]):
+            with _guard(devices[d]):
                 out.append(f(d, mats[d]))
             mats[d] = None
         return out
@@ -308,12 +328,12 @@ class DistributedNTT:
     def _col_fwd(self, t: DirectionTables, d: int, mat: torch.Tensor, sl=slice(None)):
         """Column NTTs and twiddles of shard d's columns ``sl``."""
         tw = montpair_map(lambda a: a[:, sl], t.tw[d])
-        mat = planner.run_forward(mat[:, sl].contiguous(), self._col_plan, t.col[self.devices[d]])
+        mat = planner.run_forward(mat[:, sl].contiguous(), self._col_plan, t.col[t.devices[d]])
         return self._tw_mul(mat, tw)
 
     def _col_inv(self, t: DirectionTables, d: int, mat: torch.Tensor, sl=slice(None)):
         mat = self._tw_mul(mat, montpair_map(lambda a: a[:, sl], t.tw[d]))
-        return planner.run_inverse(mat, self._col_plan, t.col[self.devices[d]])
+        return planner.run_inverse(mat, self._col_plan, t.col[t.devices[d]])
 
     # -- comm/compute overlap (comm="overlap") ------------------------------
     #
@@ -368,7 +388,7 @@ class DistributedNTT:
             sl = slice(c * wK, (c + 1) * wK)
             # the last chunk drops each shard's block once it is read
             subs = self._map(lambda d, m: self._col_fwd(t, d, m, sl),
-                             mats if c == K - 1 else list(mats))
+                             mats if c == K - 1 else list(mats), t.devices)
             self._join(events)  # chunk c-1's exchange has read its inputs
             in_flight.clear()
             out, events = self._side_all_to_all(subs, 0, 1)
@@ -386,7 +406,7 @@ class DistributedNTT:
                 p[d] = None
             return s.permute(1, 2, 0, 3).reshape(h, self.n1)
 
-        return self._map(reasm, [None] * D)
+        return self._map(reasm, [None] * D, t.devices)
 
     def _overlap_inv_comm2_col(self, mats, t: DirectionTables) -> list[torch.Tensor]:
         D, K = self.D, self.overlap_chunks
@@ -396,12 +416,12 @@ class DistributedNTT:
 
         def columns(c, subs):
             sl = slice(c * wK, (c + 1) * wK)
-            parts.append(self._map(lambda d, m: self._col_inv(t, d, m, sl), subs))
+            parts.append(self._map(lambda d, m: self._col_inv(t, d, m, sl), subs, t.devices))
 
         for c in range(K):
             picks = self._map(
                 lambda d, m: m.reshape(h, D, K, wK)[:, :, c, :].reshape(h, D * wK),
-                mats if c == K - 1 else list(mats),
+                mats if c == K - 1 else list(mats), t.devices,
             )
             self._join(events)  # chunk c-1's exchange has read its inputs
             in_flight.clear()
@@ -421,14 +441,31 @@ class DistributedNTT:
                 p[d] = None
             return out
 
-        return self._map(cat, [None] * D)
+        return self._map(cat, [None] * D, t.devices)
 
     # -- local (per-shard) schedules ---------------------------------------
     #
     # ``on_step(name)``, if given, is called after each step (a caller reads
-    # the memory a step holds); each step drops what it has consumed.
+    # the memory a step holds; with replica groups, once per group); each
+    # step drops what it has consumed.
 
     def _forward_local(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
+        return self._per_group(self._forward_group, shards, t, on_step)
+
+    def _inverse_local(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
+        return self._per_group(self._inverse_group, shards, t, on_step)
+
+    def _per_group(self, schedule, shards, t: DirectionTables, on_step) -> list[torch.Tensor]:
+        """``schedule`` run on each replica group's D shards in turn; the
+        groups' outputs concatenated in the shards' order."""
+        D = self.D
+        out = []
+        for r in range(len(self.replicas)):
+            group = list(shards[r * D:(r + 1) * D])
+            out += schedule(group, t.group(r, D), on_step)
+        return out
+
+    def _forward_group(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
         n0, n1, D = self.n0, self.n1, self.D
         note = on_step or (lambda name: None)
         mats = [x.reshape(n0 // D, n1) for x in shards]
@@ -441,20 +478,21 @@ class DistributedNTT:
             note("columns+comm2")
         else:
             # column NTTs over the full local leading axis n0, twiddles
-            mats = self._map(lambda d, m: self._col_fwd(t, d, m), mats)
+            mats = self._map(lambda d, m: self._col_fwd(t, d, m), mats, t.devices)
             note("columns")
             # [comm 2] column shards of (n0, n1) -> row shards (n0/D, n1)
             mats = self._all_to_all(mats, 0, 1)
             note("comm2")
-        mats = self._map(lambda d, m: self._rows(m, t.row[self.devices[d]], False), mats)
+        mats = self._map(lambda d, m: self._rows(m, t.row[t.devices[d]], False), mats,
+                         t.devices)
         note("rows")
         return [m.reshape(n0 // D * n1) for m in mats]
 
-    def _inverse_local(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
+    def _inverse_group(self, shards, t: DirectionTables, on_step=None) -> list[torch.Tensor]:
         n0, n1, D = self.n0, self.n1, self.D
         note = on_step or (lambda name: None)
         mats = [x.reshape(n0 // D, n1) for x in shards]
-        mats = self._map(lambda d, m: self._rows(m, t.row[self.devices[d]], True), mats)
+        mats = self._map(lambda d, m: self._rows(m, t.row[t.devices[d]], True), mats, t.devices)
         note("rows")
         if self.comm == "overlap":
             # undo [comm 2] + twiddles + column NTTs, chunked for overlap
@@ -463,7 +501,7 @@ class DistributedNTT:
         else:
             mats = self._all_to_all(mats, 1, 0)  # undo [comm 2]
             note("comm2")
-            mats = self._map(lambda d, m: self._col_inv(t, d, m), mats)
+            mats = self._map(lambda d, m: self._col_inv(t, d, m), mats, t.devices)
             note("columns")
         # undo [comm 1]: column shards -> row shards
         mats = self._all_to_all(mats, 0, 1)

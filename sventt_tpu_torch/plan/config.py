@@ -2,10 +2,10 @@
 
 The same fields and validation as ``sventt_tpu/plan/config.py``.  The port
 runs the matrix engine ("mxu"; "auto" resolves to it on every device, see
-``plan/wrapper.py``) and the butterfly engine ("pallas", radix-2 or, with
-``max_r`` > 1, radix-2^R grouped); ``NTT`` raises ``NotImplementedError``
-for the options that select unported code.  The docstrings below are the
-JAX package's.
+``plan/wrapper.py``), the butterfly engine ("pallas", radix-2 or, with
+``max_r`` > 1, radix-2^R grouped) and the portable engine ("jnp"), and
+``tune=True`` resolves through the port's autotuner (``plan/autotune.py``).
+The docstrings below are the JAX package's.
 
 The reference's configuration system is C++ template parameters -- modulus,
 modmul engine, radix per stage, blocking, transpose strategy -- all fixed at

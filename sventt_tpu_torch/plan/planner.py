@@ -404,23 +404,46 @@ def _jnp_mid_chunked(
     return out
 
 
-def run_forward(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
-    """Length-m DIF NTT along the leading axis (bit-reversed output)."""
+def _release(donated: torch.Tensor | None) -> None:
+    """Free the storage of the donated input (``NTT(donate_input=True)``)
+    once the step that read it has been issued: the kernels are
+    out-of-place, so each level's output lands in a new buffer and, with the
+    input's memory back in the caching allocator, the transform holds two
+    n-word buffers at a time, not three.  Stream order keeps the freed block
+    from being rewritten before that step has read it."""
+    if donated is not None:
+        donated.untyped_storage().resize_(0)
+
+
+def run_forward(
+    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Length-m DIF NTT along the leading axis (bit-reversed output).
+    ``donated``: the tensor whose storage ``x`` lies in, released after the
+    first step (the deepest column leaf) has read it."""
     if isinstance(node, Leaf):
-        return _leaf(x, node, tables)
+        out = _leaf(x, node, tables)
+        _release(donated)
+        return out
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
-    mat = run_forward(mat, node.col, tables)  # column NTTs, leading axis m0
+    mat = run_forward(mat, node.col, tables, donated)  # column NTTs, leading axis m0
     mat = _row_step(mat, node, tables, batch)
     return mat.reshape((node.m,) + batch)
 
 
-def run_inverse(x: torch.Tensor, node, tables: PlanTables) -> torch.Tensor:
-    """Mirror of run_forward: undo the row step, then the column NTTs."""
+def run_inverse(
+    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mirror of run_forward: undo the row step, then the column NTTs;
+    ``donated`` is released after the first step (the root's row step)."""
     if isinstance(node, Leaf):
-        return _leaf(x, node, tables)
+        out = _leaf(x, node, tables)
+        _release(donated)
+        return out
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
     mat = _row_step(mat, node, tables, batch)
+    _release(donated)
     mat = run_inverse(mat, node.col, tables)
     return mat.reshape((node.m,) + batch)

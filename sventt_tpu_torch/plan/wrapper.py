@@ -18,7 +18,16 @@ every kernel's plain PyTorch version.
 ``forward_step`` / ``inverse_step`` return the planner's program and its
 tables, as the JAX package's do for its chained timing: here the step is
 what a ``torch.cuda.CUDAGraph`` captures (it synchronizes nothing and
-builds no table).
+builds no table; ``utils.timing.time_chained`` times it so).
+
+``tune=True`` resolves the config's knobs through the autotuner
+(``plan/autotune.py``) on the NTT's device before anything else, as in the
+JAX package.  ``donate_input=True`` lets ``compute_forward`` /
+``compute_inverse`` release the caller's tensor: its storage is freed once
+the first kernel has read it (the tensor is unusable afterwards, as a
+donated JAX array is deleted), so a transform holds two n-word buffers at
+its peak, not three.  No kernel works in place; the result is bitwise the
+non-donated one.
 
 Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
 engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
@@ -53,6 +62,22 @@ def _resolve_engine(engine: str) -> str:
     return "mxu" if engine == "auto" else engine
 
 
+def build_config_plan(config: NttConfig, engine: str):
+    """The plan tree of ``config`` with its engine resolved to ``engine``."""
+    if config.plan_spec is not None:
+        return planner.build_plan_spec(config.n, config.plan_spec)
+    if config.strategy == "auto":
+        return planner.build_plan(config.n, engine, config.max_fused)
+    if config.resolved_strategy == "iterative":
+        return planner.Leaf(config.n, engine)
+    n0, n1 = config.split
+    return planner.Split(
+        config.n, n0, n1,
+        planner.build_plan(n0, engine, config.max_fused),
+        planner.build_plan(n1, engine, config.max_fused),
+    )
+
+
 class NTT:
     """Forward/inverse NTT for one NttConfig on one device."""
 
@@ -61,22 +86,23 @@ class NTT:
         config: NttConfig,
         enable_forward: bool = True,
         enable_inverse: bool = True,
+        donate_input: bool = False,
         *,
         device=None,
     ):
-        if config.tune:
-            raise NotImplementedError(
-                "tune=True is not ported yet (ROADMAP Queue 1: the autotuner, "
-                "plan/autotune.py, and its cache, utils/cache.py)"
-            )
-        self.config = config
         self.device = resolve_device(device)
+        if config.tune:
+            from .autotune import tune
+
+            config = tune(config, device=self.device)
+        self.config = config
+        self.donate_input = donate_input
         self.mod = config.mod
         self.fc = FieldConsts.from_modulus(
             self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
         )
         self.engine = _resolve_engine(config.engine)
-        self.plan = self._build_plan()
+        self.plan = build_config_plan(config, self.engine)
         # NttConfig.transpose allows only "auto" and "xla", the torch copy
         # the planner's fallback runs either way: no table takes it
         tables = dict(
@@ -93,21 +119,6 @@ class NTT:
             self._inv_tables = planner.PlanTables(
                 self.plan, self.mod, self.fc, inverse=True, **tables
             )
-
-    def _build_plan(self):
-        cfg = self.config
-        if cfg.plan_spec is not None:
-            return planner.build_plan_spec(cfg.n, cfg.plan_spec)
-        if cfg.strategy == "auto":
-            return planner.build_plan(cfg.n, self.engine, cfg.max_fused)
-        if cfg.resolved_strategy == "iterative":
-            return planner.Leaf(cfg.n, self.engine)
-        n0, n1 = cfg.split
-        return planner.Split(
-            cfg.n, n0, n1,
-            planner.build_plan(n0, self.engine, cfg.max_fused),
-            planner.build_plan(n1, self.engine, cfg.max_fused),
-        )
 
     # -- public API -----------------------------------------------------------
 
@@ -179,32 +190,54 @@ class NTT:
         return (lambda v, t: planner.run_inverse(v, plan, t)), (self._inv_tables,)
 
     def compute_forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._fwd_tables is None:
-            raise RuntimeError("forward transform was not enabled")
-        return planner.run_forward(self._check(x), self.plan, self._fwd_tables)
+        """The forward transform of ``x``; with ``donate_input`` the call
+        releases ``x`` (see the module docstring)."""
+        return self._forward(x, self.donate_input)
 
     def compute_inverse(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse transform of ``x``; ``donate_input`` as for the
+        forward."""
+        return self._inverse(x, self.donate_input)
+
+    def _forward(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
+        if self._fwd_tables is None:
+            raise RuntimeError("forward transform was not enabled")
+        x = self._check(x, donate)
+        return planner.run_forward(x, self.plan, self._fwd_tables, x if donate else None)
+
+    def _inverse(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
         if self._inv_tables is None:
             raise RuntimeError("inverse transform was not enabled")
-        return planner.run_inverse(self._check(x), self.plan, self._inv_tables)
+        x = self._check(x, donate)
+        return planner.run_inverse(x, self.plan, self._inv_tables, x if donate else None)
 
-    def _check(self, x: torch.Tensor) -> torch.Tensor:
+    def _check(self, x: torch.Tensor, donate: bool = False) -> torch.Tensor:
         if x.dtype != torch.int64:
             raise TypeError(f"expected an int64 tensor of u64 bit patterns, got {x.dtype}")
         if x.device != self.device:
             raise ValueError(f"data on {x.device}, NTT on {self.device}")
         if x.shape[0] != self.config.n:
             raise ValueError(f"leading axis {x.shape[0]} != n = {self.config.n}")
+        if donate:
+            storage = x.untyped_storage()
+            if (x.storage_offset() or not x.is_contiguous()
+                    or storage.nbytes() != x.numel() * x.element_size()
+                    or not storage.resizable()):
+                raise ValueError(
+                    "donate_input needs a contiguous tensor that owns its whole, "
+                    "resizable storage (not a view, not memory shared with numpy)"
+                )
         return x
 
     def normalize(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc.normalize(x)
 
-    # numpy convenience (host <-> device)
+    # numpy convenience (host <-> device); the tensor is the call's own, so
+    # there is nothing of the caller's to donate
     def forward_numpy(self, x: np.ndarray) -> np.ndarray:
-        out = self.compute_forward(from_numpy(x, self.device))
+        out = self._forward(from_numpy(x, self.device), False)
         return to_numpy(self.fc.normalize(out))
 
     def inverse_numpy(self, x: np.ndarray) -> np.ndarray:
-        out = self.compute_inverse(from_numpy(x, self.device))
+        out = self._inverse(from_numpy(x, self.device), False)
         return to_numpy(self.fc.normalize(out))

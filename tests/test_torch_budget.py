@@ -53,20 +53,23 @@ def _args(N, g, log2n, n0=None):
         pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30), 8,
                      dict(enable_inverse=False, donate_input=True), id="2^30-D8-fwd-donated"),
         pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 30), 2, {}, id="2^30-D2"),
+        pytest.param(_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 26), 4,
+                     dict(donate_input=True), id="2^26-D4-donated"),
+        pytest.param(_args(TEST_MODULUS, TEST_GENERATOR, 20), 8,
+                     dict(enable_forward=False, donate_input=False), id="2^20-D8-inv-kept"),
     ],
 )
 def test_budget_matches_jax(args, devices, kw):
-    """Coefficient and inter-step twiddle bytes and the count of directions
-    equal the JAX budget's for the same config and D; ``transient`` is the
-    JAX rule's without donation (the port keeps the caller's input), and
-    ``step_scratch`` two shards, the port's own count."""
-    port_kw = {k: v for k, v in kw.items() if k != "donate_input"}
-    got = distributed_memory_budget(NttConfig(**args), devices, **port_kw)
+    """Coefficient, transient and inter-step twiddle bytes and the count of
+    directions equal the JAX budget's for the same config, D and donation
+    (``transient``: one shard donated, two kept); ``step_scratch`` is two
+    shards, the port's own count."""
+    got = distributed_memory_budget(NttConfig(**args), devices, **kw)
     want = jbudget(JNttConfig(**args), devices, **kw)
-    for name in ("n", "devices", "coefficients", "inter_step_twiddles", "directions"):
+    for name in ("n", "devices", "coefficients", "transient", "inter_step_twiddles", "directions"):
         assert getattr(got, name) == getattr(want, name), name
-    undonated = jbudget(JNttConfig(**args), devices, **port_kw)
-    assert got.transient == undonated.transient == 2 * got.coefficients
+    donated = kw.get("donate_input", False)
+    assert got.transient == (1 if donated else 2) * got.coefficients
     assert got.step_scratch == 2 * got.coefficients
     tables = got.directions * (got.inter_step_twiddles + got.leaf_tables)
     assert got.total == got.coefficients + got.transient + tables + got.step_scratch
@@ -133,11 +136,12 @@ def test_validate_2p30_fits_the_h100():
     assert b.inter_step_twiddles == b.coefficients  # companion-free
     assert b.fits() and b.total <= DEFAULT_HBM_BYTES
     assert 70 * (1 << 30) < DEFAULT_HBM_BYTES < 80 * (1 << 30)
-    # validate_2p30 budgets what the port does: no donation, its scratch
+    # validate_2p30 keeps the caller's input (no donated distributed peak has
+    # been measured on the card), with the port's scratch
     assert b.transient == 2 * b.coefficients and b.step_scratch == 2 * b.coefficients
     assert b.total == 6 * b.coefficients + b.leaf_tables
     # one card holds the whole 2^30 transform one direction at a time
-    # (48 GiB), not 2^31 even forward only (96 GiB): the port cannot donate
+    # (48 GiB), not 2^31 even forward only (96 GiB) with the input kept
     assert validate_2p30(1).fits()
     cfg = NttConfig(**_args(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 31))
     assert not distributed_memory_budget(cfg, 1).fits()

@@ -146,9 +146,18 @@ def test_describe_against_jax(engine, batched):
 @pytest.mark.parametrize(
     "kw", [dict(tune=True)], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items())
 )
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
+def test_unported_options_raise(kw, tmp_path, monkeypatch):
+    """The option that raised while the autotuner was unported now builds:
+    ``tune=True`` resolves through ``autotune.tune`` on the NTT's device
+    (the CPU races the jnp engine only; the timer is replaced, so no
+    timing is taken) into a cache of the test's own."""
+    from sventt_tpu_torch.plan import autotune
+
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "cache.json"))
+    monkeypatch.setattr(autotune, "_time_candidate", lambda cfg, s, reps=2, device=None: 1.0)
+    ntt = NTT(NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 12, **kw), device="cpu")
+    assert ntt.config.tune is False and ntt.engine == "jnp"
+    assert (tmp_path / "cache.json").exists()
 
 
 @pytest.mark.parametrize(
@@ -261,11 +270,12 @@ def _path_strings(path: pathlib.Path) -> list[str]:
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, imports jax or sventt_tpu;
+    """No module of the port, nor a tool, nor chip_smoke.py, imports jax or sventt_tpu;
     no module of the port names a path into sventt_tpu/, and the native
     sources it compiles (the oracle and the q-series generators) lie in
     the port."""
-    files = sorted((REPO / "sventt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "sventt_tpu_torch").rglob("*.py")) + sorted((REPO / "tools").glob("*.py"))
+             + [REPO / "chip_smoke.py"])
     assert len(files) > 10
     for path in files:
         for name in _imported_modules(path):
@@ -280,3 +290,42 @@ def test_port_imports_no_jax():
     for src in native.SOURCES:
         source = pathlib.Path(src).resolve()
         assert source.is_relative_to(port) and source.exists(), src
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(engine="mxu"), dict(engine="pallas"), dict(engine="pallas", max_r=3),
+     dict(engine="jnp")],
+    ids=["mxu", "pallas", "pallas-r3", "jnp"],
+)
+def test_donate_input_matches_jax(kw):
+    """``NTT(donate_input=True)`` releases the caller's tensor (its storage
+    is freed) and gives the non-donated output bitwise in both directions,
+    on three-level plans (1024 = (8 x 8) x 16); the donated forward equals
+    JAX's ``NTT(donate_input=True)``.  A view, or memory shared with numpy,
+    cannot be donated."""
+    n = 1 << 10
+    cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, n, max_fused=16, **kw)
+    x = np.random.default_rng(n).integers(0, cfg.modulus, n, dtype=np.uint64)
+    jcfg = JNttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, n, max_fused=16, **kw)
+    want = JNTT(jcfg, enable_inverse=False, donate_input=True).forward_numpy(x)
+    kept, donated = NTT(cfg, device="cpu"), NTT(cfg, donate_input=True, device="cpu")
+    assert "  split 64 = 8 x 8: " in donated.describe()
+    outs = {}
+    for direction in ("forward", "inverse"):
+        xd = torch.from_numpy(x.view(np.int64)).clone()
+        plain = getattr(kept, f"compute_{direction}")(xd)
+        assert xd.untyped_storage().nbytes() == n * 8
+        outs[direction] = getattr(donated, f"compute_{direction}")(xd)
+        assert xd.untyped_storage().nbytes() == 0
+        assert torch.equal(outs[direction], plain)
+    # (a numpy view of a tensor's memory makes it undonatable: clone first)
+    np.testing.assert_array_equal(to_numpy(donated.normalize(outs["forward"].clone())), want)
+    np.testing.assert_array_equal(donated.forward_numpy(x), want)  # the call's own copy
+    back = donated.compute_inverse(outs["forward"])
+    np.testing.assert_array_equal(to_numpy(donated.normalize(back)), x)
+    whole = torch.from_numpy(np.concatenate([x, x]).view(np.int64)).clone()
+    with pytest.raises(ValueError, match="donate_input"):
+        donated.compute_forward(whole[n:])
+    with pytest.raises(ValueError, match="donate_input"):
+        donated.compute_forward(torch.from_numpy(x.view(np.int64).copy()))

@@ -35,7 +35,7 @@ from sventt_tpu_torch.field.modulus import (
 from sventt_tpu_torch.ops import inter_step
 from sventt_tpu_torch.parallel import DistributedNTT, make_ntt_mesh, ring
 from sventt_tpu_torch.parallel.mesh import Mesh, make_mesh
-from sventt_tpu_torch.plan import NttConfig, planner
+from sventt_tpu_torch.plan import NTT, NttConfig, planner
 
 N, G = TEST_MODULUS, TEST_GENERATOR
 CPU8 = ["cpu"] * 8
@@ -321,3 +321,89 @@ def test_distributed_tables_from_numpy(inverse):
     local = dntt._inverse_local if inverse else dntt._forward_local
     for a, b in zip(local(x, carried), local(x, own)):
         assert torch.equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_partial(n):
+    """(x, forward(x), inverse(x)) of JAX's DistributedNTT on the (2, 4)
+    ("dcn", "ici") mesh with the collective axis "ici" alone (the vector
+    replicated over "dcn"), normalized."""
+    mesh = jax.make_mesh((2, 4), ("dcn", "ici"))
+    dntt = JDistributedNTT(JNttConfig(N, G, n, **_cfg(n)), mesh, axis="ici")
+    (x,) = _x(n)
+    xd = jax.device_put(u64_from_numpy(x), dntt.sharding())
+    fwd = u64_to_numpy(dntt.fc.normalize(dntt.compute_forward(xd)))
+    inv = u64_to_numpy(dntt.fc.normalize(dntt.compute_inverse(xd)))
+    return x, fwd, inv
+
+
+@pytest.mark.parametrize("comm", ["xla", "overlap"])
+def test_partial_axis_matches_jax(comm):
+    """A collective axis that leaves a mesh axis out: the six-step runs in
+    each of the two "dcn" replica groups over its four "ici" devices; the
+    replicas are equal, and equal to JAX's and to the single-device NTT."""
+    n = 1 << 12
+    x, fwd, inv = _jax_partial(n)
+    mesh = make_mesh((2, 4), ("dcn", "ici"), devices=CPU8)
+    cfg = NttConfig(N, G, n, **_cfg(n))
+    dntt = DistributedNTT(cfg, mesh, axis="ici", comm=comm)
+    assert dntt.D == 4 and dntt.replicas == mesh.replica_groups(("ici",))
+    assert len(dntt.devices) == 8 and len(dntt._forward.tw) == 8
+    single = NTT(cfg, device="cpu")
+    shards = dntt.shard(x)
+    assert [tuple(s.shape) for s in shards] == [(n // 4,)] * 8
+    for compute, want, ref in ((dntt.compute_forward, fwd, single.forward_numpy(x)),
+                               (dntt.compute_inverse, inv, single.inverse_numpy(x))):
+        out = compute(shards)
+        replicas = [to_numpy(torch.cat(dntt.normalize(out[r * 4:(r + 1) * 4]))) for r in range(2)]
+        np.testing.assert_array_equal(replicas[0], replicas[1])
+        np.testing.assert_array_equal(replicas[0], want)
+        np.testing.assert_array_equal(replicas[0], ref)
+    back = dntt.compute_inverse(dntt.compute_forward(shards))
+    np.testing.assert_array_equal(to_numpy(dntt.gather(dntt.normalize(back))), x)
+    with pytest.raises(ValueError, match="8 shards"):
+        dntt.compute_forward(shards[:4])
+
+
+def test_replica_groups():
+    devs = tuple(torch.device("cpu", i) for i in range(8))
+    mesh = Mesh(devs, ("dcn", "ici"), (2, 4))
+    assert mesh.replica_groups(("ici",)) == (devs[:4], devs[4:])
+    assert mesh.replica_groups(("dcn",)) == tuple((devs[i], devs[i + 4]) for i in range(4))
+    assert mesh.replica_groups(("dcn", "ici")) == (mesh.devices_along(("dcn", "ici")),)
+    assert mesh.replica_groups(("ici", "dcn")) == (mesh.devices_along(("ici", "dcn")),)
+    with pytest.raises(ValueError, match="not distinct axes"):
+        mesh.replica_groups(("ici", "ici"))
+    with pytest.raises(ValueError, match="not distinct axes"):
+        mesh.replica_groups(("x",))
+
+
+def test_tune_is_not_read(tmp_path, monkeypatch):
+    """As in the JAX package, DistributedNTT does not read ``tune``: with
+    and without it the transform is the same (no search runs)."""
+    from sventt_tpu_torch.plan import autotune
+
+    def boom(*a, **k):
+        raise AssertionError("DistributedNTT ran the autotuner")
+
+    monkeypatch.setattr(autotune, "search", boom)
+    n = 1 << 12
+    x, fwd, _ = _jax_ref(n)
+    mesh = make_ntt_mesh(devices=CPU8)
+    outs = []
+    for tune in (True, False):
+        dntt = DistributedNTT(NttConfig(N, G, n, tune=tune, **_cfg(n)), mesh, enable_inverse=False)
+        outs.append(to_numpy(dntt.gather(dntt.normalize(dntt.compute_forward(dntt.shard(x))))))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], fwd)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("comm", ["xla", "ring", "overlap"])
+def test_deep_composition(comm):
+    """2^20 over 8 shards with two-level mxu local plans, every comm mode,
+    against the native oracle (``tools/deep_composition.py``, which also
+    runs it on the card)."""
+    from tools.deep_composition import check
+
+    check("cpu", comm)

@@ -131,10 +131,10 @@ def test_ring_rejects_partial_mesh():
     mesh2 = make_mesh((2, 4), ("a", "b"), devices=["cpu"] * 8)
     with pytest.raises(ValueError, match="ring"):
         DistributedNTT(cfg, mesh2, axis="a", comm="ring")
-    # the copy exchange over part of a mesh (shards replicated over the
-    # rest) is not ported: it raises instead of running on a subset
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedNTT(cfg, mesh2, axis="a")
+    # the copy exchange over part of a mesh runs within each replica group
+    # (tests/test_torch_parallel.py holds it against JAX)
+    dntt = DistributedNTT(cfg, mesh2, axis="a")
+    assert dntt.D == 2 and len(dntt.replicas) == 4 and len(dntt.devices) == 8
 
 
 def test_ring_dntt_on_one_axis_mesh():
