@@ -76,6 +76,7 @@ FILE_SECONDS = {
     "tests/test_torch_budget.py": 14.0,
     "tests/test_torch_autotune.py": 29.9,
     "tests/test_torch_utils.py": 7.4,
+    "tests/test_torch_tracing.py": 15.5,
     "tests/test_torch_solinas.py": 13.0,
     "tests/test_torch_twiddle.py": 11.0,
     "tests/test_native_series.py": 6.9,

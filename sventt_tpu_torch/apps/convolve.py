@@ -15,6 +15,7 @@ import torch
 
 from ..field.limb import from_numpy, s64, to_numpy
 from ..plan import NTT, NttConfig
+from ..utils.profiling import span
 
 
 def _next_pow2(x: int) -> int:
@@ -29,22 +30,26 @@ def make_convolver(modulus: int, generator: int, n: int, *, device=None, **cfg_k
 
 def cyclic_convolve(ntt, a, b):
     """Length-n cyclic convolution of two vectors in the plain domain: int64
-    tensors on the NTT's device, or shard lists of a DistributedNTT."""
-    fc = ntt.fc
-    r2 = s64(ntt.mod.montgomery_r2)
+    tensors on the NTT's device, or shard lists of a DistributedNTT.  Spans
+    ``sventt.convolve`` around the product, ``sventt.convolve.pointwise``
+    around its pointwise step (every shard's)."""
+    with span("sventt.convolve"):
+        fc = ntt.fc
+        r2 = s64(ntt.mod.montgomery_r2)
 
-    def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-        fb_mont = fc.mont_mul_full(fb, torch.full_like(fb, r2))  # to Montgomery domain
-        prod = fc.mont_mul_full(fa, fb_mont)
-        return fc.normalize(prod) if fc.lazy else prod
+        def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+            fb_mont = fc.mont_mul_full(fb, torch.full_like(fb, r2))  # to Montgomery domain
+            prod = fc.mont_mul_full(fa, fb_mont)
+            return fc.normalize(prod) if fc.lazy else prod
 
-    fa = ntt.compute_forward(a)
-    fb = ntt.compute_forward(b)
-    if isinstance(fa, torch.Tensor):
-        prod = pointwise(fa, fb)
-    else:
-        prod = [pointwise(x, y) for x, y in zip(fa, fb)]
-    return ntt.compute_inverse(prod)
+        fa = ntt.compute_forward(a)
+        fb = ntt.compute_forward(b)
+        with span("sventt.convolve.pointwise"):
+            if isinstance(fa, torch.Tensor):
+                prod = pointwise(fa, fb)
+            else:
+                prod = [pointwise(x, y) for x, y in zip(fa, fb)]
+        return ntt.compute_inverse(prod)
 
 
 def poly_multiply(

@@ -33,6 +33,7 @@ import torch
 from ..field.limb import FieldConsts
 from ..field.modulus import Modulus
 from ..ops import ntt_mxu
+from ..utils.profiling import span
 
 #: K11's transform length.
 R_FUSED = 128
@@ -83,7 +84,8 @@ def mxu_fused_ntt(x: torch.Tensor, stack: torch.Tensor, mod: Modulus) -> torch.T
     x3 = _as3(x, t.m)
     fc = FieldConsts.from_modulus(mod, lazy=False)
     if x.is_cuda:
-        out = ntt_mxu._launch_kernel(x3, t, fc, None, "lead")
+        with span("sventt.launch.fused"):
+            out = ntt_mxu._launch_kernel(x3, t, fc, None, "lead")
         LAUNCHES["fused"] += 1
     elif x.device.type == "cpu":
         PLAIN_CALLS["fused"] += 1

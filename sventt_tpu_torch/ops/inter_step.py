@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from ..field.limb import FieldConsts
+from ..utils.profiling import span
 from .twiddle import MontPair, check_companion, inter_step_mul
 
 LAUNCHES = {"inter_step": 0}
@@ -52,18 +53,19 @@ def mont_mul_bcast(fc: FieldConsts, x: torch.Tensor, tw: MontPair) -> torch.Tens
     if x.is_cuda:
         from .. import _build
 
-        xc = x.contiguous()
-        w = tw.w.contiguous()
-        wp = None if tw.wp is None else tw.wp.contiguous()
-        mode = 3 if fc.modmul == "solinas" else (2 if wp is None else 1)
-        out = torch.empty_like(xc)
-        rc = _build.load().sventt_inter_step_mul(
-            xc.data_ptr(), out.data_ptr(), w.data_ptr(), None if wp is None else wp.data_ptr(),
-            rows, B, mode, int(fc.lazy), fc.modulus, fc.montgomery_inverse,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"inter-step kernel launch failed: CUDA error {rc}")
+        with span("sventt.launch.inter_step"):
+            xc = x.contiguous()
+            w = tw.w.contiguous()
+            wp = None if tw.wp is None else tw.wp.contiguous()
+            mode = 3 if fc.modmul == "solinas" else (2 if wp is None else 1)
+            out = torch.empty_like(xc)
+            rc = _build.load().sventt_inter_step_mul(
+                xc.data_ptr(), out.data_ptr(), w.data_ptr(), None if wp is None else wp.data_ptr(),
+                rows, B, mode, int(fc.lazy), fc.modulus, fc.montgomery_inverse,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"inter-step kernel launch failed: CUDA error {rc}")
         LAUNCHES["inter_step"] += 1
         return out
     if x.device.type != "cpu":

@@ -80,6 +80,7 @@ from ..field.limb import (
 )
 from ..field.modulus import MASK32, Modulus
 from ..utils.device import resolve_device, sm_count
+from ..utils.profiling import span
 from .twiddle import MontPair, check_companion, inter_step_mul, montpair_map
 
 #: Seven-bit planes per u64 for the "u7" scheme (10 * 7 = 70 >= 64 bits).
@@ -107,6 +108,8 @@ PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
 #: Kernel launches per kernel: "tensor_core" csrc/mxu_tc.cuh (K11's
 #: launches too), "dp4a" csrc/ntt_mxu.cu (the A/B point alone).
 KERNEL_LAUNCHES = {"tensor_core": 0, "dp4a": 0}
+#: The host span of each kernel's launch (``utils.profiling.span``).
+LAUNCH_SPANS = {k: f"sventt.launch.{k}" for k in KERNEL_LAUNCHES}
 
 
 def _balanced8(r: int) -> list[int]:
@@ -625,7 +628,8 @@ def _launch_kernel(x3: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw3, orie
     CUDA call in ``tc_form``'s form, and count it under
     ``KERNEL_LAUNCHES``."""
     kernel = kernel_for(t.scheme, orientation)
-    out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3, t.scheme))
+    with span(LAUNCH_SPANS[kernel]):
+        out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3, t.scheme))
     KERNEL_LAUNCHES[kernel] += 1
     return out
 
@@ -748,10 +752,12 @@ def _launch_dp4a(
         raise ValueError("the dp4a A/B point takes a CUDA tensor")
     check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, tables.m, "lane" if lane else "mid" if mid else "lead")
-    out, head, tail = _kernel_args(x3, tables, fc, tw3, tables.kernel_planes)
-    rc = _build.load().sventt_mxu_ntt(
-        *head, int(tables.scheme == "u7"), *tail, torch.cuda.current_stream(x.device).cuda_stream
-    )
+    with span(LAUNCH_SPANS["dp4a"]):
+        out, head, tail = _kernel_args(x3, tables, fc, tw3, tables.kernel_planes)
+        rc = _build.load().sventt_mxu_ntt(
+            *head, int(tables.scheme == "u7"), *tail,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["dp4a"] += 1
@@ -771,7 +777,8 @@ def _launch_lane_form(
         raise ValueError("the lane-form A/B point takes a lane form and a CUDA tensor")
     check_companion(fc, tw)
     x3, tw3, back = _as3(x, tw, tables.m, "lane")
-    out = _launch_tc(x3, tables, fc, tw3, form)
+    with span(LAUNCH_SPANS["tensor_core"]):
+        out = _launch_tc(x3, tables, fc, tw3, form)
     KERNEL_LAUNCHES["tensor_core"] += 1
     return back(out)
 

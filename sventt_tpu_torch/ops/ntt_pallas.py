@@ -80,6 +80,7 @@ import torch
 from ..field.limb import FieldConsts, from_numpy, s64
 from ..field.modulus import Modulus
 from ..utils.device import resolve_device, sm_count
+from ..utils.profiling import span
 from .twiddle import (
     MontPair,
     _twiddle_pair,
@@ -950,23 +951,24 @@ def _launch(
     sequence."""
     from .. import _build
 
-    _check_cuda(t, fc, x3, tw3)
-    m = t.m
-    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
-    lib = _build.load()
-    out = torch.empty_like(x3)
-    s, sp = t.scale if t.scale is not None else (0, 0)
-    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-    rc = lib.sventt_butterfly_ntt(
-        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
-        None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
-        dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        first, last, log2c, int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy),
-        int(lane), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
-        torch.cuda.current_stream(x3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"butterfly kernel launch failed: CUDA error {rc}")
+    with span("sventt.launch.radix2_stages"):
+        _check_cuda(t, fc, x3, tw3)
+        m = t.m
+        dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
+        lib = _build.load()
+        out = torch.empty_like(x3)
+        s, sp = t.scale if t.scale is not None else (0, 0)
+        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+        rc = lib.sventt_butterfly_ntt(
+            x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
+            None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
+            dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
+            first, last, log2c, int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy),
+            int(lane), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
+            torch.cuda.current_stream(x3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"butterfly kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["radix2_stages"] += 1
     return out
 
@@ -982,28 +984,29 @@ def _launch_regs(
     ``butterfly_geometry``'s geometry."""
     from .. import _build
 
-    _check_cuda(t, fc, x3, tw3)
-    m = t.m
-    (A, _, B), strides, (ta, tm, tb) = _view(x3, lane)
-    if lane:
-        ta = tb  # the twiddle's row stride: the data's layout
-    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-    tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
-    geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
-                             t.rows if lane else t.block_b, sm_count(x3.device.index), lane)
-    ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
-    s, sp = t.scale if t.scale is not None else (0, 0)
-    out = torch.empty_like(x3)
-    rc = _build.load().sventt_radix2_ntt(
-        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
-        None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
-        A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
-        geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), int(lane),
-        _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
-        torch.cuda.current_stream(x3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
+    with span("sventt.launch.radix2_registers"):
+        _check_cuda(t, fc, x3, tw3)
+        m = t.m
+        (A, _, B), strides, (ta, tm, tb) = _view(x3, lane)
+        if lane:
+            ta = tb  # the twiddle's row stride: the data's layout
+        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+        tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
+        geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
+                                 t.rows if lane else t.block_b, sm_count(x3.device.index), lane)
+        ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
+        s, sp = t.scale if t.scale is not None else (0, 0)
+        out = torch.empty_like(x3)
+        rc = _build.load().sventt_radix2_ntt(
+            x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
+            None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
+            A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
+            geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), int(lane),
+            _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
+            torch.cuda.current_stream(x3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["radix2_registers"] += 1
     return out
 
@@ -1053,27 +1056,28 @@ def _launch_grouped(
     ``x3`` (see ``_view``), in ``grouped_geometry``'s geometry."""
     from .. import _build
 
-    _check_cuda(t, fc, x3, tw3)
-    m = t.m
-    dims, strides, tw_strides = _view(x3, lane)
-    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-    tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
-    geo = grouped_geometry(
-        m, t.specs, dims[2], lane, dims[0], tw_words, sm_count(x3.device.index)
-    )
-    ranks = sum(spec.R << (4 * g) for g, spec in enumerate(t.specs))
-    lib = _build.load()
-    out = torch.empty_like(x3)
-    rc = lib.sventt_grouped_ntt(
-        x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(),
-        t.consts.data_ptr(), t.const_mask.data_ptr(), w_ptr, wp_ptr,
-        dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        len(t.specs), ranks, geo.cols.bit_length() - 1, geo.tpc.bit_length() - 1, geo.smem,
-        int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy), int(lane), mode, fc.modulus,
-        fc.montgomery_inverse, torch.cuda.current_stream(x3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
+    with span("sventt.launch.registers"):
+        _check_cuda(t, fc, x3, tw3)
+        m = t.m
+        dims, strides, tw_strides = _view(x3, lane)
+        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+        tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
+        geo = grouped_geometry(
+            m, t.specs, dims[2], lane, dims[0], tw_words, sm_count(x3.device.index)
+        )
+        ranks = sum(spec.R << (4 * g) for g, spec in enumerate(t.specs))
+        lib = _build.load()
+        out = torch.empty_like(x3)
+        rc = lib.sventt_grouped_ntt(
+            x3.data_ptr(), out.data_ptr(), t.w.data_ptr(), t.wp.data_ptr(),
+            t.consts.data_ptr(), t.const_mask.data_ptr(), w_ptr, wp_ptr,
+            dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
+            len(t.specs), ranks, geo.cols.bit_length() - 1, geo.tpc.bit_length() - 1, geo.smem,
+            int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy), int(lane), mode, fc.modulus,
+            fc.montgomery_inverse, torch.cuda.current_stream(x3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["registers"] += 1
     return out
 
@@ -1100,21 +1104,22 @@ def _launch_grouped_ranks(
         raise ValueError("the leaf orientation takes no inter-step twiddle")
     else:
         x3, tw3 = _leaf_view(x, m), None
-    _check_cuda(tables, fc, x3, tw3)
-    dims, strides, tw_strides, log2c = _geometry(x3, m, lane, max(1, TILE_POINTS // m))
-    ranks = sum(spec.R << (4 * g) for g, spec in enumerate(tables.specs))
-    out = torch.empty_like(x3)
-    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-    rc = _build.load().sventt_grouped_ntt_ranks(
-        x3.data_ptr(), out.data_ptr(), tables.w.data_ptr(), tables.wp.data_ptr(),
-        tables.consts.data_ptr(), tables.const_mask.data_ptr(), w_ptr, wp_ptr,
-        dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-        len(tables.specs), ranks, log2c, int(tables.inverse), _MODMUL[fc.modmul],
-        int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
-        torch.cuda.current_stream(x3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"grouped rank kernel launch failed: CUDA error {rc}")
+    with span("sventt.launch.ranks"):
+        _check_cuda(tables, fc, x3, tw3)
+        dims, strides, tw_strides, log2c = _geometry(x3, m, lane, max(1, TILE_POINTS // m))
+        ranks = sum(spec.R << (4 * g) for g, spec in enumerate(tables.specs))
+        out = torch.empty_like(x3)
+        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+        rc = _build.load().sventt_grouped_ntt_ranks(
+            x3.data_ptr(), out.data_ptr(), tables.w.data_ptr(), tables.wp.data_ptr(),
+            tables.consts.data_ptr(), tables.const_mask.data_ptr(), w_ptr, wp_ptr,
+            dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
+            len(tables.specs), ranks, log2c, int(tables.inverse), _MODMUL[fc.modmul],
+            int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
+            torch.cuda.current_stream(x3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"grouped rank kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["ranks"] += 1
     return out.reshape(x.shape)
 

@@ -25,7 +25,11 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
+
 LAUNCHES = {"plane": 0, "pair": 0}
+#: The host span of each entry's launch (``utils.profiling.span``).
+LAUNCH_SPANS = {k: f"sventt.launch.{k}" for k in LAUNCHES}
 PLAIN_CALLS = {"plane": 0, "pair": 0}
 
 
@@ -58,14 +62,15 @@ def _blocked(x: torch.Tensor, entry: str, br: int = 256, bc: int = 256) -> torch
     if x.is_cuda:
         from .. import _build
 
-        xc = x.contiguous()
-        out = torch.empty((c, r), dtype=x.dtype, device=x.device)
-        rc = _build.load().sventt_transpose(
-            xc.data_ptr(), out.data_ptr(), r, c, x.element_size(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"transpose kernel launch failed: CUDA error {rc}")
+        with span(LAUNCH_SPANS[entry]):
+            xc = x.contiguous()
+            out = torch.empty((c, r), dtype=x.dtype, device=x.device)
+            rc = _build.load().sventt_transpose(
+                xc.data_ptr(), out.data_ptr(), r, c, x.element_size(),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"transpose kernel launch failed: CUDA error {rc}")
         LAUNCHES[entry] += 1
         return out
     if x.device.type != "cpu":

@@ -43,6 +43,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from .mesh import AXIS
 
 LAUNCHES = {"ring": 0}
@@ -155,36 +156,37 @@ def _launch(shards, out_shape, R: int, C: int, strides: tuple[int, int, int, int
     ``o * dst_slab``, rows ``dst_row`` apart."""
     from .. import _build
 
-    D = len(shards)
-    if D > MAX_D:
-        raise ValueError(f"the ring kernel takes at most {MAX_D} shards, got {D}")
-    shards = [s.contiguous() for s in shards]
-    enable_peer_access(sorted({s.device.index for s in shards}))
-    lib = _build.load()
-    outs = [torch.empty(out_shape, dtype=torch.int64, device=s.device) for s in shards]
-    src = (ctypes.c_void_p * D)(*[s.data_ptr() for s in shards])
-    by_card: dict[int, list[int]] = {}
-    for d, s in enumerate(shards):
-        by_card.setdefault(s.device.index, []).append(d)
-    for card, dests in by_card.items():
-        stream = torch.cuda.current_stream(card)
-        for other in by_card:
-            if other != card:
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(other))
-                stream.wait_event(event)
-        dst = (ctypes.c_void_p * len(dests))(*[outs[d].data_ptr() for d in dests])
-        ids = (ctypes.c_int * len(dests))(*dests)
-        rc = lib.sventt_ring_all_to_all(
-            src, dst, ids, len(dests), D, R, C, *strides, card, stream.cuda_stream
-        )
-        if rc != 0:
-            raise RuntimeError(f"ring all-to-all kernel launch failed: CUDA error {rc}")
-        LAUNCHES["ring"] += 1
-        for s in shards:
-            if s.device.index != card:
-                s.record_stream(stream)
-    return outs
+    with span("sventt.launch.ring"):
+        D = len(shards)
+        if D > MAX_D:
+            raise ValueError(f"the ring kernel takes at most {MAX_D} shards, got {D}")
+        shards = [s.contiguous() for s in shards]
+        enable_peer_access(sorted({s.device.index for s in shards}))
+        lib = _build.load()
+        outs = [torch.empty(out_shape, dtype=torch.int64, device=s.device) for s in shards]
+        src = (ctypes.c_void_p * D)(*[s.data_ptr() for s in shards])
+        by_card: dict[int, list[int]] = {}
+        for d, s in enumerate(shards):
+            by_card.setdefault(s.device.index, []).append(d)
+        for card, dests in by_card.items():
+            stream = torch.cuda.current_stream(card)
+            for other in by_card:
+                if other != card:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(other))
+                    stream.wait_event(event)
+            dst = (ctypes.c_void_p * len(dests))(*[outs[d].data_ptr() for d in dests])
+            ids = (ctypes.c_int * len(dests))(*dests)
+            rc = lib.sventt_ring_all_to_all(
+                src, dst, ids, len(dests), D, R, C, *strides, card, stream.cuda_stream
+            )
+            if rc != 0:
+                raise RuntimeError(f"ring all-to-all kernel launch failed: CUDA error {rc}")
+            LAUNCHES["ring"] += 1
+            for s in shards:
+                if s.device.index != card:
+                    s.record_stream(stream)
+        return outs
 
 
 def canonical_all_to_all(slabs) -> list[torch.Tensor]:

@@ -53,6 +53,7 @@ from ..ops.twiddle import (
     sixstep_row_twiddles_plain,
 )
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 #: Above this element count inter-step twiddle matrices are generated on the
 #: device instead of with host Python ints.
@@ -70,6 +71,10 @@ JNP_RESIDENT_ELEMS = 1 << 21
 
 #: Largest jnp leaf a ``plan_spec`` may name.
 JNP_SPEC_CAP = 1 << 22
+
+#: The row step's span of each depth from the root (a plan of n < 2^64
+#: points has fewer levels).
+ROW_SPANS = tuple(f"sventt.row.L{k}" for k in range(64))
 
 
 def row_twiddles(
@@ -275,39 +280,48 @@ class PlanTables:
             if key in self.leaf:
                 return
             if node.engine == "mxu":
-                self.leaf[key] = ntt_mxu.make_mxu_tables(
-                    self.mod, node.m, inverse=self.inverse, device=self.device
-                )
+                with span("sventt.tables.mxu"):
+                    self.leaf[key] = ntt_mxu.make_mxu_tables(
+                        self.mod, node.m, inverse=self.inverse, device=self.device
+                    )
             elif node.engine == "jnp":
                 build = inverse_tables if self.inverse else forward_tables
-                self.leaf[key] = build(self.mod, node.m, modmul=self.fc.modmul, device=self.device)
+                with span("sventt.tables.jnp"):
+                    self.leaf[key] = build(
+                        self.mod, node.m, modmul=self.fc.modmul, device=self.device
+                    )
             else:
-                self.leaf[key] = ntt_pallas.make_leaf_tables(
-                    self.mod, node.m, inverse=self.inverse, modmul=self.fc.modmul,
-                    device=self.device, **self.knobs,
-                )
+                with span("sventt.tables.pallas"):
+                    self.leaf[key] = ntt_pallas.make_leaf_tables(
+                        self.mod, node.m, inverse=self.inverse, modmul=self.fc.modmul,
+                        device=self.device, **self.knobs,
+                    )
             return
         key = (node.m0, node.m1)
         if key not in self.split_tw:
-            self.split_tw[key] = row_twiddles(
-                self.mod, node.m0, node.m1, inverse=self.inverse,
-                w_only=self.split_w_only, modmul=self.fc.modmul, device=self.device,
-            )
+            with span("sventt.tables.twiddle"):
+                self.split_tw[key] = row_twiddles(
+                    self.mod, node.m0, node.m1, inverse=self.inverse,
+                    w_only=self.split_w_only, modmul=self.fc.modmul, device=self.device,
+                )
         if _lane_row(node) and node.m1 not in self.lane:
-            self.lane[node.m1] = ntt_pallas.make_lane_tables(
-                self.mod, node.m1, inverse=self.inverse, modmul=self.fc.modmul,
-                max_r=self.knobs["max_r"], rows=self.rows, device=self.device,
-            )
+            with span("sventt.tables.lane"):
+                self.lane[node.m1] = ntt_pallas.make_lane_tables(
+                    self.mod, node.m1, inverse=self.inverse, modmul=self.fc.modmul,
+                    max_r=self.knobs["max_r"], rows=self.rows, device=self.device,
+                )
         self._prepare(node.col)
         self._prepare(node.row)
 
 
-def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torch.Tensor:
+def _row_step(
+    mat: torch.Tensor, node: Split, tables: PlanTables, batch, depth: int
+) -> torch.Tensor:
     """The row step of a Split on (m0, m1, batch...) data: a row leaf with
     the inter-step twiddle fused into its kernel (prologue forward,
     epilogue inverse) -- lane-axis at the unbatched root, mid-axis when
     batched; a jnp row along axis 1 with the multiply in each chunk -- else
-    the transpose fallback."""
+    the transpose fallback, its row subtree's levels at ``depth`` + 1 on."""
     fc = tables.fc
     tw = tables.split_tw[(node.m0, node.m1)]
     if _jnp_row(node):
@@ -318,14 +332,16 @@ def _row_step(mat: torch.Tensor, node: Split, tables: PlanTables, batch) -> torc
     if _mid_row(node, tables):
         return ntt_pallas.fused_ntt_mid(mat, tables.leaf[(node.m1, "pallas")], fc, tw=tw)
     if not _mxu_row(node):
-        return _transposed_row(mat, node, tables)
+        return _transposed_row(mat, node, tables, depth)
     t = tables.leaf[(node.m1, "mxu")]
     if batch:
         return ntt_mxu.mxu_ntt_mid(mat, t, fc, tw=tw)
     return ntt_mxu.mxu_ntt_lane(mat, t, fc, tw=tw)
 
 
-def _transposed_row(mat: torch.Tensor, node: Split, tables: PlanTables) -> torch.Tensor:
+def _transposed_row(
+    mat: torch.Tensor, node: Split, tables: PlanTables, depth: int
+) -> torch.Tensor:
     """The JAX package's fallback row step (``sventt_tpu/plan/planner.py``
     ``:595-599`` and ``:653-657``): forward, the inter-step multiply, a
     transpose to (m1, m0, batch...), the row transform along the leading
@@ -333,8 +349,8 @@ def _transposed_row(mat: torch.Tensor, node: Split, tables: PlanTables) -> torch
     tw = tables.split_tw[(node.m0, node.m1)]
     if not tables.inverse:
         mat = transpose01(inter_step.mont_mul_bcast(tables.fc, mat, tw))
-        return transpose01(run_forward(mat, node.row, tables))
-    mat = transpose01(run_inverse(transpose01(mat), node.row, tables))
+        return transpose01(run_forward(mat, node.row, tables, depth=depth + 1))
+    mat = transpose01(run_inverse(transpose01(mat), node.row, tables, depth=depth + 1))
     return inter_step.mont_mul_bcast(tables.fc, mat, tw)
 
 
@@ -416,34 +432,42 @@ def _release(donated: torch.Tensor | None) -> None:
 
 
 def run_forward(
-    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None
+    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None,
+    *, depth: int = 0,
 ) -> torch.Tensor:
     """Length-m DIF NTT along the leading axis (bit-reversed output).
     ``donated``: the tensor whose storage ``x`` lies in, released after the
-    first step (the deepest column leaf) has read it."""
+    first step (the deepest column leaf) has read it.  ``depth``: the
+    node's depth from the root, which names its row step's span."""
     if isinstance(node, Leaf):
-        out = _leaf(x, node, tables)
+        with span("sventt.leaf"):
+            out = _leaf(x, node, tables)
         _release(donated)
         return out
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
-    mat = run_forward(mat, node.col, tables, donated)  # column NTTs, leading axis m0
-    mat = _row_step(mat, node, tables, batch)
+    # column NTTs, leading axis m0
+    mat = run_forward(mat, node.col, tables, donated, depth=depth + 1)
+    with span(ROW_SPANS[depth]):
+        mat = _row_step(mat, node, tables, batch, depth)
     return mat.reshape((node.m,) + batch)
 
 
 def run_inverse(
-    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None
+    x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None,
+    *, depth: int = 0,
 ) -> torch.Tensor:
     """Mirror of run_forward: undo the row step, then the column NTTs;
     ``donated`` is released after the first step (the root's row step)."""
     if isinstance(node, Leaf):
-        out = _leaf(x, node, tables)
+        with span("sventt.leaf"):
+            out = _leaf(x, node, tables)
         _release(donated)
         return out
     batch = tuple(x.shape[1:])
     mat = x.reshape((node.m0, node.m1) + batch)
-    mat = _row_step(mat, node, tables, batch)
+    with span(ROW_SPANS[depth]):
+        mat = _row_step(mat, node, tables, batch, depth)
     _release(donated)
-    mat = run_inverse(mat, node.col, tables)
+    mat = run_inverse(mat, node.col, tables, depth=depth + 1)
     return mat.reshape((node.m,) + batch)

@@ -41,6 +41,7 @@ import torch
 
 from ..field.limb import FieldConsts, from_numpy, to_numpy
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import planner
 from .config import NttConfig
 
@@ -112,13 +113,15 @@ class NTT:
         )
         self._fwd_tables = self._inv_tables = None
         if enable_forward:
-            self._fwd_tables = planner.PlanTables(
-                self.plan, self.mod, self.fc, inverse=False, **tables
-            )
+            with span("sventt.tables.forward"):
+                self._fwd_tables = planner.PlanTables(
+                    self.plan, self.mod, self.fc, inverse=False, **tables
+                )
         if enable_inverse:
-            self._inv_tables = planner.PlanTables(
-                self.plan, self.mod, self.fc, inverse=True, **tables
-            )
+            with span("sventt.tables.inverse"):
+                self._inv_tables = planner.PlanTables(
+                    self.plan, self.mod, self.fc, inverse=True, **tables
+                )
 
     # -- public API -----------------------------------------------------------
 
@@ -202,14 +205,16 @@ class NTT:
     def _forward(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
         if self._fwd_tables is None:
             raise RuntimeError("forward transform was not enabled")
-        x = self._check(x, donate)
-        return planner.run_forward(x, self.plan, self._fwd_tables, x if donate else None)
+        with span("sventt.forward"):
+            x = self._check(x, donate)
+            return planner.run_forward(x, self.plan, self._fwd_tables, x if donate else None)
 
     def _inverse(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
         if self._inv_tables is None:
             raise RuntimeError("inverse transform was not enabled")
-        x = self._check(x, donate)
-        return planner.run_inverse(x, self.plan, self._inv_tables, x if donate else None)
+        with span("sventt.inverse"):
+            x = self._check(x, donate)
+            return planner.run_inverse(x, self.plan, self._inv_tables, x if donate else None)
 
     def _check(self, x: torch.Tensor, donate: bool = False) -> torch.Tensor:
         if x.dtype != torch.int64:

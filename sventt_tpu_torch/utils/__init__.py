@@ -3,7 +3,7 @@
 from .cache import cached_ntt, clear_ntt_cache
 from .device import resolve_device
 from .fill import device_fill, host_fill
-from .profiling import phase_breakdown, trace
+from .profiling import phase_breakdown, span, trace
 from .timing import time_chained
 
 __all__ = [
@@ -13,6 +13,7 @@ __all__ = [
     "host_fill",
     "phase_breakdown",
     "resolve_device",
+    "span",
     "time_chained",
     "trace",
 ]

@@ -1,9 +1,29 @@
-"""Profiling hooks: ``torch.profiler`` traces and a per-level timing budget.
+"""Profiling hooks: ``torch.profiler`` traces, the port's spans and a
+per-level timing budget.
 
 The counterpart of ``sventt_tpu/utils/profiling.py``.  ``trace`` writes a
-Chrome trace of the enclosed block; ``phase_breakdown`` times each level of
-a plan as a standalone program at the plan's own shapes, by
+Chrome trace of the enclosed block; ``span`` names a part of the port's
+call path in whatever ``torch.profiler`` profile records (the JAX package
+has no such spans); ``phase_breakdown`` times each level of a plan as a
+standalone program at the plan's own shapes, by
 ``utils.timing.time_chained`` (CUDA-graph replays on the card).
+
+The spans, all static names:
+
+* ``sventt.forward`` / ``sventt.inverse``: a call into ``NTT``, its input
+  check and the planner's walk;
+* ``sventt.row.L<k>`` (k the depth from the root, 0 the root) and
+  ``sventt.leaf``: a plan level's row step and the column leaf;
+* ``sventt.launch.<kernel>``: a kernel's launch on the host, argument
+  building, geometry and the C call, ``<kernel>`` the key its launch is
+  counted under (``tensor_core``, ``dp4a``, ``radix2_registers``,
+  ``radix2_stages``, ``registers``, ``ranks``, ``inter_step``, ``plane``,
+  ``pair``, ``ring``, ``fused``);
+* ``sventt.convolve`` and ``sventt.convolve.pointwise``: a cyclic product
+  and its pointwise step;
+* ``sventt.tables.forward`` / ``.inverse``: a direction's tables in
+  ``NTT(...)``, and inside them ``sventt.tables.mxu``, ``.pallas``,
+  ``.lane``, ``.jnp`` and ``.twiddle``, one a table.
 """
 
 from __future__ import annotations
@@ -12,6 +32,18 @@ import contextlib
 import math
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler records,
+    else a shared null context: with no profiler a span costs one attribute
+    read (a bare ``record_function`` costs microseconds even then)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 @contextlib.contextmanager
@@ -25,6 +57,10 @@ def trace(log_dir: str):
         with trace("/tmp/ntt-trace"):
             ntt.compute_forward(x)
             torch.cuda.synchronize()
+
+    The trace holds the port's ``sventt.*`` spans (see the module
+    docstring) around the calls, and around ``NTT(...)`` built inside the
+    block.
     """
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
