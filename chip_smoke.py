@@ -852,6 +852,74 @@ def inter_step_cases(device, rng):
     return worst
 
 
+def pointwise_cases(device, rng):
+    """The pointwise product kernel (``ops/pointwise.py``, ``csrc/pointwise.cu``)
+    vs its plain composition, bitwise, for the flagship (canonical), TEST
+    (lazy, inputs below 2N) and Goldilocks moduli: 2^24 words, an odd total,
+    both operands a view offset by one word (the scalar head), only one so
+    (the scalar path), a batch (n, 4); the edge values 0, 1, N - 1 first.
+    Then one flagship 2^24 product through ``cyclic_convolve`` against the
+    same transforms around the plain step, with one launch.  Returns
+    (the largest mismatch, the product's launches)."""
+    import numpy as np
+
+    from sventt_tpu_torch.apps.convolve import cyclic_convolve
+    from sventt_tpu_torch.field.limb import FieldConsts, from_numpy
+    from sventt_tpu_torch.field.modulus import GOLDILOCKS_MODULUS, Modulus
+    from sventt_tpu_torch.ops import pointwise
+    from sventt_tpu_torch.plan import NTT, NttConfig
+
+    flag, test = moduli()
+    n24 = 1 << 24
+    worst, calls = 0, 0
+    pointwise.reset_counts()
+    for mod in (flag, test, Modulus(GOLDILOCKS_MODULUS, 7)):
+        fc = FieldConsts.from_modulus(mod)
+        N, r2 = mod.modulus, mod.montgomery_r2
+        top = 2 * N if fc.lazy else N
+        edges = [0, 1, N - 1] + ([N, 2 * N - 1] if fc.lazy else [])
+        ea = np.array([x for x in edges for _ in edges], dtype=np.uint64)
+        eb = np.array([y for _ in edges for y in edges], dtype=np.uint64)
+        a = rand_u64(rng, (n24 + 1,), device, below=top)
+        b = rand_u64(rng, (n24 + 1,), device, below=top)
+        a[: ea.size], b[: eb.size] = from_numpy(ea, device), from_numpy(eb, device)
+        for label, x, y in (
+            ("2^24", a[:n24], b[:n24]),
+            ("2^24 - 3 (odd)", a[: n24 - 3], b[: n24 - 3]),
+            ("2^24 both offset one word", a[1:], b[1:]),
+            ("2^24 one offset one word", a[1:], b[:n24]),
+            ("(2^22, 4)", a[:n24].view(1 << 22, 4), b[:n24].view(1 << 22, 4)),
+            ("7 words", a[:7], b[:7]),
+        ):
+            got = pointwise.mont_product(fc, x, y, r2)
+            calls += 1
+            want = pointwise.mont_product_plain(fc, x, y, r2)
+            sync(device)
+            err = mismatch(got, want)
+            worst = max(worst, err)
+            log(f"  pointwise {label} N={N:#x}{' (lazy)' if fc.lazy else ''}: "
+                f"{int((got != want).sum())} words differ")
+            check(err <= TOL and got.shape == x.shape, f"pointwise {label} N={N:#x}: kernel != plain")
+        del a, b, got, want
+    check(pointwise.LAUNCHES["pointwise"] == calls and pointwise.PLAIN_CALLS["pointwise"] == 0,
+          f"pointwise: {pointwise.LAUNCHES} launches, {pointwise.PLAIN_CALLS} plain calls "
+          f"for {calls} calls")
+    ntt = NTT(NttConfig(flag.modulus, flag.generator, n24), device=device)
+    x = rand_u64(rng, (n24,), device, below=flag.modulus)
+    y = rand_u64(rng, (n24,), device, below=flag.modulus)
+    fc = ntt.fc
+    want = ntt.compute_inverse(pointwise.mont_product_plain(
+        fc, ntt.compute_forward(x), ntt.compute_forward(y), flag.montgomery_r2))
+    pointwise.reset_counts()
+    got = cyclic_convolve(ntt, x, y)
+    sync(device)
+    launches = pointwise.LAUNCHES["pointwise"]
+    log(f"  cyclic_convolve 2^24 flagship: {launches} pointwise launch, "
+        f"{int((got != want).sum())} words differ from the plain step's product")
+    check(launches == 1 and mismatch(got, want) == 0, "cyclic_convolve: != the plain step's")
+    return worst, launches
+
+
 def corner_data(shape, mod, rng):
     """u64 data of ``shape`` whose leading rows cycle through JAX's corner
     values of the Solinas fold (0, 1, N - 1, N, 2^63, 2^64 - 1), the rest
@@ -1027,11 +1095,12 @@ def count_planner_transposes() -> None:
 
 def _counted_modules() -> dict:
     from sventt_tpu_torch.experimental import mxu_fused_kernel
-    from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, transpose
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu, ntt_pallas, pointwise, transpose
     from sventt_tpu_torch.parallel import ring
 
     return {"mxu": ntt_mxu, "pallas": ntt_pallas, "inter_step": inter_step,
-            "transpose": transpose, "ring": ring, "fused": mxu_fused_kernel}
+            "transpose": transpose, "ring": ring, "fused": mxu_fused_kernel,
+            "pointwise": pointwise}
 
 
 def counts():
@@ -1503,6 +1572,7 @@ def pipeline_run(device, smi: str) -> dict:
         check(all(c["launches"]["mxu"][k] > 0 for k in orients)
               and mxu_on_tensor_cores(c) and no_plain(c),
               f"{label}: not every mxu orientation ran on the tensor cores, or a plain version ran")
+        check(c["launches"]["pointwise"]["pointwise"] > 0, f"{label}: no pointwise launch")
         secs[label] = (total, host)
     return secs
 
@@ -1917,6 +1987,12 @@ def inter_step_bound(points: int, tw_points: int, tw: str) -> tuple[float, str]:
     return bound(16 * points + tw_bytes, points * per_point / IMAD_PER_S)
 
 
+def pointwise_bound(points: int) -> tuple[float, str]:
+    """The pointwise product: 8 bytes a point of each operand in, 8 out,
+    against two Montgomery products a point at ``MONT_RATE``'s high end."""
+    return bound(24 * points, 2 * points / MONT_RATE[1])
+
+
 def ab_level(device, fc, out: dict, bounds: dict, own: dict) -> None:
     """The round-5 A/B harnesses of the JAX package, timed by CUDA events:
     experimental/r5_s8_ab.py (s8 against u7; the pair twiddle fused into
@@ -2011,7 +2087,7 @@ def times(device, ntts, rng):
 
     from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
     from sventt_tpu_torch.field.limb import FieldConsts
-    from sventt_tpu_torch.ops import inter_step, ntt_mxu
+    from sventt_tpu_torch.ops import inter_step, ntt_mxu, pointwise
     from sventt_tpu_torch.ops import ntt_pallas as P
     from sventt_tpu_torch.ops import transpose as T
     from sventt_tpu_torch.ops.transpose import transpose01
@@ -2283,6 +2359,12 @@ def times(device, ntts, rng):
     views = MontPair(twm.w.unsqueeze(2), None)
     kernel("inter-step 256x256x256 solinas", lambda: inter_step.mont_mul_bcast(fcs, xm, twms),
            lambda: inter_step_mul(fcs, xm, views), inter_step_bound(n24, 65536, "solinas"))
+    # the pointwise product of cyclic_convolve at 2^24, as a CUDA-graph replay
+    xa, xb = (rand_u64(rng, (n24,), device, below=flag.modulus) for _ in range(2))
+    kernel("pointwise 2^24", lambda: pointwise.mont_product(fc, xa, xb, flag.montgomery_r2),
+           lambda: pointwise.mont_product_plain(fc, xa, xb, flag.montgomery_r2),
+           pointwise_bound(n24), graph=True)
+    del xa, xb
     # the blocked transpose at the root-row shape: u64 (K9b), u32 plane (K9a)
     plane = xr.view(torch.int32)[:, :256].contiguous()
     for key, fn, x in (("K9b transpose_u64 65536x256 int64",
@@ -2444,6 +2526,7 @@ def main() -> int:
     worst["pallas"].update(grouped_kernel_cases(device, rng))
     worst["transpose"] = transpose_cases(device, rng)
     worst["inter_step"] = inter_step_cases(device, rng)
+    worst["pointwise"], pointwise_launches = pointwise_cases(device, rng)
     worst["solinas"] = solinas_kernel_cases(device, rng)
     worst["ring"] = ring_cases(device, rng)
     torch.cuda.empty_cache()
@@ -2836,6 +2919,10 @@ def main() -> int:
         "Pallas kernel)", "inter-step 256x256x256 solinas", "inter_step.cu",
         "sventt_tpu/plan/planner.py:376", c_ss["launches"]["inter_step"]["inter_step"],
         ws["inter_step"]))
+    record["kernels"].append(entry(
+        "pointwise product of cyclic_convolve (an XLA pass there, not a Pallas kernel)",
+        "pointwise 2^24", "pointwise.cu", "sventt_tpu/apps/convolve.py:38", pointwise_launches,
+        worst["pointwise"]))
     record["kernels"].append(entry(
         "K11 fused u7 prototype, 128 points (mxu_fused_ntt; the u7 lead form on the int8 "
         "tensor cores)", "K11 fused 128x32768", "ntt_mxu_tc_u7.cu", "experimental/mxu_fused_kernel.py:91",

@@ -105,7 +105,7 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from .ops import inter_step, ntt_mxu, ntt_pallas, transpose
+            from .ops import inter_step, ntt_mxu, ntt_pallas, pointwise, transpose
             from .parallel import ring
 
             sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
@@ -124,6 +124,7 @@ def load() -> ctypes.CDLL:
                 (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_REG_ARGTYPES),
                 (lib.sventt_grouped_ntt_ranks, ntt_pallas._GROUPED_ARGTYPES),
                 (lib.sventt_inter_step_mul, inter_step._ARGTYPES),
+                (lib.sventt_pointwise_mont_mul, pointwise._ARGTYPES),
                 (lib.sventt_transpose, transpose._ARGTYPES),
                 (lib.sventt_ring_all_to_all, ring._ARGTYPES),
                 (lib.sventt_enable_peer_access, ring._PEER_ARGTYPES),

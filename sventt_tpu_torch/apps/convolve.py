@@ -4,8 +4,11 @@ The counterpart of ``sventt_tpu/apps/convolve.py``: forward NTT both
 operands, convert one spectrum to the Montgomery domain, multiply
 pointwise, inverse NTT.  The forward output is bit-reversed and the inverse
 consumes exactly that order, so the pointwise product needs no reordering.
+The pointwise step is ``ops.pointwise.mont_product``: one kernel launch
+(``csrc/pointwise.cu``) on card tensors, plain torch ops on CPU ones.
 Duck-typed over ``plan.NTT`` (one tensor) and ``parallel.DistributedNTT``
-(a list of shards, the pointwise steps run shard by shard).
+(a list of shards, the pointwise steps run shard by shard, each on its
+shard's device).
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field.limb import from_numpy, s64, to_numpy
+from ..field.limb import from_numpy, to_numpy
+from ..ops.pointwise import mont_product
 from ..plan import NTT, NttConfig
 from ..utils.profiling import span
 
@@ -34,21 +38,14 @@ def cyclic_convolve(ntt, a, b):
     ``sventt.convolve`` around the product, ``sventt.convolve.pointwise``
     around its pointwise step (every shard's)."""
     with span("sventt.convolve"):
-        fc = ntt.fc
-        r2 = s64(ntt.mod.montgomery_r2)
-
-        def pointwise(fa: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
-            fb_mont = fc.mont_mul_full(fb, torch.full_like(fb, r2))  # to Montgomery domain
-            prod = fc.mont_mul_full(fa, fb_mont)
-            return fc.normalize(prod) if fc.lazy else prod
-
+        fc, r2 = ntt.fc, ntt.mod.montgomery_r2
         fa = ntt.compute_forward(a)
         fb = ntt.compute_forward(b)
         with span("sventt.convolve.pointwise"):
             if isinstance(fa, torch.Tensor):
-                prod = pointwise(fa, fb)
+                prod = mont_product(fc, fa, fb, r2)
             else:
-                prod = [pointwise(x, y) for x, y in zip(fa, fb)]
+                prod = [mont_product(fc, x, y, r2) for x, y in zip(fa, fb)]
         return ntt.compute_inverse(prod)
 
 

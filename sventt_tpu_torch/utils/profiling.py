@@ -18,9 +18,10 @@ The spans, all static names:
   building, geometry and the C call, ``<kernel>`` the key its launch is
   counted under (``tensor_core``, ``dp4a``, ``radix2_registers``,
   ``radix2_stages``, ``registers``, ``ranks``, ``inter_step``, ``plane``,
-  ``pair``, ``ring``, ``fused``);
+  ``pair``, ``ring``, ``fused``, ``pointwise``);
 * ``sventt.convolve`` and ``sventt.convolve.pointwise``: a cyclic product
-  and its pointwise step;
+  and its pointwise step (on the card, one ``sventt.launch.pointwise`` a
+  tensor or shard);
 * ``sventt.tables.forward`` / ``.inverse``: a direction's tables in
   ``NTT(...)``, and inside them ``sventt.tables.mxu``, ``.pallas``,
   ``.lane``, ``.jnp`` and ``.twiddle``, one a table.
