@@ -48,7 +48,14 @@ Phases, each printing its own lines:
    also on the A/B point), and the
    inter-step pass -- on the flagship and the Goldilocks modulus, with
    JAX's corner values of the fold (0, 1, N - 1, N, 2^63, 2^64 - 1)
-   against the twiddle N - 1 and random ones;
+   against the twiddle N - 1 and random ones; the multi-modular (RNS)
+   path at the benchmark's ``rns32-2p17`` size (``rns_cases``: 32 limbs
+   of 64-bit primes at 2^17, forward, inverse and product against the
+   plain composition of the stacked tables and against each limb's
+   single-modulus NTT, one launch a level carrying 32 limbs (``LIMBS``),
+   a batched mid shape and two lazy limbs against the plain versions, and
+   the limb-axis launches' graph replays beside one limb's and 32 limbs'
+   single-modulus launches);
 4. paths: the matrix engine (the default, ``engine="auto"``), the
    butterfly engine (``engine="pallas"``) and the grouped butterfly engine
    (``engine="pallas", max_r=3``) at n = 2^17, 2^24 and 2^26 on the
@@ -918,6 +925,147 @@ def pointwise_cases(device, rng):
         f"{int((got != want).sum())} words differ from the plain step's product")
     check(launches == 1 and mismatch(got, want) == 0, "cyclic_convolve: != the plain step's")
     return worst, launches
+
+
+def rns_cases(device, rng):
+    """Multi-modular (RNS) transforms, one launch a level for every limb:
+    the 32 limbs of the benchmark's ``rns32-2p17`` configuration at 2^17
+    (K1 leaf and the K3 lane root with the limb axis, and the pointwise
+    kernel's), forward, inverse and ``cyclic_convolve`` against the plain
+    composition of the same stacked tables on the card and against each
+    limb's single-modulus ``NTT``, 0 words differing; the counts (one launch
+    a level, ``LIMBS`` 32 a launch); the limb kernels against their plain
+    versions at a batched mid shape and with two lazy limbs; then the
+    graph-replay times of the limb-axis launches beside one limb's
+    single-modulus launch and beside 32 of them, in this call."""
+    import os
+
+    import torch
+
+    from sventt_tpu_torch.apps.convolve import cyclic_convolve
+    from sventt_tpu_torch.field.modulus import Modulus
+    from sventt_tpu_torch.ops import ntt_mxu, pointwise
+    from sventt_tpu_torch.plan import NTT, NttConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "bench_port", "configs", "rns32-2p17.json")) as f:
+        cell = json.load(f)
+    qs, gs, n = tuple(cell["moduli"]), tuple(cell["generators"]), cell["n"]
+    L, m0, m1 = len(qs), 256, 512
+    t0 = time.perf_counter()
+    ntt = NTT(NttConfig(qs, gs, n), device=device)
+    sync(device)
+    log(f"  {L} limbs at 2^17: NTT(...) in {time.perf_counter() - t0:.3f} s; {ntt.describe()!r}")
+    singles = [NTT(NttConfig(q, g, n), device=device) for q, g in zip(qs, gs)]
+    x = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
+    y = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
+    x[:, n // 2:] = 0
+    y[:, n // 2:] = 0
+    fwd, inv = ntt._fwd_tables, ntt._inv_tables
+    fc = ntt.fc
+
+    def plain_forward(v):
+        mat = ntt_mxu.mxu_plain(v.reshape(L, m0, m1), fwd.leaf[(m0, "mxu")], fc)
+        return ntt_mxu.mxu_plain(mat, fwd.leaf[(m1, "mxu")], fc, fwd.split_tw[(m0, m1)],
+                                 lane=True).reshape(L, n)
+
+    def plain_inverse(v):
+        mat = ntt_mxu.mxu_plain(v.reshape(L, m0, m1), inv.leaf[(m1, "mxu")], fc,
+                                inv.split_tw[(m0, m1)], lane=True)
+        return ntt_mxu.mxu_plain(mat, inv.leaf[(m0, "mxu")], fc).reshape(L, n)
+
+    def plain_product(a, b):
+        fa, fb = plain_forward(a), plain_forward(b)
+        return plain_inverse(torch.stack([
+            pointwise.mont_product_plain(f, u, w, pow(2, 128, f.modulus))
+            for f, u, w in zip(fc.limbs, fa, fb)]))
+
+    reset_counts()
+    got_f = ntt.compute_forward(x)
+    sync(device)
+    c_f = (dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS), dict(ntt_mxu.LAUNCHES))
+    reset_counts()
+    got_p = cyclic_convolve(ntt, x, y)
+    sync(device)
+    c_p = (dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS), dict(pointwise.LAUNCHES),
+           dict(pointwise.LIMBS))
+    got_i = ntt.compute_inverse(got_f)
+    for name, got, plain, single in (
+        ("forward", got_f, plain_forward(x), lambda i: singles[i].compute_forward(x[i])),
+        ("inverse", ntt.compute_inverse(y), plain_inverse(y),
+         lambda i: singles[i].compute_inverse(y[i])),
+        ("product", got_p, plain_product(x, y), lambda i: cyclic_convolve(singles[i], x[i], y[i])),
+    ):
+        per_limb = torch.stack([single(i) for i in range(L)])
+        sync(device)
+        d_plain, d_single = int((got != plain).sum()), int((got != per_limb).sum())
+        log(f"  {L}-limb 2^17 {name}: {d_plain} words differ from the plain composition, "
+            f"{d_single} from each limb's single-modulus NTT")
+        check(d_plain == 0 and d_single == 0, f"rns {name}: != the plain path / the single limbs")
+    check(torch.equal(got_i, x), "rns roundtrip not exact")
+    log(f"  forward: launches {c_f[0]}, limbs {c_f[1]}, per orientation {c_f[2]}")
+    log(f"  product: mxu launches {c_p[0]}, limbs {c_p[1]}; pointwise launches {c_p[2]}, "
+        f"limbs {c_p[3]}")
+    check(c_f[0]["tensor_core"] == 2 and c_f[1]["tensor_core"] == 2 * L
+          and c_f[2] == {"lead": 1, "mid": 0, "lane": 1},
+          "rns forward: not one launch a level carrying every limb")
+    check(c_p[0]["tensor_core"] == 6 and c_p[1]["tensor_core"] == 6 * L
+          and c_p[2] == {"pointwise": 1} and c_p[3] == {"pointwise": L},
+          "rns product: not one launch a level and one pointwise launch for every limb")
+    # the limb kernels vs their plain versions: a batched mid shape (K2 with
+    # the limb axis), and two lazy limbs (the lane inverse without the
+    # staged epilogue)
+    lazy = ((0x3A00_0000_0000_0001, 3), (0x3FFF_C000_0000_0001, 11))
+    for label, lg, nn, batch in (("4 limbs 2^12 batch 3 (mid)", list(zip(qs[:4], gs[:4])),
+                                  1 << 12, (3,)),
+                                 ("2 lazy limbs 2^17", list(lazy), 1 << 17, ())):
+        cfg = NttConfig(tuple(q for q, _ in lg), tuple(g for _, g in lg), nn)
+        card, cpu = NTT(cfg, device=device), NTT(cfg, device="cpu")
+        v = torch.stack([rand_u64(rng, (nn,) + batch, device, below=q) for q, _ in lg])
+        fv = card.compute_forward(v)
+        iv = card.compute_inverse(v)
+        d = int((fv.cpu() != cpu.compute_forward(v.cpu())).sum())
+        d += int((iv.cpu() != cpu.compute_inverse(v.cpu())).sum())
+        log(f"  {label}: {d} words differ from the plain versions ({card.describe(bool(batch))!r})")
+        check(d == 0, f"rns {label}: kernel != plain")
+    # graph replays: the limb axis beside one limb's launch and 32 of them
+    k1, k3f, k3i = fwd.leaf[(m0, "mxu")], fwd.leaf[(m1, "mxu")], inv.leaf[(m1, "mxu")]
+    s1 = [s._fwd_tables.leaf[(m0, "mxu")] for s in singles]
+    s3f = [s._fwd_tables.leaf[(m1, "mxu")] for s in singles]
+    s3i = [s._inv_tables.leaf[(m1, "mxu")] for s in singles]
+    twf, twi = fwd.split_tw[(m0, m1)], inv.split_tw[(m0, m1)]
+    stwf = [s._fwd_tables.split_tw[(m0, m1)] for s in singles]
+    stwi = [s._inv_tables.split_tw[(m0, m1)] for s in singles]
+    xs = x.reshape(L, m0, m1)
+    fa, fb = ntt.compute_forward(x), ntt.compute_forward(y)
+    cases = {
+        "K1 leaf (256, 512)": (
+            lambda: ntt_mxu.mxu_ntt(xs, k1, fc),
+            lambda i: ntt_mxu.mxu_ntt(xs[i], s1[i], singles[i].fc)),
+        "K3 lane root fwd (256 x 512)": (
+            lambda: ntt_mxu.mxu_ntt_lane(xs, k3f, fc, twf),
+            lambda i: ntt_mxu.mxu_ntt_lane(xs[i], s3f[i], singles[i].fc, stwf[i])),
+        "K3 lane root inv (256 x 512)": (
+            lambda: ntt_mxu.mxu_ntt_lane(xs, k3i, fc, twi),
+            lambda i: ntt_mxu.mxu_ntt_lane(xs[i], s3i[i], singles[i].fc, stwi[i])),
+        "pointwise 2^17": (
+            lambda: pointwise.mont_product(fc, fa, fb, None),
+            lambda i: pointwise.mont_product(singles[i].fc, fa[i], fb[i],
+                                             singles[i].mod.montgomery_r2)),
+        "product 2^17": (
+            lambda: cyclic_convolve(ntt, x, y),
+            lambda i: cyclic_convolve(singles[i], x[i], y[i])),
+    }
+    times = {}
+    for name, (limbs, one) in cases.items():
+        t_l = timed_graph(limbs, 3, 20)
+        t_1 = timed_graph(lambda: one(0), 3, 20)
+        t_32 = timed_graph(lambda: [one(i) for i in range(L)], 3, 20)
+        times[name] = (t_l, t_1, t_32)
+        log(f"  [rns A/B] {name}: {L} limbs in one launch {t_l:.4f} ms; one limb's "
+            f"single-modulus launch {t_1:.4f} ms; {L} of those {t_32:.4f} ms (graph replays)")
+    del ntt, singles, x, y, fa, fb, got_f, got_p, got_i
+    return times
 
 
 def corner_data(shape, mod, rng):
@@ -2482,12 +2630,13 @@ def main() -> int:
     native.load()
     log(f"[build] kernels + oracle in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {kernel_build['seconds']:.1f} s, one process per source)")
-    # the redesigned kernels: the tensor-core matrix kernel (68
+    # the redesigned kernels: the tensor-core matrix kernel (87
     # instantiations: s8's 24 -- the strided form's 11: no twiddle, pair
     # and w in both directions, lazy or not, Solinas in both directions;
     # the lane form's 11; the staged lane epilogue's 2, the pair inverse,
-    # lazy or not -- and u7's 22 for each of its 16- and 32-column blocks,
-    # no staged form), the grouped register kernel (36 instantiations: INV x {Montgomery, lazy
+    # lazy or not -- u7's 22 for each of its 16- and 32-column blocks,
+    # no staged form, and the limb axis's 19: csrc/ntt_mxu_tc_limbs.cu,
+    # s8's less Solinas and the lazy staged epilogue), the grouped register kernel (36 instantiations: INV x {Montgomery, lazy
     # Montgomery, Shoup} x {lane, leaf swizzled, leaf not} x groups of up to
     # 3 or 4 ranks) and the radix-2 register kernel (48: INV x {Montgomery,
     # lazy Montgomery, Shoup, Solinas} x {lane, leaf / mid swizzled, leaf /
@@ -2504,8 +2653,8 @@ def main() -> int:
             check("0 bytes spill stores, 0 bytes spill loads" in line,
                   f"a redesigned kernel spills: {entry.strip()}: {line.strip()}")
     cached = kernel_build["log"] == "(cached)"
-    check(cached or entries["mxu_tc_kernel"] == 68,
-          f"{entries['mxu_tc_kernel']} -Xptxas -v entries of the tensor-core kernel, not 68")
+    check(cached or entries["mxu_tc_kernel"] == 87,
+          f"{entries['mxu_tc_kernel']} -Xptxas -v entries of the tensor-core kernel, not 87")
     check(cached or entries["grouped_reg_kernel"] == 36,
           f"{entries['grouped_reg_kernel']} -Xptxas -v entries of the grouped register kernel, "
           "not 36")
@@ -2527,6 +2676,8 @@ def main() -> int:
     worst["transpose"] = transpose_cases(device, rng)
     worst["inter_step"] = inter_step_cases(device, rng)
     worst["pointwise"], pointwise_launches = pointwise_cases(device, rng)
+    log("[rns] 32 limbs of 64-bit primes at 2^17, one launch a level for every limb")
+    rns_cases(device, rng)
     worst["solinas"] = solinas_kernel_cases(device, rng)
     worst["ring"] = ring_cases(device, rng)
     torch.cuda.empty_cache()

@@ -34,11 +34,14 @@ def make_convolver(modulus: int, generator: int, n: int, *, device=None, **cfg_k
 
 def cyclic_convolve(ntt, a, b):
     """Length-n cyclic convolution of two vectors in the plain domain: int64
-    tensors on the NTT's device, or shard lists of a DistributedNTT.  Spans
+    tensors on the NTT's device, or shard lists of a DistributedNTT; on an
+    NTT of L limbs, (L, n) tensors multiplied limb by limb, each step one
+    launch for all limbs.  Spans
     ``sventt.convolve`` around the product, ``sventt.convolve.pointwise``
     around its pointwise step (every shard's)."""
     with span("sventt.convolve"):
-        fc, r2 = ntt.fc, ntt.mod.montgomery_r2
+        # an NTT of several limbs has no one modulus: each limb's R^2 is its own
+        fc, r2 = ntt.fc, None if ntt.mod is None else ntt.mod.montgomery_r2
         fa = ntt.compute_forward(a)
         fb = ntt.compute_forward(b)
         with span("sventt.convolve.pointwise"):

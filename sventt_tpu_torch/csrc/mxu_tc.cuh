@@ -82,6 +82,19 @@
 // spills there too (2% faster all the same, PERF.md section 6), so u7 has
 // no staged form.
 //
+// Limbs (LIMBS, csrc/ntt_mxu_tc_limbs.cu): a multi-modular call carries L
+// limbs, one modulus each, in one launch.  Its A slices are the limbs'
+// (slice a is limb a / apl: the lead form's L, the mid form's L * A', the
+// lane forms' L, one a limb, at stride sa); the matrix planes are stacked a
+// limb's tiles after another (tile_bytes apart), corr a limb's m words after
+// another, and the constants a row of the limb table
+// (field/limb.py::LIMB_COLUMNS) per limb.  At the top of each slice the
+// block copies its limb's constants into shared memory; every use reads
+// them there (after the barriers of the loop), where the single-modulus
+// instantiations take them as kernel arguments.  The tensor-core tile never
+// mixes moduli: a slice is one limb's.  L = 1 keeps the instantiations
+// without LIMBS, and their launch geometry.
+//
 // Exactness without .satfinite: s8, each partial sum of a plane is a sum
 // of at most 8m products of two int8 values in [-128, 127], so it is
 // bounded like the plane itself, |P| <= 8 * m * 2^14 = m << 17 < 2^28 at
@@ -159,6 +172,57 @@ struct Geo {
            (lane == 2 ? 8LL * nt * sw : 0);
   }
 };
+
+// A multi-modular call's limbs (unread without LIMBS): the limb table
+// (field/limb.py::LIMB_COLUMNS: N, N^-1 mod 2^64, 2^128 mod N, floor(2^64 /
+// N), nsub, barrett, R^2 mod N, 0 a limb), the slices a limb, and one limb's
+// bytes of ring tiles.
+struct Limbs {
+  const unsigned long long *table;
+  long long apl;
+  long long tile_bytes;
+};
+
+// The block's limb and its constants, in shared memory.
+struct LimbSlice {
+  Consts k;
+  long long limb;
+};
+
+__device__ __forceinline__ LimbSlice &limb_slice() {
+  __shared__ LimbSlice s;
+  return s;
+}
+
+// Thread 0 copies slice a's limb and its constants in (a barrier follows).
+__device__ __forceinline__ void limb_load(const Limbs &lb, long long a) {
+  LimbSlice &s = limb_slice();
+  const long long limb = a / lb.apl;
+  const unsigned long long *c = lb.table + 8 * limb;
+  s.k = Consts{c[0], c[1], c[2], c[3], c[1], (int)c[4], (int)c[5]};
+  s.limb = limb;
+}
+
+// The constants of the call (the kernel's argument) or of the block's limb.
+template <bool LIMBS>
+__device__ __forceinline__ const Consts &slice_consts(const Consts &k) {
+  if constexpr (LIMBS) return limb_slice().k;
+  return k;
+}
+
+// The matrix planes' tiles and corr of the block's limb.
+template <bool LIMBS>
+__device__ __forceinline__ const signed char *slice_tiles(const signed char *tiles,
+                                                          const Limbs &lb) {
+  if constexpr (LIMBS) return tiles + limb_slice().limb * lb.tile_bytes;
+  return tiles;
+}
+
+template <bool LIMBS>
+__device__ __forceinline__ const long long *slice_corr(const long long *corr, int m) {
+  if constexpr (LIMBS) return corr + limb_slice().limb * m;
+  return corr;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void *p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -260,15 +324,17 @@ __device__ __forceinline__ void u7_words(int (&acc)[NOUT][4], u64 (&W)[4][6], in
 // (A = 1, sm = tm = 1, 16-byte aligned), epilogue from the fragment; 2 the
 // same with the staged epilogue.  `tiles`: the matrix planes in the
 // ring-tile layout of ops/ntt_mxu.py::tc_plane_tiles.  `corr`: s8's, unread
-// under u7.
-template <bool U7, int NT, int TW, bool INV, bool LAZY, int LANE>
+// under u7.  LIMBS: the slices are stacked limbs' (`lb`; `k_arg` unread).
+template <bool U7, int NT, int TW, bool INV, bool LAZY, int LANE, bool LIMBS>
 __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
     mxu_tc_kernel(const long long *__restrict__ x, long long *__restrict__ out,
                   const signed char *__restrict__ tiles, const long long *__restrict__ corr,
                   const long long *__restrict__ tw_w, const long long *__restrict__ tw_wp,
                   long long A, int m, long long B, long long sa, long long sm, long long sb,
-                  long long ta, long long tm, long long tb, int nt_arg, int split, Consts k) {
+                  long long ta, long long tm, long long tb, int nt_arg, int split, Consts k_arg,
+                  Limbs lb) {
   constexpr int NPL = Tc<U7>::NPL, NOUT = Tc<U7>::NOUT, BG = Tc<U7>::BG;
+  const Consts &k = slice_consts<LIMBS>(k_arg);
   extern __shared__ __align__(128) unsigned char smem[];
   const int nt = NT != 0 ? NT : nt_arg;
   const Geo<U7> g(m, nt, LANE);
@@ -299,11 +365,18 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
 
   for (long long a = blockIdx.y; a < A; a += gridDim.y) {
     __syncthreads();  // the previous slice is done with S and the ring
+    if constexpr (LIMBS) {
+      if (threadIdx.x == 0) limb_load(lb, a);
+      __syncthreads();
+    }
+    // a lane form's slice offsets (only stacked limbs have more than one)
+    const long long xa = LIMBS ? a * sa : 0, twa = LIMBS ? a * ta : 0;
     // the matrix planes do not depend on the data: start the ring first
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < T)
-        load_tile(ring + s * stage_bytes, tiles, stage_bytes, ks_n, rg0 + s / ks_n, s % ks_n);
+        load_tile(ring + s * stage_bytes, slice_tiles<LIMBS>(tiles, lb), stage_bytes, ks_n,
+                  rg0 + s / ks_n, s % ks_n);
       cp_commit();
     }
     // Prologue: a warp item is 8 columns x 4 point quads, one (column,
@@ -321,11 +394,11 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
         // the quad's 4 points are contiguous, and 4 | m puts all or none of
         // them below m
         if (4 * q < m && col < B) {
-          load4(v, x + col * sb + 4 * q);
+          load4(v, x + xa + col * sb + 4 * q);
           if constexpr (TW != 0 && !INV) {
             u64 w[4], wp[4] = {0, 0, 0, 0};
-            load4(w, tw_w + col * tb + 4 * q);
-            if constexpr (TW == 1) load4(wp, tw_wp + col * tb + 4 * q);
+            load4(w, tw_w + twa + col * tb + 4 * q);
+            if constexpr (TW == 1) load4(wp, tw_wp + twa + col * tb + 4 * q);
 #pragma unroll
             for (int i = 0; i < 4; ++i) v[i] = mxu::twiddle_by<TW, LAZY>(v[i], w[i], wp[i], k);
           }
@@ -364,8 +437,8 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
       {
         const int nx = it + STAGES - 1;
         if (nx < T)
-          load_tile(ring + (nx % STAGES) * stage_bytes, tiles, stage_bytes, ks_n, rg0 + nx / ks_n,
-                    nx % ks_n);
+          load_tile(ring + (nx % STAGES) * stage_bytes, slice_tiles<LIMBS>(tiles, lb),
+                    stage_bytes, ks_n, rg0 + nx / ks_n, nx % ks_n);
         cp_commit();
       }
       const int row_group = rg0 + it / ks_n, ks = it % ks_n;
@@ -412,7 +485,7 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
         for (int hr = 0; hr < 2; ++hr) {
           const int r = wr * 16 + (ln >> 2) + 8 * hr, p = p0 + (ln >> 2) + 8 * hr;
           if (p < m) {
-            const u64 cp = U7 ? 0ull : (u64)corr[p];
+            const u64 cp = U7 ? 0ull : (u64)slice_corr<LIMBS>(corr, m)[p];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int c = wc * WCOLS + 2 * (ln & 3) + e;
@@ -429,14 +502,15 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
             const ulonglong2 s = *reinterpret_cast<const ulonglong2 *>(st + c * g.sw + r);
             u64 v0 = s.x, v1 = s.y;
             if constexpr (TW != 0 && INV) {
-              const longlong2 w = __ldg(reinterpret_cast<const longlong2 *>(tw_w + col * tb + p));
+              const longlong2 w =
+                  __ldg(reinterpret_cast<const longlong2 *>(tw_w + twa + col * tb + p));
               longlong2 wp = make_longlong2(0, 0);
               if constexpr (TW == 1)
-                wp = __ldg(reinterpret_cast<const longlong2 *>(tw_wp + col * tb + p));
+                wp = __ldg(reinterpret_cast<const longlong2 *>(tw_wp + twa + col * tb + p));
               v0 = mxu::twiddle_by<TW, LAZY>(v0, (u64)w.x, (u64)wp.x, k);
               v1 = mxu::twiddle_by<TW, LAZY>(v1, (u64)w.y, (u64)wp.y, k);
             }
-            *reinterpret_cast<longlong2 *>(out + col * sb + p) =
+            *reinterpret_cast<longlong2 *>(out + xa + col * sb + p) =
                 make_longlong2((long long)v0, (long long)v1);
           }
         }
@@ -452,7 +526,7 @@ __global__ void __launch_bounds__(THREADS, Tc<U7>::MIN_BLOCKS)
         for (int hr = 0; hr < 2; ++hr) {
           const int p = p0 + (ln >> 2) + 8 * hr;
           if (p < m) {
-            const u64 cp = U7 ? 0ull : (u64)corr[p];
+            const u64 cp = U7 ? 0ull : (u64)slice_corr<LIMBS>(corr, m)[p];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const long long col = c0 + wc * WCOLS + 2 * (ln & 3) + e;
@@ -487,88 +561,103 @@ struct Args {
   long long B, sa, sm, sb, ta, tm, tb;
   int nt, split;
   Consts k;
+  Limbs lb;
 };
 
-template <bool U7, int NT, int TW, bool INV, bool LAZY, int LANE>
+template <bool U7, int NT, int TW, bool INV, bool LAZY, int LANE, bool LIMBS>
 cudaError_t launch(const Args &g) {
-  auto kern = mxu_tc_kernel<U7, NT, TW, INV, LAZY, LANE>;
+  auto kern = mxu_tc_kernel<U7, NT, TW, INV, LAZY, LANE, LIMBS>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)g.smem);
   if (e != cudaSuccess) return e;
   kern<<<g.grid, THREADS, g.smem, g.stream>>>(g.x, g.out, g.tiles, g.corr, g.tw_w, g.tw_wp,
                                               g.A, g.m, g.B, g.sa, g.sm, g.sb, g.ta, g.tm, g.tb,
-                                              g.nt, g.split, g.k);
+                                              g.nt, g.split, g.k, g.lb);
   return cudaGetLastError();
 }
 
 // The instantiation of one form for the twiddle mode, direction and lazy
 // flag; the staged lane epilogue (LANE = 2) is built for the inverse with
-// the pair twiddle only.
-template <bool U7, int NT, int LANE>
+// the pair twiddle only (with LIMBS not lazy: that one spilled 16 bytes),
+// Solinas (tw_mode 3) without LIMBS only.
+template <bool U7, int NT, int LANE, bool LIMBS>
 cudaError_t dispatch(const Args &g, int tw_mode, int inverse, int lazy) {
   if constexpr (LANE == 2) {
     if (tw_mode != 1 || !inverse) return cudaErrorInvalidValue;
-    return lazy ? launch<U7, NT, 1, true, true, 2>(g) : launch<U7, NT, 1, true, false, 2>(g);
+    if constexpr (LIMBS) {  // its lazy instantiation spilled
+      return lazy ? cudaErrorInvalidValue : launch<U7, NT, 1, true, false, 2, true>(g);
+    } else {
+      return lazy ? launch<U7, NT, 1, true, true, 2, false>(g)
+          : launch<U7, NT, 1, true, false, 2, false>(g);
+    }
   } else {
-    if (tw_mode == 0) return launch<U7, NT, 0, false, false, LANE>(g);
+    if (tw_mode == 0) return launch<U7, NT, 0, false, false, LANE, LIMBS>(g);
     if (tw_mode == 1) {
       if (inverse)
-        return lazy ? launch<U7, NT, 1, true, true, LANE>(g)
-            : launch<U7, NT, 1, true, false, LANE>(g);
-      return lazy ? launch<U7, NT, 1, false, true, LANE>(g)
-          : launch<U7, NT, 1, false, false, LANE>(g);
+        return lazy ? launch<U7, NT, 1, true, true, LANE, LIMBS>(g)
+            : launch<U7, NT, 1, true, false, LANE, LIMBS>(g);
+      return lazy ? launch<U7, NT, 1, false, true, LANE, LIMBS>(g)
+          : launch<U7, NT, 1, false, false, LANE, LIMBS>(g);
     }
     if (tw_mode == 2) {
       if (inverse)
-        return lazy ? launch<U7, NT, 2, true, true, LANE>(g)
-            : launch<U7, NT, 2, true, false, LANE>(g);
-      return lazy ? launch<U7, NT, 2, false, true, LANE>(g)
-          : launch<U7, NT, 2, false, false, LANE>(g);
+        return lazy ? launch<U7, NT, 2, true, true, LANE, LIMBS>(g)
+            : launch<U7, NT, 2, true, false, LANE, LIMBS>(g);
+      return lazy ? launch<U7, NT, 2, false, true, LANE, LIMBS>(g)
+          : launch<U7, NT, 2, false, false, LANE, LIMBS>(g);
     }
-    if (tw_mode == 3 && !lazy)  // Solinas: canonical only, no companion
-      return inverse ? launch<U7, NT, 3, true, false, LANE>(g)
-          : launch<U7, NT, 3, false, false, LANE>(g);
+    if constexpr (!LIMBS) {
+      if (tw_mode == 3 && !lazy)  // Solinas: canonical only, no companion
+        return inverse ? launch<U7, NT, 3, true, false, LANE, false>(g)
+            : launch<U7, NT, 3, false, false, LANE, false>(g);
+    }
     return cudaErrorInvalidValue;
   }
 }
 
 // The instantiations of one form: s8 for any nt (NT = 0, the block's
 // columns a kernel argument), u7 for the two blocks it builds, NT = 16 or
-// 32 (a constant row group; see Tc).
-template <bool U7, int LANE>
+// 32 (a constant row group; see Tc).  LIMBS: s8 alone.
+template <bool U7, int LANE, bool LIMBS = false>
 cudaError_t dispatch_nt(const Args &g, int tw_mode, int inverse, int lazy) {
   if constexpr (!U7) {
-    return dispatch<false, 0, LANE>(g, tw_mode, inverse, lazy);
+    return dispatch<false, 0, LANE, LIMBS>(g, tw_mode, inverse, lazy);
   } else {
-    if (g.nt == 16) return dispatch<true, 16, LANE>(g, tw_mode, inverse, lazy);
-    if (g.nt == 32) return dispatch<true, 32, LANE>(g, tw_mode, inverse, lazy);
+    static_assert(!LIMBS, "the limb instantiations are s8's");
+    if (g.nt == 16) return dispatch<true, 16, LANE, false>(g, tw_mode, inverse, lazy);
+    if (g.nt == 32) return dispatch<true, 32, LANE, false>(g, tw_mode, inverse, lazy);
     return cudaErrorInvalidValue;
   }
 }
 
-// The C entries' body (csrc/ntt_mxu_tc.cu, csrc/ntt_mxu_tc_u7.cu): check
-// the call against the geometry it must have, then launch.  STAGED: the
-// format builds the staged lane epilogue (lane = 2, the inverse with the
-// pair twiddle only).
-template <bool U7, bool STAGED>
+// The C entries' body (csrc/ntt_mxu_tc.cu, csrc/ntt_mxu_tc_u7.cu and, with
+// LIMBS, csrc/ntt_mxu_tc_limbs.cu): check the call against the geometry it
+// must have, then launch.  STAGED: the format builds the staged lane
+// epilogue (lane = 2, the inverse with the pair twiddle only).  LIMBS: `lb`
+// holds the limbs (a lane form's A slices are the limbs, one each, at an
+// even stride sa); `k` is unread.
+template <bool U7, bool STAGED, bool LIMBS = false>
 int entry(const void *x, void *out, const void *tiles, const void *corr, const void *tw_w,
           const void *tw_wp, long long A, int m, long long B, long long sa, long long sm,
           long long sb, long long ta, long long tm, long long tb, int tw_mode, int inverse,
-          int lazy, unsigned long long N, unsigned long long nprime, unsigned long long c128,
-          unsigned long long mu, unsigned long long ninv, int nsub, int barrett, int lane, int nt,
-          int split, long long smem, void *stream) {
+          int lazy, const Consts &k, const Limbs &lb, int lane, int nt, int split,
+          long long smem, void *stream) {
   if (A <= 0 || B <= 0 || m < 2 || m > 1024 || (!U7 && corr == nullptr) ||
       (tw_mode != 0 && tw_w == nullptr) || (tw_mode == 1) != (tw_wp != nullptr))
     return (int)cudaErrorInvalidValue;
   if (nt < WCOLS || nt % WCOLS != 0 || WARPS % (nt / WCOLS) != 0 || split < 1 ||
       split > 65535 || lane < 0 || lane > (STAGED ? 2 : 1))
     return (int)cudaErrorInvalidValue;
+  const Geo<U7> geo(m, nt, lane);
+  if (LIMBS && (lb.table == nullptr || lb.apl < 1 || A % lb.apl != 0 ||
+                lb.tile_bytes != (long long)Tc<U7>::NPL * geo.n_rg * geo.rg * geo.kp))
+    return (int)cudaErrorInvalidValue;
   if (lane != 0) {
     const uintptr_t bits = (uintptr_t)x | (uintptr_t)out | (uintptr_t)tw_w | (uintptr_t)tw_wp;
-    if (A != 1 || sm != 1 || sb != m || (tw_mode != 0 && (tm != 1 || tb != m)) || (bits & 15))
+    const bool slices = LIMBS ? lb.apl == 1 && sa % 2 == 0 && ta % 2 == 0 : A == 1;
+    if (!slices || sm != 1 || sb != m || (tw_mode != 0 && (tm != 1 || tb != m)) || (bits & 15))
       return (int)cudaErrorInvalidValue;
   }
-  const Geo<U7> geo(m, nt, lane);
   if (smem != geo.smem || smem > MAX_SMEM || split > geo.n_rg) return (int)cudaErrorInvalidValue;
   const long long gy = A < 65535 ? A : 65535;
   const Args g{dim3((unsigned)((B + nt - 1) / nt), (unsigned)gy, (unsigned)split),
@@ -576,13 +665,12 @@ int entry(const void *x, void *out, const void *tiles, const void *corr, const v
                (cudaStream_t)stream,
                (const long long *)x, (long long *)out, (const signed char *)tiles,
                (const long long *)corr, (const long long *)tw_w, (const long long *)tw_wp,
-               A, m, B, sa, sm, sb, ta, tm, tb, nt, split,
-               Consts{N, nprime, c128, mu, ninv, nsub, barrett}};
-  if (lane == 1) return (int)dispatch_nt<U7, 1>(g, tw_mode, inverse, lazy);
+               A, m, B, sa, sm, sb, ta, tm, tb, nt, split, k, lb};
+  if (lane == 1) return (int)dispatch_nt<U7, 1, LIMBS>(g, tw_mode, inverse, lazy);
   if constexpr (STAGED) {
-    if (lane == 2) return (int)dispatch_nt<U7, 2>(g, tw_mode, inverse, lazy);
+    if (lane == 2) return (int)dispatch_nt<U7, 2, LIMBS>(g, tw_mode, inverse, lazy);
   }
-  return (int)dispatch_nt<U7, 0>(g, tw_mode, inverse, lazy);
+  return (int)dispatch_nt<U7, 0, LIMBS>(g, tw_mode, inverse, lazy);
 }
 
 }  // namespace

@@ -22,6 +22,7 @@ extern "C" int sventt_mxu_ntt_tc_u7(
     unsigned long long mu, unsigned long long ninv, int nsub, int barrett, int lane, int nt,
     int split, long long smem, void *stream) {
   return entry<true, false>(x, out, tiles, corr, tw_w, tw_wp, A, m, B, sa, sm, sb, ta, tm, tb,
-                           tw_mode, inverse, lazy, N, nprime, c128, mu, ninv, nsub, barrett,
-                           lane, nt, split, smem, stream);
+                            tw_mode, inverse, lazy,
+                            Consts{N, nprime, c128, mu, ninv, nsub, barrett}, Limbs{}, lane, nt,
+                            split, smem, stream);
 }

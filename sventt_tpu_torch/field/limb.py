@@ -18,7 +18,11 @@ The same functions exist as CUDA device code in ``csrc/field.cuh``, where
 exists only at the test boundary (``from_limbs`` / ``to_limbs``).
 
 The Montgomery, Shoup and Solinas engines, the lazy and canonical add/sub
-and the radix-2 butterflies are ported.  ``hi64(q*N)`` is the generic
+and the radix-2 butterflies are ported.  ``LimbConsts`` holds the
+constants of a multi-modular (RNS) configuration, one modulus a limb, and
+``mont_mul_by`` / ``add_mod`` are the canonical Montgomery product and sum
+with the modulus a tensor, one a limb, for the tables built for all limbs
+at once.  ``hi64(q*N)`` is the generic
 product: the sparse-modulus chains of the JAX package compute the same
 value with fewer 32-bit multiplies, which a GPU does not need.  The
 Solinas fold multiplies the high word by ``eps`` with 64-bit products
@@ -29,6 +33,7 @@ the same canonical result.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -340,3 +345,120 @@ class FieldConsts:
         a = self.twiddle_mul(x0, s, sp)
         b = self.twiddle_mul(x1, sw, swp)
         return self.add(a, b), self.sub(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Multi-modular (RNS) limbs
+# ---------------------------------------------------------------------------
+
+
+def reduce_consts(N: int) -> tuple[int, bool]:
+    """(number of conditional subtracts, whether a Barrett step precedes
+    them) that bring a u64 below N: (2^64-1)//N subtracts when that is at
+    most 3, else one Barrett step (error < 2N) and one subtract."""
+    nsub = max(1, ((1 << 64) - 1) // N)
+    if nsub > 3:
+        return 1, True
+    return nsub, False
+
+
+def mont_mul_by(a, b, n, ninv) -> torch.Tensor:
+    """The canonical Montgomery product a * b / 2^64 mod N for a, b in
+    [0, N), with N and N^-1 mod 2^64 int64 tensors broadcast against them
+    (one modulus a limb): ``FieldConsts.mont_mul_full`` of a canonical
+    ``FieldConsts``, vectorized over moduli."""
+    q = (a * b) * ninv
+    ab1 = u64_mulhi(a, b)
+    qn1 = u64_mulhi(q, n)
+    d = ab1 - qn1
+    return u64_select(u64_lt(ab1, qn1), d + n, d)
+
+
+def add_mod(a, b, n) -> torch.Tensor:
+    """(a + b) mod N, canonical, for a, b in [0, N) and N an int64 tensor
+    broadcast against them: ``FieldConsts.add`` of a canonical one."""
+    s, carry = u64_add_carry(a, b)
+    return u64_select((carry != 0) | ~u64_lt(s, n), s - n, s)
+
+
+#: Columns of ``LimbConsts.table``, a row a limb: N, N^-1 mod 2^64, 2^128
+#: mod N, floor(2^64 / N), the subtracts and the Barrett flag of
+#: ``reduce_consts``, R^2 mod N, 0.  The matrix and pointwise kernels read
+#: a limb's constants from its row (csrc/mxu_tc.cuh, csrc/pointwise.cu).
+LIMB_COLUMNS = ("N", "ninv", "c128", "mu", "nsub", "barrett", "r2", "pad")
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_table(moduli: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    rows = []
+    for N in moduli:
+        nsub, barrett = reduce_consts(N)
+        rows.append([N, pow(N, -1, 1 << 64), pow(2, 128, N), (1 << 64) // N, nsub,
+                     int(barrett), pow(2, 128, N), 0])
+    return from_numpy(np.array(rows, dtype=np.uint64), device)
+
+
+@dataclass(frozen=True)
+class LimbConsts:
+    """The constants of a multi-modular (RNS) configuration: one
+    ``FieldConsts`` a limb, limb l being row l of an (L, ...) tensor.  All
+    limbs share one ``modmul`` and one ``lazy`` mode, the template flags of
+    a kernel that carries every limb in one launch; ``from_moduli`` refuses
+    a mix, naming the limb."""
+
+    limbs: tuple[FieldConsts, ...]
+
+    def __post_init__(self):
+        first = self.limbs[0]
+        for i, fc in enumerate(self.limbs):
+            if (fc.lazy, fc.modmul) != (first.lazy, first.modmul):
+                raise ValueError(
+                    f"limb {i} (N = {fc.modulus:#x}) resolves to lazy={fc.lazy}, "
+                    f"modmul={fc.modmul!r}, limb 0 to lazy={first.lazy}, "
+                    f"modmul={first.modmul!r}: one launch runs one mode for every limb"
+                )
+
+    @classmethod
+    def from_moduli(cls, mods, lazy: bool | None = None, modmul=lambda mod: "montgomery"):
+        """The limbs of ``mods`` (Modulus objects); ``modmul`` maps a limb's
+        Modulus to its engine.  A limb that ``FieldConsts.from_modulus``
+        refuses raises with its index."""
+        fcs = []
+        for i, mod in enumerate(mods):
+            try:
+                fcs.append(FieldConsts.from_modulus(mod, lazy=lazy, modmul=modmul(mod)))
+            except ValueError as e:
+                raise ValueError(f"limb {i} (N = {mod.modulus:#x}): {e}") from None
+        return cls(tuple(fcs))
+
+    def __len__(self) -> int:
+        return len(self.limbs)
+
+    def __getitem__(self, i: int) -> FieldConsts:
+        return self.limbs[i]
+
+    @property
+    def moduli(self) -> tuple[int, ...]:
+        return tuple(fc.modulus for fc in self.limbs)
+
+    @property
+    def lazy(self) -> bool:
+        return self.limbs[0].lazy
+
+    @property
+    def modmul(self) -> str:
+        return self.limbs[0].modmul
+
+    def table(self, device) -> torch.Tensor:
+        """The (L, 8) int64 rows of ``LIMB_COLUMNS`` on ``device``, built once
+        a device."""
+        return _limb_table(self.moduli, torch.device(device))
+
+    def normalize(self, a: torch.Tensor) -> torch.Tensor:
+        """Map each limb's [0, 2N) to canonical [0, N) (identity in
+        canonical mode); ``a`` is (L, ...)."""
+        if not self.lazy:
+            return a
+        n = torch.tensor([s64(N) for N in self.moduli], dtype=torch.int64, device=a.device)
+        n = n.reshape((len(self),) + (1,) * (a.dim() - 1))
+        return u64_min(a, a - n)

@@ -251,6 +251,14 @@ def find_generator(modulus: int) -> int:
     raise ValueError("no generator found")
 
 
+@functools.lru_cache(maxsize=None)
+def is_generator(modulus: int, g: int) -> bool:
+    """Whether ``g`` generates the multiplicative group of the prime field
+    Z/modulus: g^((N-1)/p) != 1 for every prime p dividing N - 1."""
+    phi = modulus - 1
+    return g % modulus != 0 and all(pow(g, phi // p, modulus) != 1 for p in _factorize(phi))
+
+
 def find_ntt_prime(bits: int, two_adicity: int, *, start: int | None = None) -> tuple[int, int]:
     """Find a prime N < 2^bits with 2^two_adicity | N-1, and its generator.
 

@@ -55,7 +55,17 @@ inverse.
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` plain-version calls, per
-orientation; ``KERNEL_LAUNCHES`` counts the launches per kernel.
+orientation; ``KERNEL_LAUNCHES`` counts the launches per kernel and
+``LIMBS`` the limbs they carried.
+
+The port's own limb axis: ``MxuLimbs`` stacks the s8 tables of L moduli
+(a multi-modular configuration, one modulus a limb), built for all limbs
+at once by ``make_mxu_limb_tables``.  The same three wrappers take it with
+data whose leading axis is the limb, (L, ...), and launch the kernel once
+for every limb (``csrc/ntt_mxu_tc_limbs.cu``): the limbs' slices make up
+the (A, m, B) view's A, and a slice reads its limb's planes, corr and
+constants (``field.limb.LimbConsts.table``) by the limb's index.  On a CPU
+tensor the plain version runs limb by limb.
 """
 
 from __future__ import annotations
@@ -70,14 +80,18 @@ import torch
 from ..field.golden import bitreverse_permutation
 from ..field.limb import (
     FieldConsts,
+    LimbConsts,
     _shr,
+    add_mod,
     from_numpy,
+    mont_mul_by,
     s64,
     u64_add_carry,
     u64_lt,
     u64_mulhi,
     u64_select,
 )
+from ..field.limb import reduce_consts as _reduce_consts
 from ..field.modulus import MASK32, Modulus
 from ..utils.device import resolve_device, sm_count
 from ..utils.profiling import span
@@ -108,6 +122,9 @@ PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
 #: Kernel launches per kernel: "tensor_core" csrc/mxu_tc.cuh (K11's
 #: launches too), "dp4a" csrc/ntt_mxu.cu (the A/B point alone).
 KERNEL_LAUNCHES = {"tensor_core": 0, "dp4a": 0}
+#: Limbs carried per kernel, summed over its launches: 1 a single-modulus
+#: launch, L a launch on ``MxuLimbs`` (every limb in one launch).
+LIMBS = {"tensor_core": 0, "dp4a": 0}
 #: The host span of each kernel's launch (``utils.profiling.span``).
 LAUNCH_SPANS = {k: f"sventt.launch.{k}" for k in KERNEL_LAUNCHES}
 
@@ -270,14 +287,94 @@ def make_mxu_tables(
     )
 
 
-def _reduce_consts(N: int) -> tuple[int, bool]:
-    """(number of conditional subtracts, whether a Barrett step precedes
-    them) that bring a u64 below N: (2^64-1)//N subtracts when that is at
-    most 3, else one Barrett step (error < 2N) and one subtract."""
-    nsub = max(1, ((1 << 64) - 1) // N)
-    if nsub > 3:
-        return 1, True
-    return nsub, False
+@dataclass(frozen=True)
+class MxuLimbs:
+    """The s8 tables of L limbs (a multi-modular configuration, one
+    modulus a limb) for one direction at one length, stacked on one
+    device: limb l's are those of ``make_mxu_tables(Modulus(moduli[l], g),
+    m, inverse=...)``, bit for bit (``limb``).
+
+    ``planes``: int8 (L, 8m, m), limb l's digit stack at ``planes[l]``;
+    ``corr``: int64 (L, m).  ``tc_planes`` (derived, tables on a CUDA
+    device, else None): every limb's planes in the ring-tile layout,
+    (L, ``tc_plane_tile_bytes(m)``), limb l's tiles at row l.  One kernel
+    launch carries every limb: it reads a limb's planes, corr and
+    constants (``LimbConsts.table``) by the limb's index.
+    """
+
+    m: int
+    inverse: bool
+    planes: torch.Tensor
+    corr: torch.Tensor
+    moduli: tuple[int, ...]
+    scheme = "s8"
+    tc_nt = None
+
+    def __post_init__(self):
+        tiles = None
+        if self.planes.is_cuda:
+            tiles = tc_plane_tiles(self.planes, self.m).reshape(len(self.moduli), -1)
+        object.__setattr__(self, "tc_planes", tiles)
+
+    def limb(self, i: int) -> MxuDirection:
+        """Limb ``i``'s tables as a single-modulus ``MxuDirection`` (views of
+        the stacked ones)."""
+        N = self.moduli[i]
+        return MxuDirection(self.m, self.inverse, self.planes[i], self.corr[i], N,
+                            pow(2, 128, N), pow(N, -1, 1 << 64))
+
+
+def make_mxu_limb_tables(mods, m: int, *, inverse: bool, device=None) -> MxuLimbs:
+    """The s8 tables of every limb in ``mods`` (Modulus objects) at length
+    m, built for all limbs at once in vectorized int64 steps on ``device``
+    (None: the CUDA card), equal to ``make_mxu_tables`` limb for limb.
+
+    The lifted matrix is a gather from the powers of each limb's omega
+    (M[p, j] = R64 * omega^(bitrev(p) * j mod m); the inverse's entries
+    s * R64 * omega^(-k * bitrev(p) mod m)), the powers doubled in
+    Montgomery form; the balanced digits of a minimal residue r are the
+    bytes of r + 128 * K8 less 128; ``corr`` is each row's sum mod N (a
+    tree of modular adds) times 128 * K8, less the planes' bias, mod N.
+    """
+    from .twiddle import limb_columns, limb_doubling
+
+    device = resolve_device(device)
+    if m < 2 or m & (m - 1) or m > MAX_MXU:
+        raise ValueError(f"mxu engine supports power-of-two m in [2, {MAX_MXU}]")
+    L = len(mods)
+    n, ninv, r = limb_columns(mods, device)
+
+    def col(values):
+        return from_numpy(np.array(values, dtype=np.uint64), device)
+
+    omega = col([mod.to_montgomery(mod.get_root_forward(m)) for mod in mods])
+    powers = limb_doubling(r, omega, m, n, ninv)  # (L, m): R64 * omega^e
+    perm = torch.as_tensor(np.asarray(bitreverse_permutation(m)), device=device)
+    e = torch.arange(m, device=device)
+    idx = (perm[:, None] * e[None, :]) % m  # idx[p, j] = bitrev(p) * j mod m
+    n2, ninv2 = n[:, None], ninv[:, None]
+    if inverse:
+        # s * R64 * omega^(-e), s = m^-1, in Montgomery form
+        s = col([mod.to_montgomery(mod.invert(m)) for mod in mods])[:, None]
+        powers = mont_mul_by(powers[:, (m - e) % m], s, n2, ninv2)
+        idx = idx.t()
+    M = powers[:, idx]  # (L, m, m), canonical
+    n3 = n[:, None, None]
+    R = torch.where((M >= 0) & (M <= C8_PLUS), M, M - n3)  # minimal residues, wrapping
+    U = R + s64(128 * _K8)  # its balanced digits are U's bytes less 128
+    planes = torch.stack([((_shr(U, 8 * a) & 0xFF) - 128).to(torch.int8)
+                          for a in range(NL_S8)], dim=1).reshape(L, NL_S8 * m, m)
+    rowsum = M
+    while rowsum.shape[-1] > 1:
+        h = rowsum.shape[-1] // 2
+        rowsum = add_mod(rowsum[..., :h], rowsum[..., h:], n3)
+    rowsum = rowsum[..., 0]  # (L, m): each row's sum mod N
+    ofs_total = (m << 17) * sum(1 << (8 * t) for t in range(15))
+    scale = col([mod.to_montgomery(128 * _K8 % mod.modulus) for mod in mods])[:, None]
+    ofs = col([ofs_total % mod.modulus for mod in mods])[:, None]
+    c = mont_mul_by(rowsum, scale, n2, ninv2)
+    corr = u64_select(u64_lt(c, ofs), c - ofs + n2, c - ofs)
+    return MxuLimbs(m, inverse, planes, corr, tuple(mod.modulus for mod in mods))
 
 
 def _plane_products(x: torch.Tensor, t: MxuDirection) -> tuple[list, int, int]:
@@ -395,6 +492,17 @@ def _kernel_args(
     dense (A, m, B) view (any strides; the output takes the same layout)
     and the kernel's form of the planes, after ``_check_cuda``."""
     _check_cuda(t, x, tw)
+    out, head = _head_args(x, t, fc, tw, planes, t.corr)
+    nsub, barrett = _reduce_consts(t.modulus)
+    N = t.modulus
+    tail = (N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse, nsub, int(barrett))
+    return out, head, tail
+
+
+def _head_args(x: torch.Tensor, t, fc, tw: MontPair | None, planes: torch.Tensor, corr):
+    """(output, the C entries' arguments up to the lazy flag) for a dense
+    (A, m, B) view: the pointers, the shape, the data's and the twiddle's
+    strides, the twiddle mode, the direction and the lazy flag."""
     A, m, B = x.shape
     out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
     # twiddle mode: 0 none, 1 "pair", 2 "w", 3 Solinas (plain w; the C
@@ -416,15 +524,12 @@ def _kernel_args(
             if wp.stride() != ts:
                 raise ValueError("twiddle and companion layouts differ")
             wp_ptr = wp.data_ptr()
-    nsub, barrett = _reduce_consts(t.modulus)
-    N = t.modulus
     head = (
         x.data_ptr(), out.data_ptr(), planes.data_ptr(),
-        None if t.corr is None else t.corr.data_ptr(),
+        None if corr is None else corr.data_ptr(),
         w_ptr, wp_ptr, A, m, B, *x.stride(), *ts, mode, int(t.inverse), int(fc.lazy),
     )
-    tail = (N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse, nsub, int(barrett))
-    return out, head, tail
+    return out, head
 
 
 @dataclass(frozen=True)
@@ -501,7 +606,7 @@ def tc_form(orientation: str, inverse: bool, tw: MontPair | None, scheme: str = 
 
 def tc_geometry(
     m: int, B: int, A: int = 1, sms: int = 132, form: str = "strided", scheme: str = "s8",
-    nt: int | None = None,
+    nt: int | None = None, limbs: bool = False,
 ) -> TcGeometry:
     """Launch geometry of the tensor-core kernel for an (A, m, B) call of a
     plane scheme on a card of ``sms`` SMs: ``nt`` columns a block (one of
@@ -517,11 +622,15 @@ def tc_geometry(
     (each splits the same columns into planes and writes its own rows).  A
     lane form (A = 1) takes the (B, m) rows as its B columns: the 2^17
     root (256 rows of 512) splits its row groups, the 2^24 and 2^26 roots
-    (65536 x 256, 131072 x 512) fill the card without."""
+    (65536 x 256, 131072 x 512) fill the card without.  ``limbs``: a call
+    of stacked limbs (``MxuLimbs``), whose A slices are the limbs' (a lane
+    form's A the limbs, one slice each) and count toward the grid."""
     if not 2 <= m <= MAX_MXU:
         raise ValueError(f"tensor-core kernel takes 2 <= m <= {MAX_MXU}, got {m}")
     fmt = _tc_format(scheme)
-    if form not in TC_FORMS or (form != "strided" and A != 1) or (form, fmt) == ("lane_staged", "u7"):
+    lane_a = A != 1 and not limbs
+    if (form not in TC_FORMS or (form != "strided" and lane_a)
+            or (form, fmt) == ("lane_staged", "u7")):
         raise ValueError(f"tensor-core kernel form {form!r} with A = {A} under {scheme!r}")
     npl = NL if fmt == "u7" else NL_S8
     if nt is None:
@@ -554,16 +663,20 @@ def tc_plane_tiles(
     scheme=scheme, nt=nt)`` (the rows of a block of ``nt`` columns, by
     default the rule's), zero past m, each 32-byte row's two 16-byte halves
     swapped in rows 4-7 of every 8 (the kernel's ``a_slot`` swizzle,
-    against ldmatrix bank conflicts).  int8, flat."""
+    against ldmatrix bank conflicts).  int8, flat; stacked planes (L,
+    rows, m) of L limbs give each limb's tiles in turn."""
     g = tc_geometry(m, 1, scheme=scheme, nt=nt)
     npl = NL if _tc_format(scheme) == "u7" else NL_S8
     n_rg = -(-m // g.rg)
-    D = torch.zeros(npl, n_rg * g.rg, g.kp, dtype=torch.int8, device=planes.device)
-    D[:, :m, :m] = planes.reshape(npl, m, m)
+    lead = tuple(planes.shape[:-2])
+    k = len(lead)
+    D = torch.zeros(lead + (npl, n_rg * g.rg, g.kp), dtype=torch.int8, device=planes.device)
+    D[..., :m, :m] = planes.reshape(lead + (npl, m, m))
     # (plane, row group, row, step, half, 16) -> (row group, step, plane, row, half, 16)
-    T = D.reshape(npl, n_rg, g.rg, g.kp // TC_KSTEP, 2, 16).permute(1, 3, 0, 2, 4, 5)
+    T = D.reshape(lead + (npl, n_rg, g.rg, g.kp // TC_KSTEP, 2, 16))
+    T = T.permute(*range(k), k + 1, k + 3, k, k + 2, k + 4, k + 5)
     swap = ((torch.arange(g.rg, device=planes.device) >> 2) & 1).bool()
-    T = torch.where(swap.reshape(1, 1, 1, g.rg, 1, 1), T.flip(4), T)
+    T = torch.where(swap.reshape((1,) * (k + 3) + (g.rg, 1, 1)), T.flip(k + 4), T)
     return T.contiguous().reshape(-1)
 
 
@@ -631,6 +744,7 @@ def _launch_kernel(x3: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw3, orie
     with span(LAUNCH_SPANS[kernel]):
         out = _launch_tc(x3, t, fc, tw3, tc_form(orientation, t.inverse, tw3, t.scheme))
     KERNEL_LAUNCHES[kernel] += 1
+    LIMBS[kernel] += 1
     return out
 
 
@@ -671,8 +785,132 @@ def _as3(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str):
     return x.reshape(a, m, b).contiguous(), tw, lambda y: y.reshape(out_shape)
 
 
+def _as3_limbs(x: torch.Tensor, tw: MontPair | None, m: int, orientation: str, L: int):
+    """``_as3`` of stacked limbs' data, limb l at ``x[l]``: the (L * a, m, B)
+    view whose slices [l * a, (l + 1) * a) are limb l's, the twiddles (limb
+    l's at ``tw[l]``) in the same form, a, and the way back.  Lead (L, m,
+    batch...) -> (L, m, B); mid (L, A, m, batch...) -> (L * A, m, B) with tw
+    (L * A, m, 1); lane (L, batch..., m) -> the (L, m, B) view of each
+    limb's contiguous (B, m) rows, one slice a limb."""
+    if x.dim() < 2 or x.shape[0] != L:
+        raise ValueError(f"leading axis of {tuple(x.shape)} != the tables' {L} limbs")
+    if orientation == "lane":
+        if x.shape[-1] != m:
+            raise ValueError(f"trailing axis {x.shape[-1]} != transform length {m}")
+        shape = tuple(x.shape)
+
+        def view(v):
+            return v.reshape(L, -1, m).contiguous().transpose(1, 2)
+
+        if tw is not None:
+            if tuple(tw.w.shape) != shape:
+                raise ValueError(f"lane twiddle {tuple(tw.w.shape)} != data {shape}")
+            tw = montpair_map(view, tw)
+        return view(x), tw, 1, lambda y: y.transpose(1, 2).reshape(shape)
+    mid = orientation == "mid"
+    if mid:
+        if x.dim() < 3 or x.shape[2] != m:
+            raise ValueError(f"axis-2 length != transform length {m}")
+        a, batch_shape = x.shape[1], tuple(x.shape[3:])
+    else:
+        if x.shape[1] != m:
+            raise ValueError(f"axis-1 length {x.shape[1]} != transform length {m}")
+        a, batch_shape = 1, tuple(x.shape[2:])
+    b = int(np.prod(batch_shape)) if batch_shape else 1
+    if tw is not None:
+        shape = (L * a, m, 1) if mid else (L, m, b)
+        tw = montpair_map(lambda v: v.reshape(shape), tw)
+    out_shape = (L,) + ((a, m) if mid else (m,)) + batch_shape
+    return x.reshape(L * a, m, b).contiguous(), tw, a, lambda y: y.reshape(out_shape)
+
+
+def _check_limbs(t: "MxuLimbs", fc: LimbConsts, x: torch.Tensor, tw: MontPair | None):
+    L, m = len(t.moduli), t.m
+    if not isinstance(fc, LimbConsts) or fc.moduli != t.moduli:
+        raise ValueError("stacked limb tables take the LimbConsts of their own moduli")
+    if tuple(t.planes.shape) != (L, NL_S8 * m, m) or tuple(t.corr.shape) != (L, m):
+        raise ValueError(f"limb planes {tuple(t.planes.shape)} / corr {tuple(t.corr.shape)} "
+                         f"!= {(L, NL_S8 * m, m)} / {(L, m)}")
+    tensors = [t.planes, t.corr] + ([] if tw is None else [v for v in tw if v is not None])
+    for v in tensors:
+        if v.device != x.device:
+            raise ValueError(f"table on {v.device}, data on {x.device}")
+    if x.dtype != torch.int64 or t.corr.dtype != torch.int64 or t.planes.dtype != torch.int8:
+        raise TypeError("data and corr must be int64, planes int8")
+    if tw is not None and any(v.dtype != torch.int64 for v in tw if v is not None):
+        raise TypeError("twiddles must be int64")
+
+
+def _launch_tc_limbs(
+    x: torch.Tensor, t: "MxuLimbs", fc: LimbConsts, tw: MontPair | None, form: str, apl: int,
+) -> torch.Tensor:
+    """Launch the tensor-core kernel's limb instantiations
+    (csrc/ntt_mxu_tc_limbs.cu) once on the (L * apl, m, B) view of every
+    limb's data: slice a reads limb a // apl's planes, corr and constants
+    (``LimbConsts.table``); raise on any error."""
+    from .. import _build
+
+    if t.tc_planes is None:
+        raise ValueError("the tensor-core kernel takes tables built on a CUDA device")
+    _check_limbs(t, fc, x, tw)
+    if form != "strided":
+        # each limb's rows stay contiguous; the lane forms read 16 bytes at a time
+        x = _aligned16(x.transpose(1, 2)).transpose(1, 2)
+        if tw is not None:
+            tw = montpair_map(lambda v: _aligned16(v.transpose(1, 2)).transpose(1, 2), tw)
+    out, head = _head_args(x, t, fc, tw, t.tc_planes, t.corr)
+    A, m, B = x.shape
+    geo = tc_geometry(m, B, A, sm_count(x.device.index), form, limbs=True)
+    rc = _build.load().sventt_mxu_ntt_tc_limbs(
+        *head, fc.table(x.device).data_ptr(), apl, t.tc_planes.shape[1],
+        TC_FORMS.index(form), geo.nt, geo.split, geo.smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mxu tensor-core limb kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _plain_limbs(x3, t: "MxuLimbs", fc: LimbConsts, tw3, apl: int) -> torch.Tensor:
+    """``_mxu_plain`` limb by limb on the (L * apl, m, B) view, each limb's
+    slices with its own tables and constants."""
+    def part(v, i):
+        return v[i * apl:(i + 1) * apl]
+
+    return torch.cat([
+        _mxu_plain(part(x3, i), t.limb(i), fc[i],
+                   None if tw3 is None else montpair_map(lambda v: part(v, i), tw3))
+        for i in range(len(t.moduli))
+    ])
+
+
+def _run_limbs(x, t: "MxuLimbs", fc: LimbConsts, tw, orientation: str):
+    """``_run`` on stacked limbs: one launch for every limb on a CUDA
+    tensor, the plain version limb by limb on a CPU one."""
+    L = len(t.moduli)
+    x3, tw3, apl, back = _as3_limbs(x, tw, t.m, orientation, L)
+    if x.is_cuda:
+        kernel = "tensor_core"
+        form = tc_form(orientation, t.inverse, tw3)
+        if form == "lane_staged" and fc.lazy:
+            form = "lane"  # the staged epilogue's lazy limb instantiation is not built
+        with span(LAUNCH_SPANS[kernel]):
+            out = _launch_tc_limbs(x3, t, fc, tw3, form, apl)
+        KERNEL_LAUNCHES[kernel] += 1
+        LIMBS[kernel] += L
+        LAUNCHES[orientation] += 1
+        return back(out)
+    if x.device.type != "cpu":
+        raise ValueError(f"mxu engine runs on cpu or cuda tensors, got {x.device}")
+    _check_limbs(t, fc, x, tw)
+    PLAIN_CALLS[orientation] += 1
+    return back(_plain_limbs(x3, t, fc, tw3, apl))
+
+
 def _run(x, t: MxuDirection, fc: FieldConsts, tw, orientation: str):
     check_companion(fc, tw)
+    if isinstance(t, MxuLimbs):
+        return _run_limbs(x, t, fc, tw, orientation)
     x3, tw3, back = _as3(x, tw, t.m, orientation)
     if x.is_cuda:
         out = _launch_kernel(x3, t, fc, tw3, orientation)
@@ -729,9 +967,12 @@ def mxu_plain(
 ) -> torch.Tensor:
     """The plain version of ``mxu_ntt`` (default), ``mxu_ntt_mid``
     (``mid=True``) or ``mxu_ntt_lane`` (``lane=True``) on a tensor on any
-    device; counts nothing.  The reference a kernel is held against on the
-    card."""
+    device, stacked limbs' (``MxuLimbs``) limb by limb; counts nothing.
+    The reference a kernel is held against on the card."""
     orientation = "lane" if lane else ("mid" if mid else "lead")
+    if isinstance(tables, MxuLimbs):
+        x3, tw3, apl, back = _as3_limbs(x, tw, tables.m, orientation, len(tables.moduli))
+        return back(_plain_limbs(x3, tables, fc, tw3, apl))
     x3, tw3, back = _as3(x, tw, tables.m, orientation)
     return back(_mxu_plain(x3, tables, fc, tw3))
 
@@ -761,6 +1002,7 @@ def _launch_dp4a(
     if rc != 0:
         raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["dp4a"] += 1
+    LIMBS["dp4a"] += 1
     return back(out)
 
 
@@ -780,12 +1022,13 @@ def _launch_lane_form(
     with span(LAUNCH_SPANS["tensor_core"]):
         out = _launch_tc(x3, tables, fc, tw3, form)
     KERNEL_LAUNCHES["tensor_core"] += 1
+    LIMBS["tensor_core"] += 1
     return back(out)
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES):
+    """Set every launch, plain-call and limb count to zero."""
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, LIMBS):
         for k in d:
             d[k] = 0
 
@@ -802,3 +1045,7 @@ _HEAD = (
 _TAIL = [ctypes.c_ulonglong] * 5 + [ctypes.c_int] * 2
 _ARGTYPES = _HEAD + [ctypes.c_int] + _TAIL + [ctypes.c_void_p]
 _TC_ARGTYPES = _HEAD + _TAIL + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+# csrc/ntt_mxu_tc_limbs.cu: the per-limb constants' table, slices a limb and
+# a limb's tile bytes in place of the tail
+_TC_LIMB_ARGTYPES = (_HEAD + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+                     + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])

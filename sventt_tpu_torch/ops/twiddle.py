@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``sventt_tpu/ops/twiddle.py``:
 
 * inter-step (six-step) twiddles, Montgomery-form ``w = v * 2^64 mod N``
-  with the companion ``wp = w * N^-1 mod 2^64`` beside them, or, for the
+  with the companion ``wp = w * N^-1 mod 2^64`` beside them (of L limbs at
+  once, one modulus a limb, ``sixstep_row_twiddles_limbs``), or, for the
   Solinas engine, plain canonical ``w`` without a companion
   (``sixstep_row_twiddles_plain``, the device generator's Solinas mode);
 * per-stage butterfly twiddles (``forward_tables`` / ``inverse_tables``) in
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..field.golden import bitreverse_permutation
-from ..field.limb import FieldConsts, from_numpy, s64
+from ..field.limb import FieldConsts, from_numpy, mont_mul_by, s64
 from ..field.modulus import Modulus
 from ..utils.device import resolve_device
 
@@ -172,6 +173,57 @@ def sixstep_row_twiddles_device(
         step = mul(step, step)
     w = wt if transposed else wt.t().contiguous()
     wp = w * s64(mod.montgomery_inverse) if with_companion and not solinas else None
+    return MontPair(w, wp)
+
+
+def limb_columns(mods, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, N^-1 mod 2^64, R = 2^64 mod N) of each limb's Modulus in ``mods``,
+    as (L,) int64 tensors on ``device``."""
+    def col(values):
+        return from_numpy(np.array(values, dtype=np.uint64), device)
+
+    return (col([m.modulus for m in mods]), col([m.montgomery_inverse for m in mods]),
+            col([m.montgomery_r for m in mods]))
+
+
+def limb_doubling(first, step, count: int, n, ninv) -> torch.Tensor:
+    """first * step^k for k < ``count`` (a power of two) along a new last
+    axis, in Montgomery form: the table doubled log2(count) times,
+    w[..., k + 2^i] = w[..., k] * step^(2^i), as
+    ``sixstep_row_twiddles_device`` doubles it.  ``first`` and ``step`` are
+    Montgomery-form tensors of one shape whose leading axis is the limb;
+    ``n`` / ``ninv`` broadcast against them."""
+    n, ninv = n.unsqueeze(-1), ninv.unsqueeze(-1)
+    w, step = first.unsqueeze(-1), step.unsqueeze(-1)
+    while w.shape[-1] < count:
+        w = torch.cat([w, mont_mul_by(w, step, n, ninv)], dim=-1)
+        step = mont_mul_by(step, step, n, ninv)
+    return w
+
+
+def sixstep_row_twiddles_limbs(
+    mods, n0: int, n1: int, *, inverse: bool = False, with_companion: bool = True, device=None,
+) -> MontPair:
+    """The inter-step twiddle matrices of L limbs at once, (L, n0, n1):
+    limb l's is ``sixstep_row_twiddles[_inverse](mods[l], n0, n1)`` (the
+    Montgomery form; ``with_companion=False`` drops the companion), bit
+    for bit.  Built on ``device`` in vectorized steps for all limbs, as
+    ``sixstep_row_twiddles_device`` builds one modulus's: the rows' bases
+    omega^bitrev(p0) from a doubled table of omega's powers, then each row
+    doubled log2(n1) times."""
+    device = resolve_device(device)
+    n, ninv, r = limb_columns(mods, device)
+    omegas = []
+    for mod in mods:
+        w = mod.get_root_forward(n0 * n1)
+        omegas.append(mod.to_montgomery(mod.invert(w) if inverse else w))
+    omega = from_numpy(np.array(omegas, dtype=np.uint64), device)
+    powers = limb_doubling(r, omega, n0, n, ninv)  # (L, n0)
+    perm = torch.as_tensor(np.asarray(bitreverse_permutation(n0)), device=device)
+    bases = powers[:, perm]
+    nb, nib = n[:, None], ninv[:, None]
+    w = limb_doubling(r[:, None].expand_as(bases), bases, n1, nb, nib)
+    wp = w * ninv[:, None, None] if with_companion else None
     return MontPair(w, wp)
 
 

@@ -132,6 +132,9 @@ class DistributedNTT:
         comm: str = "xla",
         overlap_chunks: int = 4,
     ):
+        if config.rns:
+            raise ValueError("DistributedNTT is not supported on an RNS config (tuples of "
+                             "moduli): it runs one modulus")
         n0, n1 = config.split
         axes = (axis,) if isinstance(axis, str) else tuple(axis)
         D = 1

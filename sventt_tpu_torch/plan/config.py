@@ -7,6 +7,15 @@ runs the matrix engine ("mxu"; "auto" resolves to it on every device, see
 ``tune=True`` resolves through the port's autotuner (``plan/autotune.py``).
 The docstrings below are the JAX package's.
 
+The port's own: ``modulus`` and ``generator`` may be equal-length tuples,
+one entry a limb, for a multi-modular (RNS) transform of L limbs at once
+(``limb_mods``; ``NTT`` then takes (L, n) data, row l over limb l's field).
+Every limb must be prime, of 2-adicity at least log2 n, with a generator
+of its group.  Such a configuration runs the matrix engine's default plan
+and nothing else: ``engine`` "pallas" or "jnp", ``tune=True`` and
+``modmul="solinas"`` are refused here, a plan with another engine or a
+row subtree by ``NTT``, and ``parallel.DistributedNTT`` refuses it too.
+
 The reference's configuration system is C++ template parameters -- modulus,
 modmul engine, radix per stage, blocking, transpose strategy -- all fixed at
 compile time (SURVEY.md section 6, "Config / flag system").  The TPU-native
@@ -18,7 +27,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-from ..field.modulus import Modulus
+from ..field.modulus import Modulus, is_generator, is_probable_prime
 
 
 def _is_pow2(x: int) -> bool:
@@ -49,8 +58,8 @@ class NttConfig:
     tests/bench-transpose.cpp:105-499, README.md:26-27).
     """
 
-    modulus: int
-    generator: int
+    modulus: int | tuple[int, ...]
+    generator: int | tuple[int, ...]
     n: int
     strategy: str = "auto"  # "iterative" | "six_step" | "auto"
     n0: int | None = None  # six-step: column-transform length (matrix rows)
@@ -118,12 +127,15 @@ class NttConfig:
     def __post_init__(self):
         if not _is_pow2(self.n) or self.n < 2:
             raise ValueError("n must be a power of two >= 2")
-        mod = self.mod
-        if (mod.modulus - 1) % self.n:
-            raise ValueError(
-                f"modulus lacks 2-adicity {self.n.bit_length() - 1} "
-                f"(has {mod.two_adicity})"
-            )
+        if self.rns:
+            self._check_limbs()
+        else:
+            mod = self.mod
+            if (mod.modulus - 1) % self.n:
+                raise ValueError(
+                    f"modulus lacks 2-adicity {self.n.bit_length() - 1} "
+                    f"(has {mod.two_adicity})"
+                )
         if self.strategy not in ("auto", "iterative", "six_step"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.engine not in ("auto", "jnp", "pallas", "mxu"):
@@ -165,8 +177,51 @@ class NttConfig:
 
             planner.build_plan_spec(self.n, self.plan_spec)  # validates
 
+    def _check_limbs(self) -> None:
+        """Each limb of a tuple configuration, and what such a
+        configuration does not run."""
+        if not (isinstance(self.modulus, tuple) and isinstance(self.generator, tuple)
+                and len(self.modulus) == len(self.generator) and self.modulus):
+            raise ValueError("an RNS config takes modulus and generator as non-empty tuples "
+                             "of one length, one entry a limb")
+        log2n = self.n.bit_length() - 1
+        for i, (q, g) in enumerate(zip(self.modulus, self.generator)):
+            if not (isinstance(q, int) and isinstance(g, int) and 2 < q < 1 << 64):
+                raise ValueError(f"limb {i}: modulus {q!r} and generator {g!r} must be ints, "
+                                 "the modulus in (2, 2^64)")
+            if not is_probable_prime(q):
+                raise ValueError(f"limb {i}: modulus {q:#x} is not prime")
+            mod = Modulus(q, g)
+            if mod.two_adicity < log2n:
+                raise ValueError(f"limb {i}: modulus {q:#x} lacks 2-adicity {log2n} "
+                                 f"(has {mod.two_adicity})")
+            if not is_generator(q, g):
+                raise ValueError(f"limb {i}: {g} does not generate the group of Z/{q:#x}")
+        if self.engine not in ("auto", "mxu"):
+            raise ValueError(f"engine={self.engine!r} is not supported on an RNS config "
+                             "(the matrix engine, 'auto' or 'mxu', runs every limb at once)")
+        if self.tune:
+            raise ValueError("tune=True is not supported on an RNS config")
+        if self.modmul == "solinas":
+            raise ValueError("modmul='solinas' is not supported on an RNS config")
+
+    @property
+    def rns(self) -> bool:
+        """Whether the configuration is multi-modular: tuples of moduli and
+        generators, one a limb."""
+        return isinstance(self.modulus, tuple) or isinstance(self.generator, tuple)
+
+    @property
+    def limb_mods(self) -> tuple[Modulus, ...]:
+        """One Modulus a limb: a tuple configuration's, or the one modulus."""
+        if not self.rns:
+            return (self.mod,)
+        return tuple(Modulus(q, g) for q, g in zip(self.modulus, self.generator))
+
     @property
     def mod(self) -> Modulus:
+        if self.rns:
+            raise ValueError("an RNS config has a modulus a limb (limb_mods), not one mod")
         return Modulus(self.modulus, self.generator)
 
     @property

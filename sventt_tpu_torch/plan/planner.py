@@ -29,6 +29,13 @@ tables only) or a row subtree -- takes the JAX package's transpose
 fallback: the inter-step multiply as its own pass (``ops.inter_step``), a
 transpose, the row as a leading-axis transform, a transpose back
 (mirrored on the inverse).
+
+Tables of several limbs (a multi-modular configuration: ``PlanTables``
+given a tuple of moduli) take data with a leading limb axis, (L, m,
+batch...), limb l at row l; every level runs once for all limbs, on the
+matrix engine's stacked tables (``ntt_mxu.MxuLimbs``) and each level's
+stacked twiddles (``twiddle.sixstep_row_twiddles_limbs``).  Such a plan
+takes mxu leaves and fused mxu rows only.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..ops.twiddle import (
     sixstep_row_twiddles,
     sixstep_row_twiddles_device,
     sixstep_row_twiddles_inverse,
+    sixstep_row_twiddles_limbs,
     sixstep_row_twiddles_plain,
 )
 from ..utils.device import resolve_device
@@ -236,6 +244,12 @@ class PlanTables:
     (``block_b``, ``spc``, ``rows``, ``max_r``, ``tw_layout``) go to the
     pallas tables; ``chunk_elems`` (None: ``JNP_RESIDENT_ELEMS``) bounds a
     chunk of the jnp leaves and rows.
+
+    ``mod`` a tuple of Modulus (and ``fc`` their ``LimbConsts``): the
+    stacked tables of that many limbs (``limbs``, else None), built for all
+    limbs at once -- ``leaf`` holds ``MxuLimbs``, ``split_tw`` (L, m0, m1)
+    pairs; a leaf of another engine or a row that is not a fused mxu leaf
+    raises ``ValueError``.
     """
 
     def __init__(
@@ -248,6 +262,7 @@ class PlanTables:
         self.mod = mod
         self.fc = fc
         self.inverse = inverse
+        self.limbs = len(mod) if isinstance(mod, tuple) else None
         self.device = resolve_device(device)
         self.split_w_only = split_w_only
         self.knobs = dict(block_b=block_b, spc=spc, max_r=max_r, tw_layout=tw_layout)
@@ -266,6 +281,7 @@ class PlanTables:
         """Tables assembled from prepared parts (see ``interop``)."""
         obj = object.__new__(cls)
         obj.plan, obj.mod, obj.fc, obj.inverse = plan, mod, fc, inverse
+        obj.limbs = None
         first = next(iter(leaf.values()))
         obj.device = (first.planes if isinstance(first, ntt_mxu.MxuDirection) else first.w).device
         obj.split_w_only = None
@@ -275,6 +291,8 @@ class PlanTables:
         return obj
 
     def _prepare(self, node):
+        if self.limbs is not None:
+            return self._prepare_limbs(node)
         if isinstance(node, Leaf):
             key = (node.m, node.engine)
             if key in self.leaf:
@@ -312,6 +330,35 @@ class PlanTables:
                 )
         self._prepare(node.col)
         self._prepare(node.row)
+
+    def _prepare_limbs(self, node):
+        """``_prepare`` for stacked limbs: every limb's tables of a node in
+        one vectorized build."""
+        if isinstance(node, Split) and not _mxu_row(node):
+            raise ValueError(f"an RNS plan takes fused mxu rows only; the split {node.m} = "
+                             f"{node.m0} x {node.m1} has another row")
+        if isinstance(node, Leaf):
+            if node.engine != "mxu":
+                raise ValueError(f"an RNS plan takes mxu leaves only, not {node.engine!r}")
+            key = (node.m, node.engine)
+            if key not in self.leaf:
+                with span("sventt.tables.mxu"):
+                    self.leaf[key] = ntt_mxu.make_mxu_limb_tables(
+                        self.mod, node.m, inverse=self.inverse, device=self.device
+                    )
+            return
+        key = (node.m0, node.m1)
+        if key not in self.split_tw:
+            w_only = self.split_w_only
+            if w_only is None:
+                w_only = node.m >= W_ONLY_THRESHOLD
+            with span("sventt.tables.twiddle"):
+                self.split_tw[key] = sixstep_row_twiddles_limbs(
+                    self.mod, node.m0, node.m1, inverse=self.inverse,
+                    with_companion=not w_only, device=self.device,
+                )
+        self._prepare_limbs(node.col)
+        self._prepare_limbs(node.row)
 
 
 def _row_step(
@@ -431,11 +478,20 @@ def _release(donated: torch.Tensor | None) -> None:
         donated.untyped_storage().resize_(0)
 
 
+def _axes(x: torch.Tensor, tables: PlanTables) -> tuple[tuple, tuple]:
+    """(the limb axis, or nothing; the batch axes) of a node's data: the
+    transform axis lies after the limb axis of stacked limbs' tables."""
+    if tables.limbs is None:
+        return (), tuple(x.shape[1:])
+    return tuple(x.shape[:1]), tuple(x.shape[2:])
+
+
 def run_forward(
     x: torch.Tensor, node, tables: PlanTables, donated: torch.Tensor | None = None,
     *, depth: int = 0,
 ) -> torch.Tensor:
-    """Length-m DIF NTT along the leading axis (bit-reversed output).
+    """Length-m DIF NTT along the leading axis (bit-reversed output); of
+    stacked limbs' tables, along axis 1 of (L, m, batch...).
     ``donated``: the tensor whose storage ``x`` lies in, released after the
     first step (the deepest column leaf) has read it.  ``depth``: the
     node's depth from the root, which names its row step's span."""
@@ -444,13 +500,13 @@ def run_forward(
             out = _leaf(x, node, tables)
         _release(donated)
         return out
-    batch = tuple(x.shape[1:])
-    mat = x.reshape((node.m0, node.m1) + batch)
+    lead, batch = _axes(x, tables)
+    mat = x.reshape(lead + (node.m0, node.m1) + batch)
     # column NTTs, leading axis m0
     mat = run_forward(mat, node.col, tables, donated, depth=depth + 1)
     with span(ROW_SPANS[depth]):
         mat = _row_step(mat, node, tables, batch, depth)
-    return mat.reshape((node.m,) + batch)
+    return mat.reshape(lead + (node.m,) + batch)
 
 
 def run_inverse(
@@ -464,10 +520,10 @@ def run_inverse(
             out = _leaf(x, node, tables)
         _release(donated)
         return out
-    batch = tuple(x.shape[1:])
-    mat = x.reshape((node.m0, node.m1) + batch)
+    lead, batch = _axes(x, tables)
+    mat = x.reshape(lead + (node.m0, node.m1) + batch)
     with span(ROW_SPANS[depth]):
         mat = _row_step(mat, node, tables, batch, depth)
     _release(donated)
     mat = run_inverse(mat, node.col, tables, depth=depth + 1)
-    return mat.reshape((node.m,) + batch)
+    return mat.reshape(lead + (node.m,) + batch)

@@ -32,6 +32,17 @@ non-donated one.
 Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
 engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
 engine off the TPU; here ``engine="jnp"`` asks for it.
+
+A multi-modular configuration (``NttConfig`` with tuples of L moduli and
+generators, one a limb) takes ``(L, n, batch...)`` data, limb l at row l
+canonical (or below 2 q_l when lazy) mod its q_l, and returns the same
+layout: each limb's forward in bit-reversed order, its inverse in natural
+order scaled by 1/n mod q_l -- the contract above, limb by limb.  Every
+limb's tables are stacked and each plan level is one kernel launch for all
+limbs.  ``fc`` is then the limbs' ``LimbConsts`` and ``mod`` None; every
+limb must resolve to one ``lazy`` and one ``modmul``.  A 1-tuple
+configuration is the single-modulus transform on (1, n, ...) data: the
+same tables, launches and results.
 """
 
 from __future__ import annotations
@@ -39,20 +50,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field.limb import FieldConsts, from_numpy, to_numpy
+from ..field.limb import FieldConsts, LimbConsts, from_numpy, to_numpy
+from ..field.modulus import Modulus
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from . import planner
 from .config import NttConfig
 
 
-def _resolve_modmul(config: NttConfig) -> str:
+def _resolve_modmul(config: NttConfig, mod: Modulus | None = None) -> str:
     """'auto' -> Shoup at n >= 2^22 for lazy-capable moduli, Montgomery
-    otherwise (the JAX package's rule, verbatim).  The matrix engine has
-    no stage twiddles, so its output does not depend on the choice."""
+    otherwise (the JAX package's rule, verbatim), for the modulus ``mod``
+    (None: the configuration's one).  The matrix engine has no stage
+    twiddles, so its output does not depend on the choice."""
     if config.modmul != "auto":
         return config.modmul
-    lazy = config.lazy if config.lazy is not None else config.mod.bit_width <= 62
+    mod = mod or config.mod
+    lazy = config.lazy if config.lazy is not None else mod.bit_width <= 62
     if lazy and config.n >= (1 << 22):
         return "shoup"
     return "montgomery"
@@ -98,10 +112,24 @@ class NTT:
             config = tune(config, device=self.device)
         self.config = config
         self.donate_input = donate_input
-        self.mod = config.mod
-        self.fc = FieldConsts.from_modulus(
-            self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
-        )
+        #: Limbs of a multi-modular configuration (None: one modulus).
+        self.limbs = len(config.limb_mods) if config.rns else None
+        if self.limbs is None:
+            self.mod = config.mod
+            self.fc = FieldConsts.from_modulus(
+                self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
+            )
+        else:
+            fcs = LimbConsts.from_moduli(
+                config.limb_mods, lazy=config.lazy, modmul=lambda m: _resolve_modmul(config, m)
+            )
+            if self.limbs == 1:  # the single-modulus transform on (1, n, ...) data
+                self.mod, self.fc = config.limb_mods[0], fcs[0]
+            else:
+                self.mod, self.fc = None, fcs
+        self._squeeze = self.limbs == 1
+        # the tables of every limb at once, or of the one modulus
+        mods = config.limb_mods if self.mod is None else self.mod
         self.engine = _resolve_engine(config.engine)
         self.plan = build_config_plan(config, self.engine)
         # NttConfig.transpose allows only "auto" and "xla", the torch copy
@@ -115,12 +143,12 @@ class NTT:
         if enable_forward:
             with span("sventt.tables.forward"):
                 self._fwd_tables = planner.PlanTables(
-                    self.plan, self.mod, self.fc, inverse=False, **tables
+                    self.plan, mods, self.fc, inverse=False, **tables
                 )
         if enable_inverse:
             with span("sventt.tables.inverse"):
                 self._inv_tables = planner.PlanTables(
-                    self.plan, self.mod, self.fc, inverse=True, **tables
+                    self.plan, mods, self.fc, inverse=True, **tables
                 )
 
     # -- public API -----------------------------------------------------------
@@ -182,15 +210,13 @@ class NTT:
         a ``torch.cuda.CUDAGraph`` can capture it."""
         if self._fwd_tables is None:
             raise RuntimeError("forward transform was not enabled")
-        plan = self.plan
-        return (lambda v, t: planner.run_forward(v, plan, t)), (self._fwd_tables,)
+        return (lambda v, t: self._run(planner.run_forward, v, t)), (self._fwd_tables,)
 
     def inverse_step(self):
         """Mirror of ``forward_step`` for the inverse transform."""
         if self._inv_tables is None:
             raise RuntimeError("inverse transform was not enabled")
-        plan = self.plan
-        return (lambda v, t: planner.run_inverse(v, plan, t)), (self._inv_tables,)
+        return (lambda v, t: self._run(planner.run_inverse, v, t)), (self._inv_tables,)
 
     def compute_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The forward transform of ``x``; with ``donate_input`` the call
@@ -207,21 +233,33 @@ class NTT:
             raise RuntimeError("forward transform was not enabled")
         with span("sventt.forward"):
             x = self._check(x, donate)
-            return planner.run_forward(x, self.plan, self._fwd_tables, x if donate else None)
+            return self._run(planner.run_forward, x, self._fwd_tables, x if donate else None)
 
     def _inverse(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
         if self._inv_tables is None:
             raise RuntimeError("inverse transform was not enabled")
         with span("sventt.inverse"):
             x = self._check(x, donate)
-            return planner.run_inverse(x, self.plan, self._inv_tables, x if donate else None)
+            return self._run(planner.run_inverse, x, self._inv_tables, x if donate else None)
+
+    def _run(self, run, x: torch.Tensor, tables, donated=None) -> torch.Tensor:
+        """``run`` (the planner's ``run_forward`` or ``run_inverse``) on
+        ``x``; a 1-tuple configuration's (1, n, ...) data as the
+        single-modulus (n, ...)."""
+        if self._squeeze:
+            return run(x[0], self.plan, tables, donated).unsqueeze(0)
+        return run(x, self.plan, tables, donated)
 
     def _check(self, x: torch.Tensor, donate: bool = False) -> torch.Tensor:
         if x.dtype != torch.int64:
             raise TypeError(f"expected an int64 tensor of u64 bit patterns, got {x.dtype}")
         if x.device != self.device:
             raise ValueError(f"data on {x.device}, NTT on {self.device}")
-        if x.shape[0] != self.config.n:
+        if self.limbs is not None:
+            if x.dim() < 2 or tuple(x.shape[:2]) != (self.limbs, self.config.n):
+                raise ValueError(f"an NTT of {self.limbs} limbs takes (L, n, ...) = "
+                                 f"({self.limbs}, {self.config.n}, ...) data, got {tuple(x.shape)}")
+        elif x.shape[0] != self.config.n:
             raise ValueError(f"leading axis {x.shape[0]} != n = {self.config.n}")
         if donate:
             storage = x.untyped_storage()
