@@ -56,13 +56,17 @@ Phases, each printing its own lines:
    a batched mid shape and two lazy limbs against the plain versions, and
    the limb-axis launches' graph replays beside one limb's and 32 limbs'
    single-modulus launches);
-4. paths: the matrix engine (the default, ``engine="auto"``), the
-   butterfly engine (``engine="pallas"``) and the grouped butterfly engine
+4. paths: the matrix engine (``engine="mxu"``), the butterfly engine
+   (``engine="pallas"``) and the grouped butterfly engine
    (``engine="pallas", max_r=3``) at n = 2^17, 2^24 and 2^26 on the
    flagship modulus, plus each butterfly engine on the lazy test modulus at
    2^24 (``modmul="auto"`` resolves to Shoup there), forward and inverse,
    elementwise against the native oracle (computed once per modulus and
-   length), with an exact roundtrip; the mxu paths must run every root on
+   length), with an exact roundtrip; the default route (``engine="auto"``):
+   a single-modulus forward at 2^17 and 2^24 on the butterfly engine, 2 and
+   3 launches of the radix-2 register kernel and none of the matrix
+   kernel, and a two-limb RNS forward at 2^17 on the tensor cores, 2
+   launches, each against the native oracle; the mxu paths must run every root on
    K3 (``mxu_ntt_lane``) and no transpose (the planner's ``transpose01``
    is counted); then K3 with the fused twiddle on the 2^24 root shape
    against JAX's root step on the card (a transpose, K1 with the transposed
@@ -89,7 +93,7 @@ Phases, each printing its own lines:
    orientations, the 2^24 and 2^26 splits' exchanges, a ragged canonical
    case), then each distributed path forward and inverse against the same
    oracle with an exact roundtrip -- comm "xla", "ring" and "overlap" at
-   2^24, the matrix and grouped engines, the lazy test modulus, 2^26, the
+   2^24, the default, matrix and grouped engines, the lazy test modulus, 2^26, the
    (2, 4) ("dcn", "ici") mesh, the Solinas engine -- and 2^28 runs
    (comm "ring" and "overlap") against the single-device six-step
    transform on the card, with the card's allocation read around each
@@ -99,9 +103,10 @@ Phases, each printing its own lines:
    machine has two or more cards, the 2^24 ring path over distinct cards.
    Then the applications and the portable engine: ``magic_series_count``
    at m = 100 and 101 mod TEST_MODULUS (native generators, a 2^20-point
-   convolution on K1 / K2 / K3) and M(100) through the chunked path (2^16
-   blocks on one 2^17-point NTT), against the exact counts mod N, every
-   launch on the tensor cores and no plain call; the Kinnaes closed form
+   convolution on the default engine, K4 / K5 / K6) and M(100) through the
+   chunked path (2^16 blocks on one 2^17-point NTT), against the exact
+   counts mod N, every launch on the radix-2 register kernel and no plain
+   call; the Kinnaes closed form
    on the card at m = 100 and 101 at 64 and 62 bits, against the same
    counts; ``engine="jnp"`` at 2^17 and 2^24 and two 2^24 ``plan_spec``
    trees with jnp rows (over K1 / K2 with a K3 root, over K4 / K5 with a
@@ -117,11 +122,11 @@ Phases, each printing its own lines:
    elementwise against the untuned config) of the flagship transform at
    2^17 and 2^24 into a temporary cache, failing if any candidate failed;
    a second ``tune`` must hit the cache without searching; the winner
-   timed beside the untuned mxu config in turns by the same timer (CUDA-
+   timed beside the untuned config (``engine="auto"``) in turns by the same timer (CUDA-
    graph replays), with each race's seconds and peak allocation; and
    ``NTT(tune=True)`` at 2^24 from the shipped cache against the oracle.
-   ``donate_input``: the mxu forward at 2^26 (against the oracle) and 2^28
-   (donated bitwise against kept) with and without it, the peak
+   ``donate_input``: the default and the mxu forward at 2^26 (against the
+   oracle) and 2^28 (donated bitwise against kept) with and without it, the peak
    allocation of each (the saving must be one n-word buffer within 5%).
    ``phase_breakdown`` of the 2^24 mxu and pallas plans, and ``trace``
    writing its Chrome trace.  The partial collective axis: the (2, 4)
@@ -956,7 +961,7 @@ def rns_cases(device, rng):
     ntt = NTT(NttConfig(qs, gs, n), device=device)
     sync(device)
     log(f"  {L} limbs at 2^17: NTT(...) in {time.perf_counter() - t0:.3f} s; {ntt.describe()!r}")
-    singles = [NTT(NttConfig(q, g, n), device=device) for q, g in zip(qs, gs)]
+    singles = [NTT(NttConfig(q, g, n, engine="mxu"), device=device) for q, g in zip(qs, gs)]
     x = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
     y = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
     x[:, n // 2:] = 0
@@ -1339,6 +1344,65 @@ def slice_run(device, configs, oracles: dict):
     return ntts, counts()
 
 
+def auto_route(device, oracles: dict) -> None:
+    """``engine="auto"`` on the card: the flagship forward at 2^17 and 2^24
+    runs the butterfly engine, one launch of the radix-2 register kernel a
+    plan level (2 and 3) and none of the matrix kernel; a two-limb RNS
+    forward at 2^17 (the first two primes of ``rns32-2p17``) runs the
+    matrix engine, one tensor-core launch a level for both limbs.  Each
+    forward against the native oracle (a limb's against its own)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sventt_tpu_torch import native
+    from sventt_tpu_torch.field.limb import from_numpy, to_numpy
+    from sventt_tpu_torch.ops import ntt_mxu
+    from sventt_tpu_torch.plan import NTT, NttConfig
+    from sventt_tpu_torch.utils.fill import host_fill
+
+    flag, _ = moduli()
+    F, G = flag.modulus, flag.generator
+    for log2n, levels in ((17, 2), (24, 3)):
+        n = 1 << log2n
+        ntt = NTT(NttConfig(F, G, n), enable_inverse=False, device=device)
+        x = host_fill(n, F)
+        reset_counts()
+        got = ntt.compute_forward(from_numpy(x, device))
+        sync(device)
+        c = counts()
+        bad = int(np.count_nonzero(to_numpy(ntt.normalize(got)) != oracle(oracles, F, G, n)[0]))
+        log(f"  flagship 2^{log2n}: engine {ntt.engine}, plan {ntt.describe()!r}; forward "
+            f"{bad} elements differ from the oracle; radix-2 kernels {c['pallas_kernels']}, "
+            f"matrix kernels {c['mxu_kernels']}")
+        check(ntt.engine == "pallas" and bad == 0, f"auto 2^{log2n}: not the butterfly engine, "
+              "or a mismatch")
+        check(c["pallas_kernels"]["radix2_registers"] == levels and radix2_routed(c)
+              and c["mxu_kernels"]["tensor_core"] == 0 and no_plain(c),
+              f"auto 2^{log2n}: not {levels} launches of the radix-2 register kernel alone")
+        del ntt, got
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "bench_port", "configs", "rns32-2p17.json")) as f:
+        cell = json.load(f)
+    qs, gs, n = tuple(cell["moduli"][:2]), tuple(cell["generators"][:2]), cell["n"]
+    ntt = NTT(NttConfig(qs, gs, n), enable_inverse=False, device=device)
+    xs = [host_fill(n, q) for q in qs]
+    reset_counts()
+    got = ntt.compute_forward(torch.stack([from_numpy(v, device) for v in xs]))
+    sync(device)
+    c = counts()
+    bad = sum(int(np.count_nonzero(to_numpy(got[i]) != native.golden_forward(v, q, g)))
+              for i, (v, q, g) in enumerate(zip(xs, qs, gs)))
+    log(f"  2 limbs at 2^17: engine {ntt.engine}; forward {bad} elements differ from each "
+        f"limb's oracle; matrix kernels {c['mxu_kernels']}, limbs {dict(ntt_mxu.LIMBS)}, "
+        f"radix-2 kernels {c['pallas_kernels']}")
+    check(ntt.engine == "mxu" and bad == 0, "auto RNS: not the matrix engine, or a mismatch")
+    check(c["mxu_kernels"]["tensor_core"] == 2 and mxu_on_tensor_cores(c)
+          and c["pallas_kernels"]["radix2_registers"] == 0 and no_plain(c),
+          "auto RNS: not 2 tensor-core launches")
+
+
 def lane_path(device, rng):
     """``mxu_ntt_lane`` with the fused twiddle, the mxu root step: the
     (65536, 256) rows of the 2^24 root, both directions, with a pair table
@@ -1679,9 +1743,10 @@ def multi_card(oracles: dict) -> None:
 
 def pipeline_run(device, smi: str) -> dict:
     """``magic_series_count(m)`` mod TEST_MODULUS at m = 100 and 101 (a
-    2^20-point convolution on the matrix engine: K1, K2 and K3 on the
-    tensor cores) and M(100) again through the chunked path (``chunk`` =
-    2^16, one 2^17-point NTT reused), each against the exact count mod N,
+    2^20-point convolution on the default engine, the butterfly one: K4,
+    K5 and K6 on the radix-2 register kernel) and M(100) again through the
+    chunked path (``chunk`` = 2^16, one 2^17-point NTT reused), each
+    against the exact count mod N,
     with the launch counts set to 0 before and read after.  The native
     generators' seconds are timed apart.  Returns the seconds per item."""
     from sventt_tpu_torch.apps import make_convolver, magic_series_count, series
@@ -1713,13 +1778,14 @@ def pipeline_run(device, smi: str) -> dict:
         log(f"  {label}: mod N {got}, exact mod N {exact % N}: {'equal' if got == exact % N else 'DIFFER'}; "
             f"{size}-point NTT (tables {tables:.2f} s); {total:.3f} s in all, of which the native "
             f"generators alone take {host:.3f} s ({smi})")
-        log(f"    launches {c['launches']['mxu']}, mxu kernels {c['mxu_kernels']}, "
-            f"plain calls {c['plain']['mxu']}")
+        log(f"    launches {c['launches']['pallas']}, radix-2 kernels {c['pallas_kernels']}, "
+            f"plain calls {c['plain']['pallas']}")
         check(got == exact % N, f"{label}: the pipeline's count != the exact count mod N")
-        orients = ("lead", "mid", "lane") if chunk is None else ("lead", "lane")  # 2^17: 256 x 512
-        check(all(c["launches"]["mxu"][k] > 0 for k in orients)
-              and mxu_on_tensor_cores(c) and no_plain(c),
-              f"{label}: not every mxu orientation ran on the tensor cores, or a plain version ran")
+        orients = ("leaf", "mid", "lane") if chunk is None else ("leaf", "lane")  # 2^17: 256 x 512
+        check(all(c["launches"]["pallas"][k] > 0 for k in orients)
+              and radix2_routed(c) and no_plain(c),
+              f"{label}: not every butterfly orientation ran on the register kernel, or a plain "
+              "version ran")
         check(c["launches"]["pointwise"]["pointwise"] > 0, f"{label}: no pointwise launch")
         secs[label] = (total, host)
     return secs
@@ -1855,7 +1921,7 @@ def autotune_phase(device, smi: str, oracles: dict) -> dict:
     playoff, the winner's elementwise check) of the flagship transform at
     2^17 and 2^24 into a temporary cache: no candidate may fail, a second
     ``tune`` must hit the cache without searching, and the winner is timed
-    beside the untuned config (``engine="auto"``: mxu) in turns (untuned,
+    beside the untuned config (``engine="auto"``) in turns (untuned,
     winner, winner, untuned) by the same timer.  Then ``NTT(tune=True)`` at
     2^24 from the shipped cache (the race's cache where the shipped one has
     no entry for this card) against the native oracle.  Returns the ms."""
@@ -1901,10 +1967,10 @@ def autotune_phase(device, smi: str, oracles: dict) -> dict:
             for c in (cfg, best, best, cfg):
                 turns.append(autotune._time_candidate(c, autotune.CHAIN_SECONDS, device=device))
             untuned, won = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-            ms[f"2^{log2n} untuned (mxu)"], ms[f"2^{log2n} tuned"] = untuned, won
+            ms[f"2^{log2n} untuned (auto)"], ms[f"2^{log2n} tuned"] = untuned, won
             log(f"    in turns untuned, winner, winner, untuned: "
                 + ", ".join(f"{t:.4f}" for t in turns)
-                + f" ms: the winner {untuned / won:.2f}x the untuned mxu config ({smi})")
+                + f" ms: the winner {untuned / won:.2f}x the untuned config ({smi})")
         shipped = autotune._load_cache(autotune._DEFAULT_CACHE)
         key = autotune.cache_key(NttConfig(F, G, 1 << 24), device)
         where = "the shipped cache"
@@ -1928,8 +1994,9 @@ def autotune_phase(device, smi: str, oracles: dict) -> dict:
 
 
 def donate_phase(device, smi: str, oracles: dict) -> None:
-    """The flagship mxu forward with and without ``donate_input`` at 2^26
-    (both against the native oracle) and 2^28 (donated bitwise against the
+    """The flagship forward, the default engine's (``engine="auto"``) and
+    the matrix engine's, with and without ``donate_input`` at 2^26 (both
+    against the native oracle) and 2^28 (donated bitwise against the
     kept-input output): the call's peak allocation above the tables (the
     input included), by ``max_memory_allocated``, and the time of one
     forward of a fresh copy of the input by CUDA events."""
@@ -1941,12 +2008,13 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
 
     flag, _ = moduli()
     F, G = flag.modulus, flag.generator
-    for log2n in (26, 28):
+    for engine, log2n in ((e, k) for e in ("auto", "mxu") for k in (26, 28)):
         n = 1 << log2n
         outs, peaks, times_ms = {}, {}, {}
         for donate in (False, True):
             torch.cuda.empty_cache()
-            ntt = NTT(NttConfig(F, G, n), enable_inverse=False, donate_input=donate, device=device)
+            ntt = NTT(NttConfig(F, G, n, engine=engine), enable_inverse=False,
+                      donate_input=donate, device=device)
             sync(device)
             before = torch.cuda.memory_allocated()
             x = device_fill(n, F, device)
@@ -1956,7 +2024,7 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
             sync(device)
             peaks[donate] = torch.cuda.max_memory_allocated() - before
             check(x.untyped_storage().nbytes() == (0 if donate else 8 * n),
-                  f"2^{log2n}: the input was {'kept' if donate else 'released'}")
+                  f"{engine} 2^{log2n}: the input was {'kept' if donate else 'released'}")
             del x
             outs[donate] = ntt.normalize(y) if log2n == 28 else to_numpy(ntt.normalize(y))
             del y
@@ -1971,13 +2039,13 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
         else:
             ok = torch.equal(outs[False], outs[True])
             what = "donated == kept, bitwise"
-        log(f"  mxu 2^{log2n} forward: {what}: {ok}; peak above the tables kept "
+        log(f"  {engine} 2^{log2n} forward: {what}: {ok}; peak above the tables kept "
             f"{peaks[False]} / donated {peaks[True]} bytes: saving {saving} bytes = "
             f"{saving / (8 * n):.4f} n-word buffers; forward of a copy kept {times_ms[False]:.4f} / "
             f"donated {times_ms[True]:.4f} ms ({smi})")
-        check(ok, f"2^{log2n}: the donated forward differs")
+        check(ok, f"{engine} 2^{log2n}: the donated forward differs")
         check(abs(saving - 8 * n) <= 0.05 * 8 * n,
-              f"2^{log2n}: donation saved {saving} bytes, not one n-word buffer")
+              f"{engine} 2^{log2n}: donation saved {saving} bytes, not one n-word buffer")
         del outs
     torch.cuda.empty_cache()
 
@@ -2685,9 +2753,10 @@ def main() -> int:
     # 4. the slices, each with its own counts
     F, G = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR
     oracles: dict = {}
-    log("[slice mxu] NTT(engine='auto' -> mxu) vs the native oracle, elementwise")
+    log("[slice mxu] NTT(engine='mxu') vs the native oracle, elementwise")
     ntts_mxu, c_mxu = slice_run(
-        device, [(f"mxu 2^{k}", F, G, 1 << k, {}) for k in (17, 24, 26)], oracles
+        device, [(f"mxu 2^{k}", F, G, 1 << k, dict(engine="mxu")) for k in (17, 24, 26)],
+        oracles
     )
     log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
     check(all(c_mxu["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
@@ -2716,6 +2785,9 @@ def main() -> int:
     check(radix2_routed(c_pal), "a radix-2 launch ran the stage-by-stage kernel")
     del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"]
     torch.cuda.empty_cache()
+    log("[route auto] NTT(engine='auto'): one modulus on the butterfly engine, one launch a "
+        "level; an RNS configuration on the tensor cores; vs the native oracle")
+    auto_route(device, oracles)
     log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
         "elementwise")
     grp = dict(engine="pallas", max_r=3)
@@ -2746,7 +2818,7 @@ def main() -> int:
     sol = dict(modmul="solinas")
     ntts_sol, c_sol = slice_run(
         device,
-        [(f"mxu solinas 2^{k}", F, G, 1 << k, sol) for k in (17, 24, 26)]
+        [(f"mxu solinas 2^{k}", F, G, 1 << k, dict(engine="mxu", **sol)) for k in (17, 24, 26)]
         + [(f"pallas solinas 2^{k}", F, G, 1 << k, dict(engine="pallas", **sol))
            for k in (17, 24, 26)],
         oracles,
@@ -2812,7 +2884,8 @@ def main() -> int:
         ("pallas 2^24 D=4 ring", F, G, 1 << 24, pal, m4, "ring"),
         ("pallas 2^24 D=4 overlap", F, G, 1 << 24, pal, m4, "overlap"),
         ("pallas 2^24 D=8 ring", F, G, 1 << 24, pal, m8, "ring"),
-        ("mxu 2^24 D=4 ring", F, G, 1 << 24, {}, m4, "ring"),
+        ("mxu 2^24 D=4 ring", F, G, 1 << 24, dict(engine="mxu"), m4, "ring"),
+        ("auto 2^24 D=4 ring", F, G, 1 << 24, {}, m4, "ring"),
         ("grouped 2^24 D=8 ring", F, G, 1 << 24, dict(engine="pallas", max_r=3), m8, "ring"),
         ("pallas TEST 2^24 D=4 ring", T, TG, 1 << 24, pal, m4, "ring"),
         ("pallas 2^26 D=8 ring", F, G, 1 << 26, pal, m8, "ring"),
@@ -2829,8 +2902,10 @@ def main() -> int:
           "the grouped path ran no K7")
     check(c_dist["grouped 2^24 D=8 ring"]["pallas_kernels"]["ranks"] == 0,
           "the distributed grouped path launched the rank-by-rank kernel")
+    check(c_dist["auto 2^24 D=4 ring"]["mxu_kernels"]["tensor_core"] == 0,
+          "the distributed default path launched the matrix kernel")
     for label, c in c_dist.items():
-        if label.startswith("pallas"):
+        if label.startswith(("pallas", "auto")):
             check(c["launches"]["pallas"]["leaf"] + c["launches"]["pallas"]["mid"] > 0
                   and radix2_routed(c), f"{label}: the radix-2 launches ran the wrong kernels")
     log("[distributed 2^28] 8 logical shards, ring and overlap, vs the single-device six_step "
@@ -2842,7 +2917,7 @@ def main() -> int:
 
     t_apps = time.perf_counter()
     log("[apps pipeline] magic_series_count(m) mod TEST_MODULUS at the reference's scale, "
-        "native generators, the mxu convolver; against the exact counts mod N")
+        "native generators, the default convolver; against the exact counts mod N")
     app_secs = pipeline_run(device, smi)
     log("[apps kinnaes] kinnaes_magic_series_count on the card at m = 100 and 101, two widths; "
         "against the exact counts mod N")
@@ -2874,17 +2949,18 @@ def main() -> int:
     t_new = time.perf_counter()
     log("[autotune] the full race of the flagship transform at 2^17 and 2^24 (three engines, "
         "the playoff, the winner verified elementwise), the cache hit, the winner beside the "
-        "untuned mxu config; NTT(tune=True) from the shipped cache vs the native oracle")
+        "untuned config; NTT(tune=True) from the shipped cache vs the native oracle")
     tune_ms = autotune_phase(device, smi, oracles)
-    log("[donate] the mxu forward with and without donate_input at 2^26 and 2^28: outputs and "
-        "peak allocations")
+    log("[donate] the default and the mxu forward with and without donate_input at 2^26 and "
+        "2^28: outputs and peak allocations")
     donate_phase(device, smi, oracles)
     log("[profiling] phase_breakdown of the 2^24 mxu and pallas plans; trace")
     profiling_phase(device, smi, {**ntts_mxu, **ntts_pal})
     log("[distributed partial axis] the (2, 4) ('dcn', 'ici') logical mesh, axis 'ici' (the "
         "vector replicated over 'dcn'), 2^24, comm xla and overlap, vs the native oracle")
     m24 = logical_mesh(device, 8, (2, 4))
-    dist_run(device, [(f"mxu 2^24 (2, 4) axis ici {comm}", F, G, 1 << 24, {}, m24, comm, "ici")
+    dist_run(device, [(f"mxu 2^24 (2, 4) axis ici {comm}", F, G, 1 << 24, dict(engine="mxu"),
+                       m24, comm, "ici")
                       for comm in ("xla", "overlap")], oracles)
     log(f"  the phases [autotune] to [distributed partial axis] took "
         f"{time.perf_counter() - t_new:.1f} s; autotune ms: "

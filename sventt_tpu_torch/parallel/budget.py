@@ -40,7 +40,7 @@ from ..ops import ntt_mxu, ntt_pallas
 from ..plan import planner
 from ..plan.config import NttConfig
 from ..plan.planner import W_ONLY_THRESHOLD
-from ..plan.wrapper import _resolve_engine
+from ..plan.wrapper import _auto_max_fused, _resolve_engine
 
 #: Bytes per coefficient: one int64 word of a u64.
 BYTES_PER_POINT = 8
@@ -174,10 +174,12 @@ def distributed_memory_budget(
     tw = n // devices * BYTES_PER_POINT
     if n < W_ONLY_THRESHOLD:
         tw *= 2
-    engine = _resolve_engine(config.engine)
+    engine = _resolve_engine(config, device)
+    cap = _auto_max_fused(config, engine)
     solinas = config.modmul == "solinas"
     leaf = sum(
-        _leaf_table_bytes(planner.build_plan(m, engine), config.max_r, solinas, device == "cuda")
+        _leaf_table_bytes(planner.build_plan(m, engine, cap), config.max_r, solinas,
+                          device == "cuda")
         for m in (n0, n1)
     )
     directions = int(enable_forward) + int(enable_inverse)

@@ -42,13 +42,15 @@ replicated over the other axes, as ``P(axis)`` lays it out in JAX's
 ``shard_map``: the list then holds R x D shards, group r's D shards at
 [r*D, (r+1)*D), every group holding the whole vector.
 
-Divergences from the JAX package: ``engine="auto"`` is the matrix engine
-("mxu", see ``plan.wrapper``), and the config's pallas knobs (``max_r``,
-``block_b``, ``stages_per_call``, ``lane_rows``, ``tw_layout``) reach the
-local plans, which the JAX package builds with its defaults (residues
-agree mod N either way).  As in the JAX package, ``tune`` is not read.
-``forward_step`` / ``inverse_step`` return the schedule and its tables, as
-in the JAX package.
+Divergences from the JAX package: ``engine="auto"`` follows the port's
+rule (``plan.wrapper._resolve_engine`` on the first shard's device: the
+butterfly engine on a card, its local plans cut at leaves of up to 512
+points, the matrix engine on the CPU), and the config's pallas knobs
+(``max_r``, ``block_b``, ``stages_per_call``, ``lane_rows``,
+``tw_layout``) reach the local plans, which the JAX package builds with
+its defaults (residues agree mod N either way).  As in the JAX package,
+``tune`` is not read.  ``forward_step`` / ``inverse_step`` return the
+schedule and its tables, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from ..ops.twiddle import MontPair, montpair_map, sixstep_row_twiddles_device
 from ..plan import planner
 from ..plan.config import NttConfig
 from ..plan.planner import PlanTables, row_twiddles
-from ..plan.wrapper import _resolve_engine, _resolve_modmul
+from ..plan.wrapper import _auto_max_fused, _resolve_engine, _resolve_modmul
 from .mesh import AXIS, Mesh
 from .ring import copy_all_to_all, ring_all_to_all
 
@@ -172,9 +174,10 @@ class DistributedNTT:
         #: the inter-step multiply's engine: Montgomery, as the JAX package
         #: multiplies its Montgomery tables by ``mont_mul`` / ``mont_mul_full``
         self.tw_fc = FieldConsts.from_modulus(self.mod, lazy=self.fc.lazy)
-        engine = _resolve_engine(config.engine)
-        self._col_plan = planner.build_plan(n0, engine)
-        self._row_plan = planner.build_plan(n1, engine)
+        engine = _resolve_engine(config, self.devices[0])
+        cap = _auto_max_fused(config, engine)
+        self._col_plan = planner.build_plan(n0, engine, cap)
+        self._row_plan = planner.build_plan(n1, engine, cap)
         self._side: dict[int, torch.cuda.Stream] = {}
         # tables per enabled direction only: at 2^30 each direction's are GBs
         self._forward = self._tables(inverse=False) if enable_forward else None

@@ -345,7 +345,7 @@ def _footprint(config: NttConfig, device=None) -> tuple:
             calls.append(("inter_step", m0, m1, B, tw))
             walk(node.row, (m0,) + batch)
 
-    walk(build_config_plan(config, _resolve_engine(config.engine)), ())
+    walk(build_config_plan(config, _resolve_engine(config, device)), ())
     return (fc.modmul, fc.lazy, tuple(calls))
 
 

@@ -1,10 +1,15 @@
 """NttConfig: the configuration record of one transform.
 
 The same fields and validation as ``sventt_tpu/plan/config.py``.  The port
-runs the matrix engine ("mxu"; "auto" resolves to it on every device, see
-``plan/wrapper.py``), the butterfly engine ("pallas", radix-2 or, with
-``max_r`` > 1, radix-2^R grouped) and the portable engine ("jnp"), and
-``tune=True`` resolves through the port's autotuner (``plan/autotune.py``).
+runs the matrix engine ("mxu"), the butterfly engine ("pallas", radix-2
+or, with ``max_r`` > 1, radix-2^R grouped) and the portable engine
+("jnp"), and ``tune=True`` resolves through the port's autotuner
+(``plan/autotune.py``).  "auto" is the butterfly engine for one modulus on
+a CUDA card, with leaves of up to 512 points (the matrix plan's levels),
+and the matrix engine for a multi-modular configuration and on the CPU:
+on an H100 the radix-2 kernels run the flagship transform 3.3-4.0x faster
+than the int8 tensor-core levels at 2^17 and 2^24 (``plan/wrapper.py``
+says more).
 The docstrings below are the JAX package's.
 
 The port's own: ``modulus`` and ``generator`` may be equal-length tuples,

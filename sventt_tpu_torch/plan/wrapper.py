@@ -29,9 +29,20 @@ donated JAX array is deleted), so a transform holds two n-word buffers at
 its peak, not three.  No kernel works in place; the result is bitwise the
 non-donated one.
 
-Divergence from the JAX package: ``engine="auto"`` resolves to the matrix
-engine ("mxu") on EVERY device.  The JAX package picks its portable jnp
-engine off the TPU; here ``engine="jnp"`` asks for it.
+``engine="auto"`` is the port's own rule (``_resolve_engine``), read from
+the configuration and the device alone: on a CUDA card a single-modulus
+configuration runs the butterfly engine ("pallas": radix-2, K4 leaf / K5
+mid / K6 lane on the register kernel), its automatic plan cut at leaves of
+up to ``AUTO_MAX_FUSED`` = 512 points, so it has the matrix plan's levels
+and launches (2^17 = 256 x 512, 2^24 = (256 x 256) x 256); a
+multi-modular configuration runs the matrix engine ("mxu"), its only
+engine; on the CPU "auto" is "mxu".  On an H100 the autotuner's race picks
+the butterfly family at 2^17 and 2^24, 3.3-4.0x the matrix engine as
+CUDA-graph replays (``autotune_cache.json``: 0.728 against 2.905 ms at
+2^24), and the benchmark's 2^24 cells spend nearly all their device time
+in K1-K3, which run at 22-28% of their int8 bound and take about 2.9 ms a
+transform against about 0.75 ms forward on K4-K6.  The JAX package picks
+its portable jnp engine off the TPU; here ``engine="jnp"`` asks for it.
 
 A multi-modular configuration (``NttConfig`` with tuples of L moduli and
 generators, one a limb) takes ``(L, n, batch...)`` data, limb l at row l
@@ -72,24 +83,46 @@ def _resolve_modmul(config: NttConfig, mod: Modulus | None = None) -> str:
     return "montgomery"
 
 
-def _resolve_engine(engine: str) -> str:
-    """'auto' -> 'mxu' on every device (see the module docstring)."""
-    return "mxu" if engine == "auto" else engine
+#: Largest leaf of the butterfly plan that ``engine="auto"`` builds on a
+#: card (``max_fused`` unset): the matrix engine's 512, so the plan has the
+#: matrix plan's levels, where ``ntt_pallas.MAX_FUSED`` = 256 would give
+#: 2^17 a third launch; the race picks 512 at 2^17 too.
+AUTO_MAX_FUSED = 512
+
+
+def _resolve_engine(config: NttConfig, device) -> str:
+    """``config.engine`` with "auto" resolved for ``device`` (a
+    ``torch.device`` or its type string): on a CUDA device "pallas" for a
+    single-modulus configuration and "mxu" for a multi-modular one (the
+    only engine with a limb axis); "mxu" on the CPU, where only the plain
+    versions run.  See the module docstring for why."""
+    if config.engine != "auto":
+        return config.engine
+    if torch.device(device).type == "cuda" and not config.rns:
+        return "pallas"
+    return "mxu"
+
+
+def _auto_max_fused(config: NttConfig, engine: str) -> int | None:
+    """The leaf cap that "auto" sets: ``AUTO_MAX_FUSED`` where it resolved
+    to the butterfly engine, else None (the engine's own default)."""
+    return AUTO_MAX_FUSED if config.engine == "auto" and engine == "pallas" else None
 
 
 def build_config_plan(config: NttConfig, engine: str):
     """The plan tree of ``config`` with its engine resolved to ``engine``."""
     if config.plan_spec is not None:
         return planner.build_plan_spec(config.n, config.plan_spec)
+    max_fused = config.max_fused or _auto_max_fused(config, engine)
     if config.strategy == "auto":
-        return planner.build_plan(config.n, engine, config.max_fused)
+        return planner.build_plan(config.n, engine, max_fused)
     if config.resolved_strategy == "iterative":
         return planner.Leaf(config.n, engine)
     n0, n1 = config.split
     return planner.Split(
         config.n, n0, n1,
-        planner.build_plan(n0, engine, config.max_fused),
-        planner.build_plan(n1, engine, config.max_fused),
+        planner.build_plan(n0, engine, max_fused),
+        planner.build_plan(n1, engine, max_fused),
     )
 
 
@@ -130,7 +163,7 @@ class NTT:
         self._squeeze = self.limbs == 1
         # the tables of every limb at once, or of the one modulus
         mods = config.limb_mods if self.mod is None else self.mod
-        self.engine = _resolve_engine(config.engine)
+        self.engine = _resolve_engine(config, self.device)
         self.plan = build_config_plan(config, self.engine)
         # NttConfig.transpose allows only "auto" and "xla", the torch copy
         # the planner's fallback runs either way: no table takes it

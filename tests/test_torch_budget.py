@@ -17,11 +17,14 @@ budget, and the CUDA budget's table bytes equal to the built CUDA tables'
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from sventt_tpu.parallel import distributed_memory_budget as jbudget
 from sventt_tpu.plan import NttConfig as JNttConfig
+from sventt_tpu_torch.field.golden import GoldenNTT
+from sventt_tpu_torch.field.limb import to_numpy
 from sventt_tpu_torch.field.modulus import (
     FLAGSHIP_GENERATOR,
     FLAGSHIP_MODULUS,
@@ -35,8 +38,9 @@ from sventt_tpu_torch.parallel import (
     make_ntt_mesh,
     validate_2p30,
 )
+from sventt_tpu_torch.parallel import budget, sixstep
 from sventt_tpu_torch.parallel.budget import DEFAULT_HBM_BYTES
-from sventt_tpu_torch.plan import NttConfig
+from sventt_tpu_torch.plan import NttConfig, planner, wrapper
 
 
 def _args(N, g, log2n, n0=None):
@@ -216,3 +220,26 @@ def test_cuda_budget_counts_the_tile_copy(log2n, n0, kw):
     assert bool(mxu_ms) == (kw["engine"] == "mxu")
     with pytest.raises(ValueError, match="device"):
         distributed_memory_budget(cfg, 8, device="tpu")
+
+
+def test_auto_distributed_plans_on_a_card(rng, monkeypatch):
+    """DistributedNTT and its memory budget resolve "auto" by the one rule
+    (here as on a CUDA card, on CPU tables): the local plans are butterfly
+    plans with leaves of up to 512 points (a 512-point row is one leaf,
+    not 16 x 32), the budget counts the tables they build, and the
+    transform equals the golden model."""
+    rule = wrapper._resolve_engine
+    for module in (sixstep, budget):
+        monkeypatch.setattr(module, "_resolve_engine", lambda config, device: rule(config, "cuda"))
+    n, N = 1 << 12, FLAGSHIP_MODULUS
+    cfg = NttConfig(N, FLAGSHIP_GENERATOR, n, strategy="six_step", n0=8, n1=512)
+    dntt = DistributedNTT(cfg, make_ntt_mesh(devices=["cpu"] * 8), enable_inverse=False)
+    assert dntt._col_plan == planner.Leaf(8, "pallas")
+    assert dntt._row_plan == planner.Leaf(512, "pallas")
+    t, cpu = dntt._forward, torch.device("cpu")
+    built = sum(_tensor_bytes(getattr(tables, k)) for tables in (t.col[cpu], t.row[cpu])
+                for k in ("leaf", "lane", "split_tw"))
+    assert distributed_memory_budget(cfg, 8, enable_inverse=False, device="cpu").leaf_tables == built
+    x = rng.integers(0, N, n, dtype=np.uint64)
+    fwd = to_numpy(dntt.gather(dntt.normalize(dntt.compute_forward(dntt.shard(x)))))
+    assert [int(v) for v in fwd] == GoldenNTT(n, cfg.mod).forward([int(v) for v in x])

@@ -35,7 +35,7 @@ from sventt_tpu_torch.field.modulus import (
 )
 from sventt_tpu_torch.ops import inter_step, ntt_jnp, ntt_mxu, ntt_pallas, twiddle
 from sventt_tpu_torch.parallel import DistributedNTT, make_ntt_mesh
-from sventt_tpu_torch.plan import NTT, NttConfig, planner
+from sventt_tpu_torch.plan import NTT, NttConfig, planner, wrapper
 
 MODS = {
     "test62": (TEST_MODULUS, TEST_GENERATOR),
@@ -309,8 +309,36 @@ def test_distributed_step_helpers_refuse_disabled():
 
 
 def test_engine_auto_stays_mxu():
-    """engine="auto" resolves to the matrix engine on every device; "jnp"
-    is asked for by name."""
+    """engine="auto" resolves to the matrix engine on the CPU; "jnp" is
+    asked for by name."""
     cfg = NttConfig(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 10)
     assert NTT(cfg, device="cpu").engine == "mxu"
     assert NTT(cfg.with_(engine="jnp"), device="cpu").plan == planner.Leaf(1 << 10, "jnp")
+
+
+_ONE = (FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
+_RNS = ((FLAGSHIP_MODULUS, TEST_MODULUS), (FLAGSHIP_GENERATOR, TEST_GENERATOR))
+
+
+@pytest.mark.parametrize(
+    "device,moduli,engine,want",
+    [
+        ("cuda", _ONE, "auto", "pallas"),
+        ("cuda", _RNS, "auto", "mxu"),
+        ("cpu", _ONE, "auto", "mxu"),
+        ("cpu", _RNS, "auto", "mxu"),
+    ]
+    + [(device, _ONE, engine, engine)
+       for device in ("cuda", "cpu") for engine in ("mxu", "pallas", "jnp")]
+    + [(device, _RNS, "mxu", "mxu") for device in ("cuda", "cpu")],
+    ids=lambda v: v if isinstance(v, str) else ("rns" if isinstance(v[0], tuple) else "one"),
+)
+def test_engine_auto_rule(device, moduli, engine, want):
+    """The engine that "auto" resolves to, from the device kind and the
+    number of limbs alone: the butterfly engine for one modulus on a card,
+    the matrix engine for a multi-modular config (its only engine) and on
+    the CPU; an explicit engine is kept.  No card is needed: the device is
+    given by its kind."""
+    cfg = NttConfig(*moduli, 1 << 10, engine=engine)
+    assert wrapper._resolve_engine(cfg, device) == want
+    assert wrapper._resolve_engine(cfg, torch.device(device)) == want

@@ -177,3 +177,70 @@ def test_interop_pallas_plan_tables(rng, inverse):
     x = from_numpy(rng.integers(0, N, 1 << 12, dtype=np.uint64))
     run = planner.run_inverse if inverse else planner.run_forward
     np.testing.assert_array_equal(to_numpy(run(x, plan, carried)), to_numpy(run(x, plan, own)))
+
+
+
+def _card_rule(monkeypatch):
+    """Make ``NTT`` resolve "auto" as on a CUDA card while it runs on the
+    CPU (the plain versions)."""
+    rule = wrapper._resolve_engine
+    monkeypatch.setattr(wrapper, "_resolve_engine", lambda config, device: rule(config, "cuda"))
+
+
+def test_auto_plan_on_a_card():
+    """engine="auto" on a card: the butterfly plan with leaves of up to 512
+    points -- 256 x 512 at 2^17, (256 x 256) x 256 at 2^24 -- in the
+    shapes, so with the levels and launches, of the matrix plan that "auto"
+    gives on the CPU (and "mxu" anywhere), at 2^10 .. 2^26; an explicit
+    "pallas" keeps the JAX package's plan (leaves of up to 256), and a
+    ``max_fused`` the caller sets is kept."""
+    F, G = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR
+
+    def plan(cfg, device):
+        return wrapper.build_config_plan(cfg, wrapper._resolve_engine(cfg, device))
+
+    for log2n in range(10, 27):
+        cfg = NttConfig(F, G, 1 << log2n)
+        mxu = plan(cfg, "cpu")
+        assert mxu == plan(cfg.with_(engine="mxu"), "cuda")
+        assert repr(plan(cfg, "cuda")) == repr(mxu).replace("'mxu'", "'pallas'"), log2n
+    L = planner.Leaf
+    assert plan(NttConfig(F, G, 1 << 17), "cuda") == planner.Split(
+        1 << 17, 256, 512, L(256, "pallas"), L(512, "pallas"))
+    assert plan(NttConfig(F, G, 1 << 24), "cuda") == planner.Split(
+        1 << 24, 1 << 16, 256,
+        planner.Split(1 << 16, 256, 256, L(256, "pallas"), L(256, "pallas")), L(256, "pallas"))
+    for log2n in (17, 24):
+        cfg = NttConfig(F, G, 1 << log2n, engine="pallas")
+        assert repr(plan(cfg, "cuda")) == repr(jplanner.build_plan(1 << log2n, "pallas"))
+    assert plan(NttConfig(F, G, 1 << 17, max_fused=64), "cuda") == plan(
+        NttConfig(F, G, 1 << 17, engine="pallas", max_fused=64), "cuda")
+
+
+@pytest.mark.parametrize("log2n", [10, 12])
+def test_auto_plan_on_a_card_matches_jax_and_golden(rng, monkeypatch, log2n):
+    """The plan that "auto" builds on a card -- the JAX package's butterfly
+    plan at leaves of up to 512 points -- run through the butterfly
+    engine's plain versions, equals the JAX package's transform and the
+    golden model, forward and inverse, and its roundtrip is exact.  The
+    flagship's residues are canonical, so every JAX engine gives the same
+    words: its portable one is compared, as its interpreted Pallas kernels
+    take a minute at these shapes."""
+    _card_rule(monkeypatch)
+    n, N = 1 << log2n, FLAGSHIP_MODULUS
+    ntt = NTT(NttConfig(N, FLAGSHIP_GENERATOR, n), device="cpu")
+    ref = JNTT(JNttConfig(N, FLAGSHIP_GENERATOR, n, engine="jnp"))
+    assert ntt.engine == "pallas"
+    assert repr(ntt.plan) == repr(jplanner.build_plan(n, "pallas", 512))
+    x = rng.integers(0, N, n, dtype=np.uint64)
+    x[1] = N - 1
+    ntt_pallas.reset_counts()
+    fwd, inv = ntt.forward_numpy(x), ntt.inverse_numpy(x)
+    plain = dict(ntt_pallas.PLAIN_CALLS)
+    assert plain["leaf"] > 0 and plain["lane"] > 0, plain
+    np.testing.assert_array_equal(fwd, ref.forward_numpy(x))
+    np.testing.assert_array_equal(inv, ref.inverse_numpy(x))
+    golden = GoldenNTT(n, ntt.mod)
+    assert [int(v) for v in fwd] == golden.forward([int(v) for v in x])
+    assert [int(v) for v in inv] == golden.inverse([int(v) for v in x])
+    np.testing.assert_array_equal(ntt.inverse_numpy(fwd), x)

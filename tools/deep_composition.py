@@ -40,7 +40,7 @@ def check(device: str, comm: str, log2n: int = 20, shards: int = 8) -> float:
     from sventt_tpu_torch.utils.fill import host_fill
 
     F, G, n = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << log2n
-    dntt = DistributedNTT(NttConfig(F, G, n, strategy="six_step"),
+    dntt = DistributedNTT(NttConfig(F, G, n, strategy="six_step", engine="mxu"),
                           make_ntt_mesh(devices=[device] * shards), comm=comm)
     for plan in (dntt._col_plan, dntt._row_plan):
         if not (isinstance(plan, planner.Split) and plan.row.engine == "mxu"):
