@@ -22,30 +22,25 @@ Phases, each printing its own lines:
    tensor-core kernel m = 2, 8, 32, 64, 512 and 1024, batches that are not
    a multiple of its block, the 2^17 plan's launches with their row split
    (K3 at the 2^17, 2^24 and 2^26 roots) and a mid call with A = 70000 >
-   65535 slices; each K3 case also on the __dp4a A/B point and, with the
-   pair inverse (the staged epilogue), on the fragment-store one; the
-   radix-2 butterfly kernels (K4 leaf, K5 mid and K6 lane on the register
-   kernel, csrc/ntt_radix2.cu, each case also
-   on the first port's stage-by-stage kernel, the A/B point
-   ``_launch_stages``) with every twiddle mode, both directions, the
+   65535 slices; each K3 case with the pair inverse (the staged
+   epilogue) also on the fragment-store A/B point; the radix-2 butterfly
+   kernels (K4 leaf, K5 mid and K6 lane on the register kernel,
+   csrc/ntt_radix2.cu) with every twiddle mode, both directions, the
    flagship and the lazy test modulus under Montgomery and Shoup, a ragged
    batch, m = 2 ... 4096, the 2^17, 2^24 and 2^26 plans' launches, spc /
    block_b / lane_rows tiles, a strided (A, m, B) view and A = 70000
    slices;
    the same matrix cases under the u7 and s8b plane schemes (on the
    tensor cores; u7 to m = 1024, s8b to 512), with K1's 2^24 shape and,
-   for u7, the m = 1024 all-ones input (against the golden model too),
-   each u7 case also on the __dp4a A/B point; K11 (the fused u7
-   prototype, the u7 lead form) at (128, 32768) and (128, 300), also on
-   the __dp4a A/B point, with columns 0 and 7777 against the golden
-   model;
+   for u7, the m = 1024 all-ones input (against the golden model too);
+   K11 (the fused u7 prototype, the u7 lead form) at (128, 32768) and
+   (128, 300), with columns 0 and 7777 against the golden model;
    the grouped kernel (K7 leaf, K8 lane) at max_r 2, 3 and 4 the same way,
    m = 2 and m = 8 included; the blocked transpose (K9a/K9b) at the 2^24
    root-row shapes with three block shapes, int64 and int32; the
    inter-step multiply kernel of the transpose fallback; every Solinas
    branch (``modmul="solinas"``) -- K1/K2's fused twiddle, K4's stages,
-   K5's stages and twiddle, K6's stages and prologue / epilogue (K4-K6
-   also on the A/B point), and the
+   K5's stages and twiddle, K6's stages and prologue / epilogue, and the
    inter-step pass -- on the flagship and the Goldilocks modulus, with
    JAX's corner values of the fold (0, 1, N - 1, N, 2^63, 2^64 - 1)
    against the twiddle N - 1 and random ones; the multi-modular (RNS)
@@ -74,19 +69,19 @@ Phases, each printing its own lines:
    ``transpose_pallas`` on the 2^24 root-row shapes against the torch
    copy; the u7 and s8b schemes through ``mxu_ntt`` / ``mxu_ntt_mid`` /
    ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
-   model, an exact roundtrip and s8, every launch on the tensor cores and
-   none on __dp4a; the Solinas engine
+   model, an exact roundtrip and s8, every launch on the tensor cores;
+   the Solinas engine
    (``modmul="solinas"``) on both engines at 2^17, 2^24 and 2^26, with
    ``max_r=3`` at 2^24 (radix-2, as in JAX: K7/K8 launch 0 times) and a
    ``strategy="six_step"`` 2^24 plan whose row subtree runs the
    inter-step pass.  Each path runs with the launch counts
    set to 0 just before and read just after: every kernel of the path must
    have launched, and no plain version may have run; on the matrix paths
-   every lead / mid / lane launch must have run the tensor-core kernel and
-   none the __dp4a one (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly
-   paths (flagship, TEST, Solinas, distributed) every leaf / mid / lane
-   launch the register kernel and none the stage-by-stage one
-   (``ntt_pallas.KERNEL_LAUNCHES``);
+   every lead / mid / lane launch must have run the tensor-core kernel
+   (``ntt_mxu.KERNEL_LAUNCHES``); on the radix-2 butterfly paths
+   (flagship, TEST, Solinas, distributed) every leaf / mid / lane launch
+   the radix-2 register kernel, and on the grouped paths every launch the
+   grouped one (``ntt_pallas.KERNEL_LAUNCHES``);
    Then the distributed six-step (``parallel.DistributedNTT``) on logical
    shards of the card (a mesh naming it 4 or 8 times): the ring all-to-all
    K10 against its plain version first (D = 1, 2, 3, 4, 8, both
@@ -136,28 +131,23 @@ Phases, each printing its own lines:
    beside its plain version (and, for the transpose, the PyTorch call
    ``.t().contiguous()``; for K10 the torch-copy all-to-all), and the
    least time the card could take -- K1 / K2 (pair, w, Solinas, and the
-   2^17 plan's launches) on the tensor cores timed in turns with the
-   __dp4a kernel at the same call (``ntt_mxu._launch_dp4a_s8``: dp4a, tc,
-   tc, dp4a), with the speedup and the achieved int8 TOP/s, and K3 the
-   same way as CUDA-graph replays, both directions with the pair twiddle;
+   2^17 plan's launches) on the tensor cores, with the achieved int8
+   TOP/s, and K3 as CUDA-graph replays, both directions with the pair
+   twiddle;
    the mxu root step as JAX's sandwich (transpose, K1, transpose) against
    K3 with the twiddle fused at the 2^24 and 2^17 roots, and K3's staged
    epilogue against the stores from the fragment (the pair inverse at the
    2^24, 2^17 and 2^26 roots), each as CUDA-graph replays in turns;
-   K7 / K8 on the
-   grouped register kernel in turns with the rank-by-rank one
-   (``ntt_pallas._launch_grouped_ranks``: ranks, registers, registers,
-   ranks) at the 2^24 shapes (max_r 3 both directions, max_r 2 and 4 at
-   the leaf) and the 2^17 ones, as CUDA-graph replays (device time), with
-   the bound and the share of it; K4 / K5 / K6 on the radix-2 register
-   kernel in turns with the stage-by-stage one (stages, registers,
-   registers, stages) as CUDA-graph replays at the 2^24 shapes (both
-   directions, Montgomery, Shoup on the test modulus, Solinas), the 2^17
-   ones and the 2^26 ones, with the bound, the share of it and the
-   Montgomery product floor; each Solinas kernel beside its
-   Montgomery form at the same shape; the u7 kernels at K1/K2/K3's 2^24
-   shapes and K11 at (128, 32768) as CUDA-graph replays in turns with the
-   __dp4a kernel, with the share of u7's own bound and of s8's; the u7
+   K7 / K8 on the grouped register kernel at the 2^24 shapes (max_r 3
+   both directions, max_r 2 and 4 at the leaf) and the 2^17 ones, as
+   CUDA-graph replays (device time), with the bound and the share of it;
+   K4 / K5 / K6 on the radix-2 register kernel as CUDA-graph replays at
+   the 2^24 shapes (both directions, Montgomery, Shoup on the test
+   modulus, Solinas), the 2^17 ones and the 2^26 ones, with the bound,
+   the share of it and the Montgomery product floor; each Solinas kernel
+   beside its Montgomery form at the same shape; the u7 kernels at
+   K1/K2/K3's 2^24 shapes and K11 at (128, 32768) as CUDA-graph replays,
+   with the share of u7's own bound and of s8's; the u7
    block's two builds (16 and 32 columns) in turns at m = 256 and 128;
    s8b at the same shapes beside s8's; and the round-5 A/B level
    (mid (64, 256, 256), each scheme bare, with the pair twiddle fused, and
@@ -352,9 +342,9 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
     (lead and lane, against the golden model too); u7 and s8b add K1's
     2^24 shape (K2's and K3's are in every scheme's list).  K3 takes the
     fused twiddle in every mode (pair, w, Solinas on the flagship and
-    Goldilocks, the lazy inverse).  After the counts are read, every K3
-    case (and every u7 case) is also held on the __dp4a A/B point and each
-    call that runs the staged epilogue on the fragment-store one."""
+    Goldilocks, the lazy inverse).  After the counts are read, each call
+    that runs the staged epilogue is also held on the fragment-store A/B
+    point."""
     import numpy as np
 
     from sventt_tpu_torch.field.golden import GoldenNTT
@@ -458,17 +448,12 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
               f"{tag}{name}: launched {ntt_mxu.KERNEL_LAUNCHES}, not the {route} kernel alone")
         err = mismatch(got, want)
         ab = ""
-        if orient == "lane" or scheme == "u7":
-            # the A/B points at the same call: __dp4a, and where the call
-            # runs the staged epilogue (the lane inverse with the pair
-            # twiddle) the stores from the fragment
-            others = {"dp4a": lambda: ntt_mxu._launch_dp4a(
-                x, t, fc, tw, mid=orient == "mid", lane=orient == "lane")}
-            if orient == "lane" and ntt_mxu.tc_form(orient, inverse, tw, scheme) == "lane_staged":
-                others["fragment"] = lambda: ntt_mxu._launch_lane_form(x, t, fc, "lane", tw)
-            errs = {k: mismatch(f(), want) for k, f in others.items()}
-            ab = "; A/B points " + ", ".join(f"{k} {v}" for k, v in errs.items())
-            err = max([err, *errs.values()])
+        if orient == "lane" and ntt_mxu.tc_form(orient, inverse, tw, scheme) == "lane_staged":
+            # the A/B point at the same call: the staged epilogue's (the
+            # lane inverse with the pair twiddle) stores from the fragment
+            err_ab = mismatch(ntt_mxu._launch_lane_form(x, t, fc, "lane", tw), want)
+            ab = f"; A/B point fragment {err_ab}"
+            err = max(err, err_ab)
         worst[orient] = max(worst[orient], err)
         log(f"  {tag}{name}: max_abs_err {err} (lazy={fc.lazy}; {route}{ab})")
         check(err <= TOL, f"{tag}{name}: kernel != plain")
@@ -502,8 +487,6 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
         route = ntt_mxu.kernel_for(scheme, orient)
         check(ntt_mxu.KERNEL_LAUNCHES[route] == 1, f"{tag}m=1024 {what} {orient}: not on {route}")
         err = mismatch(got, want)
-        if scheme == "u7":  # the __dp4a A/B point on the same input
-            err = max(err, mismatch(ntt_mxu._launch_dp4a(xo, t, fc, lane=orient == "lane"), want))
         worst[orient] = max(worst[orient], err)
         check(err <= TOL, f"{tag}m=1024 {what} {orient}: kernel != plain")
         got_h = to_numpy(got if orient == "lead" else got.t())
@@ -517,16 +500,14 @@ def mxu_kernel_cases(device, rng, scheme: str = "s8"):
 
 def fused_cases(device, rng):
     """K11 at its own shape, (128, 32768), and at a ragged (128, 300), vs
-    its plain version, on the tensor cores and on the __dp4a A/B point;
-    columns 0 and 7777 vs the golden model (as the JAX prototype checks
+    its plain version, on the tensor cores; columns 0 and 7777 vs the golden model (as the JAX prototype checks
     them); returns the largest mismatch."""
     from sventt_tpu_torch.experimental import mxu_fused_kernel as fused
     from sventt_tpu_torch.field.golden import GoldenNTT
-    from sventt_tpu_torch.field.limb import FieldConsts, to_numpy
+    from sventt_tpu_torch.field.limb import to_numpy
     from sventt_tpu_torch.ops import ntt_mxu
 
     flag, _ = moduli()
-    fc = FieldConsts.from_modulus(flag, lazy=False)
     stack = fused.make_fused_stack(flag, device=device)
     worst = 0
     for cols in (300, 1 << 15):
@@ -535,13 +516,12 @@ def fused_cases(device, rng):
         got = fused.mxu_fused_ntt(x, stack, flag)
         route = dict(ntt_mxu.KERNEL_LAUNCHES)
         want = fused.mxu_fused_plain(x, stack, flag)
-        err_ab = mismatch(ntt_mxu._launch_dp4a(x, fused._direction(stack, flag), fc), want)
         sync(device)
         err = mismatch(got, want)
-        log(f"  K11 fused u7 128x{cols}: max_abs_err {err} ({route}); A/B point dp4a {err_ab}")
-        check(route == {"tensor_core": 1, "dp4a": 0}, f"K11: launched {route}, not the tensor cores")
-        check(max(err, err_ab) <= TOL, "K11: kernel != plain")
-        worst = max(worst, err, err_ab)
+        log(f"  K11 fused u7 128x{cols}: max_abs_err {err} ({route})")
+        check(route == {"tensor_core": 1}, f"K11: launched {route}, not the tensor cores")
+        check(err <= TOL, "K11: kernel != plain")
+        worst = max(worst, err)
     golden = GoldenNTT(128, flag)
     xh, gh = to_numpy(x), to_numpy(got)
     for col in (0, 7777):
@@ -551,27 +531,9 @@ def fused_cases(device, rng):
     return worst
 
 
-def radix2_ab_point(x, t, fc, tw, orient: str, want) -> int:
-    """K4 / K5 / K6's A/B point, the stage-by-stage kernel
-    (``ntt_pallas._launch_stages``), against the plain version's ``want``:
-    its mismatch; it launches once per stage range (the lane once) and
-    nothing else."""
-    from sventt_tpu_torch.ops import ntt_pallas as P
-
-    before = dict(P.KERNEL_LAUNCHES)
-    old = P._launch_stages(x, t, fc, tw, mid=orient != "leaf")
-    sync(x.device)
-    n = len(t.stage_ls)
-    ranges = 1 if orient == "lane" else -(-n // (t.spc or n))
-    check(P.KERNEL_LAUNCHES["radix2_stages"] == before["radix2_stages"] + ranges
-          and P.KERNEL_LAUNCHES["radix2_registers"] == before["radix2_registers"],
-          "the A/B point launched another kernel")
-    return mismatch(old, want)
-
-
 def pallas_kernel_cases(device, rng):
-    """K4 / K5 / K6 (the register kernel, and the stage-by-stage A/B
-    point) vs plain at the main path's shapes and the edge cases; each call
+    """K4 / K5 / K6 (the register kernel) vs plain at the main path's
+    shapes and the edge cases; each call
     must launch the register kernel once per stage range (K6 once).
     Returns the largest mismatch per orientation."""
     from sventt_tpu_torch.field.limb import FieldConsts
@@ -680,10 +642,9 @@ def pallas_kernel_cases(device, rng):
         check(all(P.KERNEL_LAUNCHES[k] == before[k] + (launches if k == kernel else 0)
                   for k in before), f"{name}: launched {P.KERNEL_LAUNCHES}, not {kernel} alone")
         err = mismatch(got, want)
-        err_old = radix2_ab_point(x, t, fc, tw, orient, want)
         worst[orient] = max(worst[orient], err)
-        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy}; {kernel}; stage-by-stage {err_old})")
-        check(err <= TOL and err_old <= TOL, f"{name}: kernel != plain")
+        log(f"  {name}: max_abs_err {err} (lazy={fc.lazy}; {kernel})")
+        check(err <= TOL, f"{name}: kernel != plain")
         del x, got, want
     # an (A, m, B) view with the batch axis outermost in memory, strides
     # (m, 1, A m), on the register kernel itself
@@ -702,8 +663,8 @@ def pallas_kernel_cases(device, rng):
 def grouped_kernel_cases(device, rng):
     """K7/K8 (the register kernel) vs plain at the grouped plans' shapes
     and the edges of its geometry; each case must launch the register
-    kernel and never the rank-by-rank one.  Returns the largest mismatch
-    per orientation."""
+    kernel once and nothing else.  Returns the largest mismatch per
+    orientation."""
     from sventt_tpu_torch.field.limb import FieldConsts
     from sventt_tpu_torch.ops import ntt_pallas as P
 
@@ -798,8 +759,8 @@ def grouped_kernel_cases(device, rng):
         log(f"  {name}: max_abs_err {err} (groups {groups}, lazy={fc.lazy}; tile {geo.cols} x "
             f"{geo.tpc} threads, {geo.smem} bytes)")
         check(err <= TOL, f"{name}: kernel != plain")
-        check(P.KERNEL_LAUNCHES["registers"] == before["registers"] + 1
-              and P.KERNEL_LAUNCHES["ranks"] == before["ranks"], f"{name}: not the register kernel")
+        check(P.KERNEL_LAUNCHES == {**before, "registers": before["registers"] + 1},
+              f"{name}: not the register kernel alone")
         del x, got, want
     return worst
 
@@ -1096,8 +1057,7 @@ def solinas_kernel_cases(device, rng):
     """Every kernel branch of the Solinas engine vs its plain version,
     bitwise, on the flagship and the Goldilocks modulus: K1 lead / K2 mid
     with the fused Solinas twiddle, K4 leaf, K5 mid with it, K6 lane with
-    its prologue (epilogue on the inverse) -- K4-K6 each also on the
-    stage-by-stage A/B point -- at the 2^24 plans' shapes, a
+    its prologue (epilogue on the inverse), at the 2^24 plans' shapes, a
     ragged batch and m = 2, both directions, and the inter-step pass.  The
     forward prologues and the inter-step pass take ``corner_data``, any
     u64 (the Solinas multiply accepts it); the inverse inputs are below N.
@@ -1156,8 +1116,6 @@ def solinas_kernel_cases(device, rng):
                             got, want = P.fused_ntt(x, t, fc), P.leaf_plain(x, t, fc)
                         else:
                             got, want = P.fused_ntt_mid(x, t, fc, tw), P.mid_plain(x, t, fc, tw)
-                    err = radix2_ab_point(x, t, fc, tw, orient, want)
-                    check(err <= TOL, f"{name} {orient} {shape} solinas: stage-by-stage != plain")
                 if orient not in ("lead", "mid"):
                     check(t.wp is None and (t.scale is None or t.scale[1] is None),
                           f"{name}: Solinas stage tables carry a companion")
@@ -1271,17 +1229,16 @@ def counts():
 
 def mxu_on_tensor_cores(c) -> bool:
     """Every s8 lead / mid / lane launch in the counts ``c`` ran the
-    tensor-core kernel, and the __dp4a one never ran."""
+    tensor-core kernel."""
     lm, k = c["launches"]["mxu"], c["mxu_kernels"]
-    return k["tensor_core"] == lm["lead"] + lm["mid"] + lm["lane"] and k["dp4a"] == 0
+    return k["tensor_core"] == lm["lead"] + lm["mid"] + lm["lane"]
 
 
 def radix2_routed(c) -> bool:
     """Every radix-2 leaf / mid / lane launch in the counts ``c`` ran the
-    register kernel, and the stage-by-stage one never ran."""
+    register kernel."""
     lp, k = c["launches"]["pallas"], c["pallas_kernels"]
-    return (k["radix2_registers"] == lp["leaf"] + lp["mid"] + lp["lane"]
-            and k["radix2_stages"] == 0)
+    return k["radix2_registers"] == lp["leaf"] + lp["mid"] + lp["lane"]
 
 
 def reset_counts() -> None:
@@ -1509,7 +1466,7 @@ def scheme_path(device, rng):
         check(ok and bool((back.t() == x).all()) and err_mid == 0, f"{scheme} path: mismatch")
         check(all(c["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
               f"{scheme}: an orientation never launched")
-        want_k = {"tensor_core": 3, "dp4a": 0}
+        want_k = {"tensor_core": 3}
         check(c["mxu_kernels"] == want_k, f"{scheme}: kernel launches {c['mxu_kernels']} != {want_k}")
         check(no_plain(c), f"{scheme}: a plain version ran on the card")
     stack = fused.make_fused_stack(flag, device=device)
@@ -1526,7 +1483,7 @@ def scheme_path(device, rng):
         f"launches {c['launches']['fused']}, kernels {c['mxu_kernels']}, plain calls {c['plain']}")
     check(ok, "K11 path: != golden")
     check(c["launches"]["fused"]["fused"] > 0 and no_plain(c), "K11 did not launch, or a plain one ran")
-    check(c["mxu_kernels"] == {"tensor_core": c["launches"]["fused"]["fused"], "dp4a": 0},
+    check(c["mxu_kernels"] == {"tensor_core": c["launches"]["fused"]["fused"]},
           f"K11: kernel launches {c['mxu_kernels']}, not the tensor cores alone")
     return out
 
@@ -1882,7 +1839,7 @@ def step_helpers(device, ntt_mxu17, dist_cfg, mesh, smi: str) -> dict:
             f"the capture): two replays equal compute_{name} bitwise; replay "
             f"{ms[f'mxu 2^17 {name} graph replay']:.4f} ms, eager "
             f"{ms[f'mxu 2^17 {name} eager']:.4f} ms by CUDA events ({smi})")
-        check(c["mxu_kernels"]["tensor_core"] > 0 and c["mxu_kernels"]["dp4a"] == 0,
+        check(c["mxu_kernels"]["tensor_core"] > 0,
               f"the captured {name}_step ran no tensor-core kernel")
         del graph, static_out
     dntt = DistributedNTT(dist_cfg, mesh, comm="ring")
@@ -2322,13 +2279,12 @@ def times(device, ntts, rng):
     fc = FieldConsts.from_modulus(flag)
     n24 = 1 << 24
 
-    def kernel(key, fn, plain, bnd, own_ms=None, old=None, old_name="dp4a", graph=False):
-        """``old``: the earlier kernel at the same call (``old_name``: the
-        __dp4a matrix kernel, or the rank-by-rank grouped one), timed in
-        turns with ``fn`` (old, new, new, old); each keeps the mean of its
-        two.  ``graph``: time one CUDA-graph replay of each: the device time, without the tens of
-        microseconds of the wrapper's Python work that an eager call's
-        events also enclose (at the 2^17 shapes more than the kernel)."""
+    def kernel(key, fn, plain, bnd, own_ms=None, graph=False):
+        """``fn`` and its plain version ``plain`` timed, with the bound
+        ``bnd``.  ``graph``: time one CUDA-graph replay of ``fn``: the
+        device time, without the tens of microseconds of the wrapper's
+        Python work that an eager call's events also enclose (at the 2^17
+        shapes more than the kernel)."""
 
         def timer(f):
             if graph:
@@ -2338,12 +2294,7 @@ def times(device, ntts, rng):
                     log(f"  {key}: CUDA graph capture failed ({e!r}); eager time used")
             return timed(f, 3, 10)
 
-        if old is None:
-            out[key] = timer(fn)
-        else:
-            o1, n1, n2, o2 = (timer(f) for f in (old, fn, fn, old))
-            out[key], out[f"{key} {old_name}"] = (n1 + n2) / 2, (o1 + o2) / 2
-            ab[key] = (old_name, o1, n1, n2, o2)
+        out[key] = timer(fn)
         out[key + " plain"] = timed(plain, 1, 3)
         bounds[key] = bnd
         if own_ms is not None:
@@ -2358,38 +2309,31 @@ def times(device, ntts, rng):
 
     # matrix engine: the 2^24 plan's leaf shape (lead), inner row step
     # (mid, (256, 256) twiddle rows) and root step (lane, the (65536, 256)
-    # table in the data's layout); K1, K2 and K3 on the tensor cores, each
-    # beside the __dp4a kernel
-    dp4a = ntt_mxu._launch_dp4a
+    # table in the data's layout); K1, K2 and K3 on the tensor cores
     t = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, device=device)
     xl = rand_u64(rng, (256, 1 << 16), device, below=flag.modulus)
     twl = rand_twiddle(rng, (256, 1 << 16), flag, "pair", device)
     kernel("K1 lead 256x65536 pair", lambda: ntt_mxu.mxu_ntt(xl, t, fc, twl),
-           lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), mxu_bound(n24, 256, 16 * n24),
-           old=lambda: dp4a(xl, t, fc, twl))
+           lambda: ntt_mxu.mxu_plain(xl, t, fc, twl), mxu_bound(n24, 256, 16 * n24))
     xm = rand_u64(rng, (256, 256, 256), device, below=flag.modulus)
     twm = rand_twiddle(rng, (256, 256), flag, "pair", device)
     kernel("K2 mid 256x256x256 pair", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twm),
-           lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), mxu_bound(n24, 256, 16 * 65536),
-           old=lambda: dp4a(xm, t, fc, twm, mid=True))
+           lambda: ntt_mxu.mxu_plain(xm, t, fc, twm, mid=True), mxu_bound(n24, 256, 16 * 65536))
     # the companion-free twiddles of the "w" and Solinas modes
     twls, twms = MontPair(twl.w, None), MontPair(twm.w, None)
     kernel("K1 lead 256x65536 w", lambda: ntt_mxu.mxu_ntt(xl, t, fc, twls),
-           lambda: ntt_mxu.mxu_plain(xl, t, fc, twls), mxu_bound(n24, 256, 8 * n24),
-           old=lambda: dp4a(xl, t, fc, twls))
+           lambda: ntt_mxu.mxu_plain(xl, t, fc, twls), mxu_bound(n24, 256, 8 * n24))
     kernel("K2 mid 256x256x256 w", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fc, twms),
-           lambda: ntt_mxu.mxu_plain(xm, t, fc, twms, mid=True), mxu_bound(n24, 256, 8 * 65536),
-           old=lambda: dp4a(xm, t, fc, twms, mid=True))
-    # K3, the root step, as CUDA-graph replays in turns with the __dp4a
-    # kernel, both directions with the pair twiddle
+           lambda: ntt_mxu.mxu_plain(xm, t, fc, twms, mid=True), mxu_bound(n24, 256, 8 * 65536))
+    # K3, the root step, as CUDA-graph replays, both directions with the
+    # pair twiddle
     xr = rand_u64(rng, (1 << 16, 256), device, below=flag.modulus)
     tw3 = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
     ti = ntt_mxu.make_mxu_tables(flag, 256, inverse=True, device=device)
     for key, tk in (("K3 lane 65536x256 pair", t), ("K3 lane 65536x256 pair inv", ti)):
         kernel(key, lambda tk=tk: ntt_mxu.mxu_ntt_lane(xr, tk, fc, tw3),
                lambda tk=tk: ntt_mxu.mxu_plain(xr, tk, fc, tw3, lane=True),
-               mxu_bound(n24, 256, 16 * n24),
-               old=lambda tk=tk: dp4a(xr, tk, fc, tw3, lane=True), graph=True)
+               mxu_bound(n24, 256, 16 * n24), graph=True)
     # the root step: JAX's sandwich (transpose, K1 with the transposed
     # table, transpose back) against K3 with the table fused, CUDA-graph
     # replays in turns, at the 2^24 and 2^17 roots; then K3's two
@@ -2418,50 +2362,40 @@ def times(device, ntts, rng):
     # twiddles below N without their companion
     fcs = FieldConsts.from_modulus(flag, modmul="solinas")
     kernel("K1 lead 256x65536 solinas", lambda: ntt_mxu.mxu_ntt(xl, t, fcs, twls),
-           lambda: ntt_mxu.mxu_plain(xl, t, fcs, twls), mxu_bound(n24, 256, 8 * n24),
-           old=lambda: dp4a(xl, t, fcs, twls))
+           lambda: ntt_mxu.mxu_plain(xl, t, fcs, twls), mxu_bound(n24, 256, 8 * n24))
     kernel("K2 mid 256x256x256 solinas", lambda: ntt_mxu.mxu_ntt_mid(xm, t, fcs, twms),
-           lambda: ntt_mxu.mxu_plain(xm, t, fcs, twms, mid=True), mxu_bound(n24, 256, 8 * 65536),
-           old=lambda: dp4a(xm, t, fcs, twms, mid=True))
+           lambda: ntt_mxu.mxu_plain(xm, t, fcs, twms, mid=True), mxu_bound(n24, 256, 8 * 65536))
     # the 2^17 plan's two launches (the row split fills the card)
     for m17, shape in ((256, (256, 512)), (512, (512, 256))):
         t17 = ntt_mxu.make_mxu_tables(flag, m17, inverse=False, device=device)
         x17 = rand_u64(rng, shape, device, below=flag.modulus)
         kernel(f"K1 lead {shape[0]}x{shape[1]} (2^17)", lambda: ntt_mxu.mxu_ntt(x17, t17, fc),
-               lambda: ntt_mxu.mxu_plain(x17, t17, fc), mxu_bound(1 << 17, m17, 0),
-               old=lambda: dp4a(x17, t17, fc))
+               lambda: ntt_mxu.mxu_plain(x17, t17, fc), mxu_bound(1 << 17, m17, 0))
     # the other plane schemes at the same three shapes, u7 as CUDA-graph
-    # replays in turns with the __dp4a kernel, and K11 at its own the same
-    # way
+    # replays, and K11 at its own the same way
     for scheme in ("u7", "s8b"):
         ts = ntt_mxu.make_mxu_tables(flag, 256, inverse=False, scheme=scheme, device=device)
         macs = SCHEME_MACS[scheme]
         u7 = scheme == "u7"
         kernel(f"K1 lead 256x65536 pair {scheme}", lambda: ntt_mxu.mxu_ntt(xl, ts, fc, twl),
                lambda: ntt_mxu.mxu_plain(xl, ts, fc, twl), mxu_bound(n24, 256, 16 * n24),
-               mxu_bound(n24, 256, 16 * n24, macs)[0],
-               old=(lambda: dp4a(xl, ts, fc, twl)) if u7 else None, graph=u7)
+               mxu_bound(n24, 256, 16 * n24, macs)[0], graph=u7)
         kernel(f"K2 mid 256x256x256 pair {scheme}", lambda: ntt_mxu.mxu_ntt_mid(xm, ts, fc, twm),
                lambda: ntt_mxu.mxu_plain(xm, ts, fc, twm, mid=True),
-               mxu_bound(n24, 256, 16 * 65536), mxu_bound(n24, 256, 16 * 65536, macs)[0],
-               old=(lambda: dp4a(xm, ts, fc, twm, mid=True)) if u7 else None, graph=u7)
+               mxu_bound(n24, 256, 16 * 65536), mxu_bound(n24, 256, 16 * 65536, macs)[0], graph=u7)
         kernel(f"K3 lane 65536x256 {scheme}", lambda: ntt_mxu.mxu_ntt_lane(xr, ts, fc),
                lambda: ntt_mxu.mxu_plain(xr, ts, fc, lane=True), mxu_bound(n24, 256, 0),
-               mxu_bound(n24, 256, 0, macs)[0],
-               old=(lambda: dp4a(xr, ts, fc, lane=True)) if u7 else None, graph=u7)
+               mxu_bound(n24, 256, 0, macs)[0], graph=u7)
     stack = fused.make_fused_stack(flag, device=device)
     x128 = rand_u64(rng, (128, 1 << 15), device, below=flag.modulus)
     u7_geometry_ab(device, flag, fc, xl, twl, xr, tw3, x128, out, ab)
-    t128 = fused._direction(stack, flag)
     kernel("K11 fused 128x32768", lambda: fused.mxu_fused_ntt(x128, stack, flag),
            lambda: fused.mxu_fused_plain(x128, stack, flag), mxu_bound(1 << 22, 128, 0),
-           mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0],
-           old=lambda: dp4a(x128, t128, fc), graph=True)
+           mxu_bound(1 << 22, 128, 0, SCHEME_MACS["u7"])[0], graph=True)
     del xl, twl, twls, xr, x128, tw3
     ab_level(device, fc, out, bounds, own)
     # butterfly engine: the 2^24 pallas plan's leaf, inner row step and root.
-    # K4 / K5 / K6 on the register kernel in turns with the stage-by-stage
-    # one (ntt_pallas._launch_stages), as CUDA-graph replays: both
+    # K4 / K5 / K6 on the register kernel, as CUDA-graph replays: both
     # directions, the Solinas forms and the test modulus's Shoup forms, then
     # the 2^17 plan's three launches and the 2^26 plan's inner row step and
     # root; K6's twiddle has the data's shape
@@ -2472,7 +2406,6 @@ def times(device, ntts, rng):
     twr = rand_twiddle(rng, (1 << 16, 256), flag, "pair", device)
     twrs = MontPair(twr.w, None)
     twrt = rand_twiddle(rng, (1 << 16, 256), test, "pair", device)
-    stages = P._launch_stages
     for key, mod, fcx, inv, shape, tw_, modmul in (
         ("K4 leaf 256x65536", flag, fc, False, (256, 65536), None, "montgomery"),
         ("K4 leaf 256x65536 inv", flag, fc, True, (256, 65536), None, "montgomery"),
@@ -2516,26 +2449,21 @@ def times(device, ntts, rng):
             else:
                 new = lambda x=x, t=t, fcx=fcx: P.fused_ntt(x, t, fcx)
                 plain = lambda x=x, t=t, fcx=fcx: P.leaf_plain(x, t, fcx)
-        old = lambda x=x, t=t, fcx=fcx, tw_=tw_, mid=mid: stages(x, t, fcx, tw_, mid=mid)
-        want = plain()
-        check(max(mismatch(new(), want), mismatch(old(), want)) <= TOL,
-              f"{key}: a radix-2 kernel != plain")
+        check(mismatch(new(), plain()) <= TOL, f"{key}: the radix-2 kernel != plain")
         tw_kind = None if tw_ is None else ("solinas" if modmul == "solinas" else "pair")
         tw_points = points if lane else shape[0] * m if mid else 0
         bnd = butterfly_bound(points, m, inv, modmul, tw_kind, tw_points)
-        kernel(key, new, plain, bnd, old=old, old_name="stages", graph=True)
+        kernel(key, new, plain, bnd, graph=True)
         products[key] = (butterfly_products(m, inv, tw_kind is not None)
                          if modmul == "montgomery" else None)
-        del x, want, tw_
+        del x, tw_
     xr = xm.view(1 << 16, 256)
     del xt, twt, twrt
     # grouped engine (max_r = 3): the 2^24 plan's leaves (the column leaf
     # and the inner row's leaf between transposes), the inter-step multiply
-    # of that row, the root; each on the register kernel in turns with the
-    # rank-by-rank one (ntt_pallas._launch_grouped_ranks), whose output is
-    # first held to the plain version's; then max_r 2 and 4 at the leaf,
-    # both directions, and the 2^17 plan's two launches
-    ranks = P._launch_grouped_ranks
+    # of that row, the root; each on the register kernel, its output first
+    # held to the plain version's; then max_r 2 and 4 at the leaf, both
+    # directions, and the 2^17 plan's two launches
     for name, r, inv, lane, shape, tw_ in (
         ("K7 leaf 256x65536 r=3", 3, False, False, (256, 65536), None),
         ("K7 leaf 256x65536 r=3 inv", 3, True, False, (256, 65536), None),
@@ -2560,15 +2488,12 @@ def times(device, ntts, rng):
         else:
             new = lambda xg=xg, gt=gt: P.fused_ntt(xg, gt, fc)
             plain = lambda xg=xg, gt=gt: P.grouped_plain(xg, gt, fc)
-        old = lambda xg=xg, gt=gt, tw_=tw_: ranks(xg, gt, fc, tw_)
-        want = plain()
-        err = max(mismatch(new(), want), mismatch(old(), want))
-        check(err <= TOL, f"{name}: a grouped kernel != plain")
+        check(mismatch(new(), plain()) <= TOL, f"{name}: the grouped kernel != plain")
         points = shape[0] * shape[1]
         bnd = grouped_bound(points, gt, "montgomery", "pair" if lane else None,
                             points if lane else 0, lane)
-        kernel(name, new, plain, bnd, old=old, old_name="ranks", graph=True)
-        del xg, want
+        kernel(name, new, plain, bnd, graph=True)
+        del xg
     view = MontPair(twm.w.unsqueeze(2), twm.wp.unsqueeze(2))
     kernel("inter-step 256x256x256 pair", lambda: inter_step.mont_mul_bcast(fc, xm, twm),
            lambda: inter_step_mul(fc, xm, view), inter_step_bound(n24, 65536, "pair"))
@@ -2761,9 +2686,9 @@ def main() -> int:
     log(f"  launches {c_mxu['launches']}, plain calls {c_mxu['plain']}")
     check(all(c_mxu["launches"]["mxu"][k] > 0 for k in ("lead", "mid", "lane")),
           "an mxu orientation of the path never ran")
-    log(f"  mxu kernels: {c_mxu['mxu_kernels']} (tensor_core: csrc/ntt_mxu_tc.cu; dp4a: "
-        f"csrc/ntt_mxu.cu); the planner's transposes: {c_mxu['planner_transposes']}")
-    check(mxu_on_tensor_cores(c_mxu), "an mxu launch of the path ran the __dp4a kernel")
+    log(f"  mxu kernels: {c_mxu['mxu_kernels']} (tensor_core: csrc/ntt_mxu_tc.cu); the "
+        f"planner's transposes: {c_mxu['planner_transposes']}")
+    check(mxu_on_tensor_cores(c_mxu), "an mxu launch of the path ran no tensor-core kernel")
     check(c_mxu["launches"]["mxu"]["lane"] == 3 * 3 and c_mxu["planner_transposes"] == 0,
           "the mxu roots did not run on K3 alone, without transposes")
     del ntts_mxu["mxu 2^26"]
@@ -2781,8 +2706,8 @@ def main() -> int:
     check(all(c_pal["launches"]["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a butterfly orientation of the path never ran")
     log(f"  radix-2 kernels: {c_pal['pallas_kernels']} (radix2_registers: radix2_reg_kernel, "
-        "csrc/ntt_radix2.cu; radix2_stages: butterfly_kernel, csrc/ntt_pallas.cu)")
-    check(radix2_routed(c_pal), "a radix-2 launch ran the stage-by-stage kernel")
+        "csrc/ntt_radix2.cu)")
+    check(radix2_routed(c_pal), "a radix-2 launch ran no register kernel")
     del ntts_pal["pallas 2^26"], ntts_pal["pallas TEST 2^24"]
     torch.cuda.empty_cache()
     log("[route auto] NTT(engine='auto'): one modulus on the butterfly engine, one launch a "
@@ -2804,11 +2729,10 @@ def main() -> int:
           and lg["inter_step"]["inter_step"] > 0, "a kernel of the grouped path never ran")
     check(not any(lg["pallas"][k] for k in ("leaf", "mid", "lane")),
           "the grouped path ran a radix-2 kernel")
-    log(f"  grouped kernels: {c_grp['pallas_kernels']} (registers: grouped_reg_kernel; ranks: "
-        "grouped_ranks_kernel, csrc/ntt_grouped.cu)")
+    log(f"  grouped kernels: {c_grp['pallas_kernels']} (registers: grouped_reg_kernel, "
+        "csrc/ntt_grouped.cu)")
     check(c_grp["pallas_kernels"]["registers"] == lg["pallas"]["grouped"]
-          + lg["pallas"]["lane_grouped"] and c_grp["pallas_kernels"]["ranks"] == 0,
-          "the grouped path launched the rank-by-rank kernel")
+          + lg["pallas"]["lane_grouped"], "a grouped launch ran no register kernel")
     for c in (c_mxu, c_pal, c_grp):
         check(no_plain(c), "a plain version ran on the card")
     del ntts_grp["grouped 2^26"], ntts_grp["grouped TEST 2^24"]
@@ -2897,11 +2821,13 @@ def main() -> int:
     ], oracles)
     check(c_dist["mxu 2^24 D=4 ring"]["launches"]["mxu"]["mid"] > 0, "the mxu path ran no K2")
     check(mxu_on_tensor_cores(c_dist["mxu 2^24 D=4 ring"]),
-          "the distributed mxu path launched the __dp4a kernel")
+          "an mxu launch of the distributed path ran no tensor-core kernel")
     check(c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]["grouped"] > 0,
           "the grouped path ran no K7")
-    check(c_dist["grouped 2^24 D=8 ring"]["pallas_kernels"]["ranks"] == 0,
-          "the distributed grouped path launched the rank-by-rank kernel")
+    lg8 = c_dist["grouped 2^24 D=8 ring"]["launches"]["pallas"]
+    check(c_dist["grouped 2^24 D=8 ring"]["pallas_kernels"]["registers"]
+          == lg8["grouped"] + lg8["lane_grouped"],
+          "a grouped launch of the distributed path ran no register kernel")
     check(c_dist["auto 2^24 D=4 ring"]["mxu_kernels"]["tensor_core"] == 0,
           "the distributed default path launched the matrix kernel")
     for label, c in c_dist.items():
@@ -2978,22 +2904,19 @@ def main() -> int:
         if k in own:
             extra += f"   (the scheme's own products: {own[k]:.4f} ms)"
         log(f"  {k}: {v:.4f}{extra}")
-    log("[A/B] the matrix NTT on the int8 tensor cores (csrc/mxu_tc.cuh: s8 "
-        "csrc/ntt_mxu_tc.cu, u7 and K11 csrc/ntt_mxu_tc_u7.cu) against the __dp4a kernel "
-        "(csrc/ntt_mxu.cu), timed in turns dp4a, tc, tc, dp4a; int8 TOP/s of the scheme's own "
+    log("[bounds] the matrix NTT on the int8 tensor cores (csrc/mxu_tc.cuh: s8 "
+        "csrc/ntt_mxu_tc.cu, u7 and K11 csrc/ntt_mxu_tc_u7.cu); int8 TOP/s of the scheme's own "
         "products (s8 64, u7 100 multiply-adds a point per unit of m):")
-    for k, (old_name, o1, n1, n2, o2) in ab.items():
-        if old_name != "dp4a":
+    for k in ms:
+        if not (k.startswith(("K1 ", "K2 ", "K3 lane ", "K11 ")) and k in bounds):
             continue
         m = 128 if k.startswith("K11") else 512 if k.startswith("K1 lead 512") else 256
         points = 1 << (22 if k.startswith("K11") else 17 if "(2^17)" in k else 24)
         macs = SCHEME_MACS["u7" if k.startswith("K11") or k.endswith("u7") else "s8"]
-        tops = [2 * macs * m * points / (v * 1e-3) / 1e12 for v in (ms[k], ms[k + " dp4a"])]
+        tops = 2 * macs * m * points / (ms[k] * 1e-3) / 1e12
         own_bound = f", {100 * own[k] / ms[k]:.1f}% of its own {own[k]:.4f} ms" if k in own else ""
-        log(f"  {k}: dp4a {o1:.4f} / {o2:.4f} ms, tensor cores {n1:.4f} / {n2:.4f} ms: "
-            f"{ms[k + ' dp4a'] / ms[k]:.2f}x; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
-            f"int8 {tops[0]:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound{own_bound}) "
-            f"against {tops[1]:.1f}")
+        log(f"  {k}: {ms[k]:.4f} ms; bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
+            f"int8 {tops:.1f} TOP/s ({100 * bounds[k][0] / ms[k]:.1f}% of the bound{own_bound})")
     log("[A/B] the u7 block's geometry at m = 256 (the rule against the other) and its K3 "
         "pair-inverse epilogues, CUDA-graph replays in turns other, rule, rule, other:")
     for k, (old_name, o1, n1, n2, o2) in ab.items():
@@ -3010,30 +2933,24 @@ def main() -> int:
         new_name = "K3" if old_name == "sandwich" else "staged"
         log(f"  {k}: {old_name} {o1:.4f} / {o2:.4f} ms, {new_name} {n1:.4f} / {n2:.4f} ms: "
             f"{ms[f'{k} {old_name}'] / ms[k]:.3f}x")
-    log("[A/B] the grouped kernel K7 / K8 (csrc/ntt_grouped.cu): the register kernel against "
-        "the rank-by-rank one, CUDA-graph replays in turns ranks, registers, registers, ranks:")
-    for k, (old_name, o1, n1, n2, o2) in ab.items():
-        if old_name != "ranks":
-            continue
-        b_ms, b_by = bounds[k]
-        log(f"  {k}: ranks {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
-            f"{ms[k + ' ranks'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
-            f"{100 * b_ms / ms[k]:.1f}% of it, ranks {100 * b_ms / ms[k + ' ranks']:.1f}%")
-    log("[A/B] the radix-2 butterfly kernel K4 / K5 / K6: the register kernel (csrc/ntt_radix2.cu) "
-        "against the stage-by-stage one (csrc/ntt_pallas.cu), CUDA-graph replays in turns stages, "
-        "registers, registers, stages:")
-    for k, (old_name, o1, n1, n2, o2) in ab.items():
-        if old_name != "stages":
-            continue
+    log("[bounds] the grouped kernel K7 / K8 (csrc/ntt_grouped.cu, the register kernel), "
+        "CUDA-graph replays:")
+    for k in ms:
+        if k.startswith(("K7 ", "K8 ")) and k in bounds:
+            b_ms, b_by = bounds[k]
+            log(f"  {k}: {ms[k]:.4f} ms; bound {b_ms:.4f} ms ({b_by}): "
+                f"{100 * b_ms / ms[k]:.1f}% of it")
+    log("[bounds] the radix-2 butterfly kernel K4 / K5 / K6 (csrc/ntt_radix2.cu, the register "
+        "kernel), CUDA-graph replays:")
+    for k in products:
         b_ms, b_by = bounds[k]
         points = {"(2^17)": 1 << 17, "(2^26)": 1 << 26}.get(k.split()[-1], 1 << 24)
         floor = ("" if products[k] is None else
                  "; Montgomery product floor {:.4f}-{:.4f} ms ({:g} a point at {}-{} T/s)".format(
                      *(products[k] * points / r * 1e3 for r in MONT_RATE[::-1]), products[k],
                      *(r / 1e12 for r in MONT_RATE)))
-        log(f"  {k}: stages {o1:.4f} / {o2:.4f} ms, registers {n1:.4f} / {n2:.4f} ms: "
-            f"{ms[k + ' stages'] / ms[k]:.2f}x; bound {b_ms:.4f} ms ({b_by}): registers "
-            f"{100 * b_ms / ms[k]:.1f}% of it, stages {100 * b_ms / ms[k + ' stages']:.1f}%{floor}")
+        log(f"  {k}: {ms[k]:.4f} ms; bound {b_ms:.4f} ms ({b_by}): "
+            f"{100 * b_ms / ms[k]:.1f}% of it{floor}")
     # across 8 cards each would send 7/8 of its 2^21-point shard over NVLink
     nvlink = 7 / 8 * (1 << 21) * 8 / 450e9 * 1e3
     log(f"  K10 2^24 D=8 across 8 cards: bound {nvlink:.4f} ms by NVLink bytes "

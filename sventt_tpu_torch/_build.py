@@ -116,14 +116,11 @@ def load() -> ctypes.CDLL:
             )
             lib = ctypes.CDLL(path)
             for fn, argtypes in (
-                (lib.sventt_mxu_ntt, ntt_mxu._ARGTYPES),
                 (lib.sventt_mxu_ntt_tc, ntt_mxu._TC_ARGTYPES),
                 (lib.sventt_mxu_ntt_tc_u7, ntt_mxu._TC_ARGTYPES),
                 (lib.sventt_mxu_ntt_tc_limbs, ntt_mxu._TC_LIMB_ARGTYPES),
-                (lib.sventt_butterfly_ntt, ntt_pallas._ARGTYPES),
                 (lib.sventt_radix2_ntt, ntt_pallas._RADIX2_ARGTYPES),
                 (lib.sventt_grouped_ntt, ntt_pallas._GROUPED_REG_ARGTYPES),
-                (lib.sventt_grouped_ntt_ranks, ntt_pallas._GROUPED_ARGTYPES),
                 (lib.sventt_inter_step_mul, inter_step._ARGTYPES),
                 (lib.sventt_pointwise_mont_mul, pointwise._ARGTYPES),
                 (lib.sventt_pointwise_mont_mul_limbs, pointwise._LIMB_ARGTYPES),

@@ -4,8 +4,8 @@
 // Not a port of a TPU kernel: the JAX package multiplies the twiddle with
 // XLA (sventt_tpu/plan/planner.py::_mont_mul_bcast) on its transpose
 // fallback, the path a grouped (max_r > 1) inner row step or a row subtree
-// takes.  The fused row kernels (csrc/ntt_pallas.cu, ntt_grouped.cu,
-// ntt_mxu.cu) multiply it in their own prologue or epilogue instead.
+// takes.  The fused row kernels (csrc/ntt_radix2.cu, ntt_grouped.cu,
+// mxu_tc.cuh) multiply it in their own prologue or epilogue instead.
 // The plain PyTorch version is sventt_tpu_torch/ops/twiddle.py::
 // inter_step_mul; the two agree bit for bit.
 //

@@ -1,11 +1,11 @@
-// The matrix NTT's per-point arithmetic around the products, shared by the
-// __dp4a kernel (csrc/ntt_mxu.cu) and the int8 tensor-core kernel
-// (csrc/mxu_tc.cuh): the plane formats, the split of a data word into its
-// planes (one word, or a point quad at once), the recombination of the product planes into a canonical
-// residue (_mxu_plain's tail in sventt_tpu_torch/ops/ntt_mxu.py), and the
-// fused inter-step twiddle multiply.  Both kernels run this code as it is,
-// so their outputs agree with the plain version bit for bit whatever
-// route computed the (exact) planes.
+// The matrix NTT's per-point arithmetic around the products, for the int8
+// tensor-core kernel (csrc/mxu_tc.cuh): the plane formats, the split of a
+// point quad into its data planes, the recombination of the product planes
+// into a canonical residue (_mxu_plain's tail in
+// sventt_tpu_torch/ops/ntt_mxu.py), and the fused inter-step twiddle
+// multiply.  The product planes are exact integers, so the kernel's output
+// agrees with the plain version bit for bit whatever order the products
+// were summed in.
 #pragma once
 
 #include <cstdint>
@@ -29,21 +29,14 @@ struct Consts {
   int nsub, barrett;
 };
 
-// Plane i of a data word: s8 the offset byte (byte ^ 0x80 as int8 == byte -
-// 128), u7 the unsigned 7-bit field at bit 7i (i = 9 holds bit 63 alone).
-template <bool U7>
-__device__ __forceinline__ signed char data_plane(u64 v, int i) {
-  if (U7) return (signed char)((v >> (7 * i)) & 0x7F);
-  return (signed char)(((v >> (8 * i)) & 0xFF) ^ 0x80);
-}
-
-// The data planes of a point quad, four words at once, for the tensor-core
-// kernel: w[i] holds plane i of v[0..3] in its bytes 0..3.  s8: a 4 x 8
-// byte transpose, then each byte offset by -128 (^ 0x80).  u7: each word's
-// 7-bit fields 0-7 (bits 0-55) spread into its 8 bytes by three masked
-// shifts (28-bit halves into 32-bit lanes, 14-bit quarters into 16-bit
-// lanes, 7-bit fields into bytes), transposed the same way; fields 8 (bits
-// 56-62) and 9 (bit 63 alone) as a third half.
+// The data planes of a point quad, four words at once: w[i] holds plane i
+// of v[0..3] in its bytes 0..3.  s8 plane i is the offset byte i (byte ^
+// 0x80 as int8 == byte - 128): a 4 x 8 byte transpose, then each byte
+// offset by -128.  u7 plane i is the unsigned 7-bit field at bit 7i
+// (plane 9 holds bit 63 alone): each word's fields 0-7 (bits 0-55) spread
+// into its 8 bytes by three masked shifts (28-bit halves into 32-bit
+// lanes, 14-bit quarters into 16-bit lanes, 7-bit fields into bytes),
+// transposed the same way; fields 8 (bits 56-62) and 9 as a third half.
 __device__ __forceinline__ void quad_transpose(const unsigned *h, unsigned *w) {
   const unsigned t01 = __byte_perm(h[0], h[1], 0x5140), u01 = __byte_perm(h[0], h[1], 0x7362);
   const unsigned t23 = __byte_perm(h[2], h[3], 0x5140), u23 = __byte_perm(h[2], h[3], 0x7362);

@@ -16,8 +16,8 @@
 // PyTorch version is sventt_tpu_torch/ops/ntt_mxu.py::_mxu_plain and the
 // two agree bit for bit.
 //
-// The arithmetic is the __dp4a kernel's (csrc/ntt_mxu.cu): per output point
-// (p, column) the NOUT int32 planes
+// The arithmetic, the plain version's: per output point (p, column) the
+// NOUT int32 planes
 //   P_t = sum_{a+b=t} sum_j D_a[p, j] * s_b[j]
 // of the NPL matrix planes D_a and the NPL data planes s_b, recombined by
 // csrc/mxu_tail.cuh (192-bit accumulate, fold, Barrett / subtracts,
@@ -55,8 +55,7 @@
 // the tables are built (ops/ntt_mxu.py::tc_plane_tiles: zero past m,
 // swizzled against bank conflicts), so a stage is one contiguous copy for
 // every m; the whole matrix is read once per NT columns (1 GiB for a 2^24
-// s8 K1 call at NT = 32, where the __dp4a kernel's 8-column blocks read 4
-// GiB).  The epilogue runs in registers, per element, on the C fragment's
+// s8 K1 call at NT = 32, 4 GiB at 8-column blocks).  The epilogue runs in registers, per element, on the C fragment's
 // rows (lane >> 2, +8) and columns (2 (lane & 3), +1): the recombination
 // tail, the inverse twiddle, a masked store (rows >= m and columns >= B
 // are not written).  Both formats build under __launch_bounds__(256, 2),

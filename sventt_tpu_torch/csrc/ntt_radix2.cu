@@ -11,12 +11,10 @@
 //   K6 :911 _lane_call (body _lane_kernel :819): every stage along the last
 //      axis of (rows, m) -- the unbatched root row step, the inter-step
 //      twiddle of the data's layout fused the same way.
-// csrc/ntt_pallas.cu's butterfly_kernel, the first port's stage-by-stage
-// schedule of all three, is kept only as their A/B point
-// (ntt_pallas._launch_stages).  The plain PyTorch version is
+// The plain PyTorch version is
 // sventt_tpu_torch/ops/ntt_pallas.py::_stages_plain; the two agree bit for
-// bit, lazy bits included: each butterfly is computed as butterfly_kernel
-// computes it, only where its values live changes.
+// bit, lazy bits included: each butterfly is computed as the plain version
+// computes it (below), only where its values live differs.
 //
 // What bounds it on the H100: 16 bytes a point (0.080 ms at 2^24; K5's
 // (A, m) twiddle adds 16 bytes a row, K6's twiddle of the data's size 16 a
@@ -26,9 +24,9 @@
 // 0.69-0.72 T/s on this card (tools/grouped_ablation.py), and 8 stages of
 // 64-bit additions: instruction issue for K4 / K5, as for
 // grouped_reg_kernel; K6 adds the twiddle's bytes, which the issue time
-// does not fully hide (PERF.md).  The first port (butterfly_kernel) spent
-// more on its schedule: a shared-memory round trip, index arithmetic and a
-// barrier per stage.
+// does not fully hide (PERF.md).  A schedule with a shared-memory round
+// trip, index arithmetic and a barrier per stage spends more: PERF.md has
+// its times.
 //
 // The design (radix2_reg_kernel), one launch per stage range [first, last):
 // * The range splits into groups of up to 4 consecutive stages
@@ -47,8 +45,9 @@
 // * Leaf / mid (K4, K5): a warp's lanes on neighbouring columns (thread u:
 //   set u >> log2 C, column u mod C), so every access is a coalesced row of
 //   columns; point j of column c sits at slot(j C + c) (swizzled below 16
-//   columns, as grouped_reg_kernel's leaf).  At m = 256 that is 1 tile pass
-//   where butterfly_kernel made 10 (a copy in, 8 stages, a copy out).
+//   columns, as grouped_reg_kernel's leaf).  At m = 256 that is 1 tile pass,
+//   against 10 for a tile run stage by stage (a copy in, 8 stages, a copy
+//   out).
 //   All lanes of a warp hold the same sets of neighbouring columns (C >=
 //   32), so a stage twiddle is one value for the warp: the range's slice of
 //   the (m-1,) tables is staged once per resident block as 16-byte (w, wp)
@@ -71,16 +70,17 @@
 //   same way, and multiplies it there.  The inverse, which multiplies it
 //   just before its stores, stages it a tile at a time in shared memory by
 //   cp.async, at the tile's slots, while its first groups run: read
-//   straight from device memory there it left K6's inverse slower than the
-//   old kernel (the stores waited on the reads, as K5's had), and staged in
+//   straight from device memory there it left K6's inverse slower than a
+//   stage-by-stage schedule (the stores waited on the reads, as K5's had),
+//   and staged in
 //   the forward too it was slower (tools/grouped_ablation.py "twiddle
 //   direct" times the unstaged form).  Each tile of C
 //   rows is one contiguous run of C m words, addressed from one 64-bit
 //   offset; every other index is 32-bit.  The stage-table entry differs
 //   across the lanes where L > 1 (neighbouring lanes read neighbouring
 //   16-byte entries) and is warp-uniform where L = 1.  At m = 256 (4 + 4)
-//   that is 2 tile passes (the exchange and the end) where butterfly_kernel
-//   made 10.  tools/grouped_ablation.py times the other ends: each
+//   that is 2 tile passes (the exchange and the end), against 10 stage by
+//   stage.  tools/grouped_ablation.py times the other ends: each
 //   thread's 2^R words straight from / to device memory, as 8-byte or
 //   16-byte accesses.  A 1-D bulk copy (TMA) of the tile cannot swizzle it,
 //   and the L = 1 group's accesses to an unswizzled tile are 16-way bank
@@ -94,7 +94,7 @@
 //   C times the widest group's set count, at most 256; resident blocks walk
 //   the (slice, tile) work, so A > 65535 slices need no second grid axis.
 //   The C entry recomputes the layout and refuses any other.
-// Per butterfly, as butterfly_kernel and the plain version:
+// Per butterfly, as the plain version:
 //   forward  K4/K5: (x0 + x1, (x0 - x1 [+2N unreduced when lazy]) * w)
 //            K6:    (x0 + x1, sub(x0, x1) * w)
 //   inverse  t = x1 * w: (x0 + t, x0 - t); the last stage (1/m folded)

@@ -47,10 +47,8 @@ orientation is the view (1, m, B) of the (B, m) rows with transform stride
 call runs: every scheme runs on the int8 tensor cores in every
 orientation, s8 and s8b as ``csrc/ntt_mxu_tc.cu``'s instantiations, u7 as
 ``csrc/ntt_mxu_tc_u7.cu``'s, with the launch geometry of ``tc_geometry``.
-The first port's ``__dp4a`` kernel (``csrc/ntt_mxu.cu``) is kept only as
-the A/B point ``_launch_dp4a``.  An optional inter-step twiddle multiply
-is fused in: before the plane split on the forward, after the REDC on the
-inverse.
+An optional inter-step twiddle multiply is fused in: before the plane
+split on the forward, after the REDC on the inverse.
 
 On a CPU tensor the wrappers run ``_mxu_plain``, the same algorithm in plain
 PyTorch; on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES``
@@ -120,11 +118,11 @@ LAUNCHES = {"lead": 0, "mid": 0, "lane": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = {"lead": 0, "mid": 0, "lane": 0}
 #: Kernel launches per kernel: "tensor_core" csrc/mxu_tc.cuh (K11's
-#: launches too), "dp4a" csrc/ntt_mxu.cu (the A/B point alone).
-KERNEL_LAUNCHES = {"tensor_core": 0, "dp4a": 0}
+#: launches too).
+KERNEL_LAUNCHES = {"tensor_core": 0}
 #: Limbs carried per kernel, summed over its launches: 1 a single-modulus
 #: launch, L a launch on ``MxuLimbs`` (every limb in one launch).
-LIMBS = {"tensor_core": 0, "dp4a": 0}
+LIMBS = {"tensor_core": 0}
 #: The host span of each kernel's launch (``utils.profiling.span``).
 LAUNCH_SPANS = {k: f"sventt.launch.{k}" for k in KERNEL_LAUNCHES}
 
@@ -249,7 +247,7 @@ def _host_tables(
                 planes[t * m:(t + 1) * m, b * m:(b + 1) * m] = digs[t - b]
     else:
         planes = np.concatenate(digs, axis=0)
-    # the per-plane bias m << 17 must equal the kernel's (csrc/ntt_mxu.cu)
+    # the per-plane bias m << 17 must equal the kernel's (csrc/mxu_tail.cuh)
     # and _mxu_plain's: it is the exact worst-case |P_t|
     ofs_total = (m << 17) * sum(1 << (8 * t) for t in range(15))
     rowsums = R.sum(axis=1)
@@ -485,14 +483,12 @@ def _check_cuda(t: MxuDirection, x: torch.Tensor, tw: MontPair | None):
         raise TypeError("twiddles must be int64")
 
 
-def _kernel_args(
-    x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None, planes: torch.Tensor
-):
+def _kernel_args(x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair | None):
     """(output, the C entries' arguments before and after their own) for a
-    dense (A, m, B) view (any strides; the output takes the same layout)
-    and the kernel's form of the planes, after ``_check_cuda``."""
+    dense (A, m, B) view (any strides; the output takes the same layout),
+    after ``_check_cuda``."""
     _check_cuda(t, x, tw)
-    out, head = _head_args(x, t, fc, tw, planes, t.corr)
+    out, head = _head_args(x, t, fc, tw, t.tc_planes, t.corr)
     nsub, barrett = _reduce_consts(t.modulus)
     N = t.modulus
     tail = (N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse, nsub, int(barrett))
@@ -713,7 +709,7 @@ def _launch_tc(
         x = _aligned16(x[0].t()).t().unsqueeze(0)
         if tw is not None:
             tw = montpair_map(lambda v: _aligned16(v[0].t()).t().unsqueeze(0), tw)
-    out, head, tail = _kernel_args(x, t, fc, tw, t.tc_planes)
+    out, head, tail = _kernel_args(x, t, fc, tw)
     A, m, B = x.shape
     geo = tc_geometry(m, B, A, sm_count(x.device.index), form, t.scheme, t.tc_nt)
     lib = _build.load()
@@ -730,7 +726,7 @@ def _launch_tc(
 def kernel_for(scheme: str, orientation: str) -> str:
     """The kernel a CUDA call runs, a ``KERNEL_LAUNCHES`` key:
     "tensor_core" for every scheme in every orientation (K11, the u7 lead
-    form, included); the __dp4a kernel runs only as the A/B point."""
+    form, included)."""
     if scheme not in SCHEMES or orientation not in LAUNCHES:
         raise ValueError(f"unknown mxu scheme / orientation {scheme!r} / {orientation!r}")
     return "tensor_core"
@@ -977,35 +973,6 @@ def mxu_plain(
     return back(_mxu_plain(x3, tables, fc, tw3))
 
 
-def _launch_dp4a(
-    x: torch.Tensor, tables: MxuDirection, fc: FieldConsts,
-    tw: MontPair | None = None, mid: bool = False, lane: bool = False,
-) -> torch.Tensor:
-    """``mxu_ntt`` (``mid=True``: ``mxu_ntt_mid``; ``lane=True``:
-    ``mxu_ntt_lane``) of any scheme's tables on the first port's __dp4a
-    kernel (csrc/ntt_mxu.cu), which no path runs: the A/B point
-    ``chip_smoke.py`` times beside the tensor-core kernel.  CUDA tensors
-    only; counted under ``KERNEL_LAUNCHES["dp4a"]`` alone; raises on any
-    error."""
-    from .. import _build
-
-    if not x.is_cuda:
-        raise ValueError("the dp4a A/B point takes a CUDA tensor")
-    check_companion(fc, tw)
-    x3, tw3, back = _as3(x, tw, tables.m, "lane" if lane else "mid" if mid else "lead")
-    with span(LAUNCH_SPANS["dp4a"]):
-        out, head, tail = _kernel_args(x3, tables, fc, tw3, tables.kernel_planes)
-        rc = _build.load().sventt_mxu_ntt(
-            *head, int(tables.scheme == "u7"), *tail,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"mxu kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["dp4a"] += 1
-    LIMBS["dp4a"] += 1
-    return back(out)
-
-
 def _launch_lane_form(
     x: torch.Tensor, tables: MxuDirection, fc: FieldConsts, form: str,
     tw: MontPair | None = None,
@@ -1033,9 +1000,8 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-# ctypes signatures of the C entries in csrc/ntt_mxu.cu (with u7) and
-# csrc/ntt_mxu_tc.cu / csrc/ntt_mxu_tc_u7.cu (without it, with the form,
-# nt, split and the shared memory)
+# ctypes signatures of the C entries in csrc/ntt_mxu_tc.cu /
+# csrc/ntt_mxu_tc_u7.cu (with the form, nt, split and the shared memory)
 _HEAD = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
@@ -1043,7 +1009,6 @@ _HEAD = (
     + [ctypes.c_int] * 3
 )
 _TAIL = [ctypes.c_ulonglong] * 5 + [ctypes.c_int] * 2
-_ARGTYPES = _HEAD + [ctypes.c_int] + _TAIL + [ctypes.c_void_p]
 _TC_ARGTYPES = _HEAD + _TAIL + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 # csrc/ntt_mxu_tc_limbs.cu: the per-limb constants' table, slices a limb and
 # a limb's tile bytes in place of the tail

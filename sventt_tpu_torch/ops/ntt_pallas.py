@@ -17,9 +17,7 @@ All three run on ``csrc/ntt_radix2.cu``'s register kernel: a thread holds
 2^R points of one column (leaf, mid) or one row (lane) and runs up to 4
 consecutive stages on them in registers; the sets meet in shared memory
 once per group of stages (``butterfly_geometry`` gives the groups and the
-launch geometry).  The first port's stage-by-stage kernel
-(``csrc/ntt_pallas.cu``), in all three orientations, is kept as the A/B
-point ``_launch_stages``, which no path calls.
+launch geometry).
 
 Forward stages are DIF (l = m/2 ... 1, bit-reversed output), inverse stages
 DIT (l = 1 ... m/2) with 1/m folded into the last stage.  The tables are
@@ -49,8 +47,7 @@ kernel (``csrc/ntt_grouped.cu``) in two orientations:
 Each thread of that kernel holds one group's 2^R points of a butterfly set
 in registers and runs the group's R ranks there; the sets meet in shared
 memory once per group boundary (``grouped_geometry`` gives the launch
-geometry).  The first port's rank-by-rank schedule of the same file is
-kept as the A/B point ``_launch_grouped_ranks``, which no path calls.
+geometry).
 
 The JAX planner never sends grouped tables to the mid orientation (its
 ``_mid_row`` asks for a ``FusedDirection``): a batched grouped row takes
@@ -106,11 +103,6 @@ MAX_LOWS = 1 << (MAX_R - 1)
 #: columns sits in shared memory).
 MAX_LEAF = 4096
 
-#: Points per block tile of the first port's kernels (the A/B points
-#: ``_launch_stages`` and ``_launch_grouped_ranks``) when no knob sets it:
-#: columns or rows per block = TILE_POINTS // m.  32 KB of u64.
-TILE_POINTS = 4096
-
 #: Largest dynamic shared memory a Hopper block may use.
 MAX_SMEM = 232448
 
@@ -121,10 +113,8 @@ LAUNCHES = {"leaf": 0, "mid": 0, "lane": 0, "grouped": 0, "lane_grouped": 0}
 #: Plain-version calls per orientation.
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 #: Launches per kernel: radix-2 "radix2_registers" (every K4 / K5 / K6
-#: call), "radix2_stages" (the stage-by-stage A/B point ``_launch_stages``
-#: only); grouped "registers" (every K7 / K8 call), "ranks" (the
-#: rank-by-rank A/B point, ``_launch_grouped_ranks`` only).
-KERNEL_LAUNCHES = {"radix2_registers": 0, "radix2_stages": 0, "registers": 0, "ranks": 0}
+#: call), grouped "registers" (every K7 / K8 call).
+KERNEL_LAUNCHES = {"radix2_registers": 0, "registers": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
 GROUPED_THREADS = 256
@@ -918,14 +908,6 @@ def _view(x3: torch.Tensor, lane: bool):
     return (A, m, B), x3.stride(), (m, 1, 0)
 
 
-def _geometry(x3: torch.Tensor, m: int, lane: bool, cols: int):
-    """``_view`` and log2 cols of the shared-memory tile kernels, a block
-    taking ``cols`` batch entries (in the lane orientation whole rows)."""
-    if (cols + 1) * m * 8 > MAX_SMEM:
-        raise ValueError(f"a tile of {cols} x {m} points exceeds shared memory")
-    return (*_view(x3, lane), cols.bit_length() - 1)
-
-
 #: The C entries' stage-multiply engines.
 _MODMUL = {"montgomery": 0, "shoup": 1, "solinas": 2}
 
@@ -939,38 +921,6 @@ def _tw_args(tw3: MontPair | None, fc: FieldConsts) -> tuple:
     wp = None if tw3.wp is None else tw3.wp.data_ptr()
     mode = 3 if fc.modmul == "solinas" else (2 if wp is None else 1)
     return tw3.w.data_ptr(), wp, mode
-
-
-def _launch(
-    x3: torch.Tensor, t: _StageTables, fc: FieldConsts, tw3: MontPair | None,
-    lane: bool, cols: int, first: int, last: int,
-) -> torch.Tensor:
-    """One launch of the stage-by-stage kernel (csrc/ntt_pallas.cu) on
-    stages [first, last) of ``t`` along axis 1 of the contiguous (A, m, B)
-    tensor ``x3`` (see ``_geometry``); ``lane`` also selects K6's forward
-    sequence."""
-    from .. import _build
-
-    with span("sventt.launch.radix2_stages"):
-        _check_cuda(t, fc, x3, tw3)
-        m = t.m
-        dims, strides, tw_strides, log2c = _geometry(x3, m, lane, cols)
-        lib = _build.load()
-        out = torch.empty_like(x3)
-        s, sp = t.scale if t.scale is not None else (0, 0)
-        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-        rc = lib.sventt_butterfly_ntt(
-            x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
-            None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
-            dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-            first, last, log2c, int(t.inverse), _MODMUL[fc.modmul], int(fc.lazy),
-            int(lane), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
-            torch.cuda.current_stream(x3.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"butterfly kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["radix2_stages"] += 1
-    return out
 
 
 def _launch_regs(
@@ -1011,43 +961,6 @@ def _launch_regs(
     return out
 
 
-def _launch_stages(
-    x: torch.Tensor, tables: FusedDirection | LaneDirection, fc: FieldConsts,
-    tw: MontPair | None = None, mid: bool = False,
-) -> torch.Tensor:
-    """``fused_ntt`` (``fused_ntt_mid`` with ``mid``, ``tw`` as there;
-    ``fused_ntt_lane`` on LaneDirection tables, ``tw`` its ``pre_tw``) on
-    the first port's stage-by-stage kernel (csrc/ntt_pallas.cu), which no
-    path runs: the A/B point ``chip_smoke.py`` times beside the register
-    kernel.  CUDA tensors only; counted under
-    ``KERNEL_LAUNCHES["radix2_stages"]`` alone."""
-    if not isinstance(tables, (FusedDirection, LaneDirection)) or not x.is_cuda:
-        raise ValueError(
-            "the stage-by-stage A/B point takes per-stage tables and a CUDA tensor"
-        )
-    check_companion(fc, tw)
-    m = tables.m
-    if isinstance(tables, LaneDirection):
-        rows = _lane_rows(x, m)
-        tw3 = None if tw is None else _lane_tw(tw, x, rows)
-        out = _launch(rows.unsqueeze(2), tables, fc, tw3, True,
-                      tables.rows or max(1, TILE_POINTS // m), 0, len(tables.stage_ls))
-        return out.reshape(x.shape)
-    if mid:
-        x3 = _mid_view(x, m)
-        tw3 = None if tw is None else _mid_tw(tw, x3)
-    elif tw is not None:
-        raise ValueError("the leaf orientation takes no inter-step twiddle")
-    else:
-        x3, tw3 = _leaf_view(x, m), None
-    n = len(tables.stage_ls)
-    step = tables.spc or n
-    for first in range(0, n, step):
-        x3 = _launch(x3, tables, fc, tw3, False, tables.block_b or max(1, TILE_POINTS // m),
-                     first, min(first + step, n))
-    return x3.reshape(x.shape)
-
-
 def _launch_grouped(
     x3: torch.Tensor, t: _GroupedTables, fc: FieldConsts, tw3: MontPair | None, lane: bool
 ) -> torch.Tensor:
@@ -1080,48 +993,6 @@ def _launch_grouped(
             raise RuntimeError(f"grouped kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["registers"] += 1
     return out
-
-
-def _launch_grouped_ranks(
-    x: torch.Tensor, tables: _GroupedTables, fc: FieldConsts, pre_tw: MontPair | None = None
-) -> torch.Tensor:
-    """``fused_ntt`` (``fused_ntt_lane`` on lane tables, ``pre_tw`` as
-    there) of grouped tables on the first port's rank-by-rank kernel, which
-    no path runs: the A/B point ``chip_smoke.py`` times beside the register
-    kernel.  CUDA tensors only; counted under ``KERNEL_LAUNCHES["ranks"]``
-    alone."""
-    from .. import _build
-
-    if not isinstance(tables, _GroupedTables) or not x.is_cuda:
-        raise ValueError("the rank-by-rank A/B point takes grouped tables and a CUDA tensor")
-    check_companion(fc, pre_tw)
-    m = tables.m
-    lane = isinstance(tables, GroupedLaneDirection)
-    if lane:
-        rows = _lane_rows(x, m)
-        x3, tw3 = rows.unsqueeze(2), None if pre_tw is None else _lane_tw(pre_tw, x, rows)
-    elif pre_tw is not None:
-        raise ValueError("the leaf orientation takes no inter-step twiddle")
-    else:
-        x3, tw3 = _leaf_view(x, m), None
-    with span("sventt.launch.ranks"):
-        _check_cuda(tables, fc, x3, tw3)
-        dims, strides, tw_strides, log2c = _geometry(x3, m, lane, max(1, TILE_POINTS // m))
-        ranks = sum(spec.R << (4 * g) for g, spec in enumerate(tables.specs))
-        out = torch.empty_like(x3)
-        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-        rc = _build.load().sventt_grouped_ntt_ranks(
-            x3.data_ptr(), out.data_ptr(), tables.w.data_ptr(), tables.wp.data_ptr(),
-            tables.consts.data_ptr(), tables.const_mask.data_ptr(), w_ptr, wp_ptr,
-            dims[0], m.bit_length() - 1, dims[2], *strides, *tw_strides,
-            len(tables.specs), ranks, log2c, int(tables.inverse), _MODMUL[fc.modmul],
-            int(fc.lazy), int(lane), mode, fc.modulus, fc.montgomery_inverse,
-            torch.cuda.current_stream(x3.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"grouped rank kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["ranks"] += 1
-    return out.reshape(x.shape)
 
 
 def _run(
@@ -1213,16 +1084,8 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-# ctypes signatures of the C entries in csrc/ntt_pallas.cu, csrc/ntt_radix2.cu
-# and csrc/ntt_grouped.cu (the register kernel's, then the rank-by-rank one's)
-_ARGTYPES = (
-    [ctypes.c_void_p] * 6
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-    + [ctypes.c_longlong] * 6
-    + [ctypes.c_int] * 8
-    + [ctypes.c_ulonglong] * 4
-    + [ctypes.c_void_p]
-)
+# ctypes signatures of the C entries in csrc/ntt_radix2.cu and
+# csrc/ntt_grouped.cu
 _RADIX2_ARGTYPES = (
     [ctypes.c_void_p] * 6
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
@@ -1231,15 +1094,6 @@ _RADIX2_ARGTYPES = (
     + [ctypes.c_ulonglong]
     + [ctypes.c_int] * 8
     + [ctypes.c_ulonglong] * 4
-    + [ctypes.c_void_p]
-)
-_GROUPED_ARGTYPES = (
-    [ctypes.c_void_p] * 8
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-    + [ctypes.c_longlong] * 6
-    + [ctypes.c_int, ctypes.c_ulonglong]
-    + [ctypes.c_int] * 6
-    + [ctypes.c_ulonglong] * 2
     + [ctypes.c_void_p]
 )
 _GROUPED_REG_ARGTYPES = (

@@ -16,9 +16,9 @@ The spans, all static names:
   ``sventt.leaf``: a plan level's row step and the column leaf;
 * ``sventt.launch.<kernel>``: a kernel's launch on the host, argument
   building, geometry and the C call, ``<kernel>`` the key its launch is
-  counted under (``tensor_core``, ``dp4a``, ``radix2_registers``,
-  ``radix2_stages``, ``registers``, ``ranks``, ``inter_step``, ``plane``,
-  ``pair``, ``ring``, ``fused``, ``pointwise``);
+  counted under (``tensor_core``, ``radix2_registers``, ``registers``,
+  ``inter_step``, ``plane``, ``pair``, ``ring``, ``fused``,
+  ``pointwise``);
 * ``sventt.convolve`` and ``sventt.convolve.pointwise``: a cyclic product
   and its pointwise step (on the card, one ``sventt.launch.pointwise`` a
   tensor or shard);

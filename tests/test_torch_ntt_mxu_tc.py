@@ -77,7 +77,7 @@ def _flagship():
 def test_kernel_routing(scheme, orientation):
     """Every scheme runs on the tensor cores in every orientation, K3 lane
     included: s8 and s8b on the s8 digit stack's instantiations, u7 on its
-    own; the __dp4a kernel is only the A/B point."""
+    own."""
     assert ntt_mxu.kernel_for(scheme, orientation) == "tensor_core"
 
 
@@ -287,29 +287,25 @@ def test_tc_accumulation_through_tail_matches_jax(rng, monkeypatch, N, g, invers
     np.testing.assert_array_equal(to_numpy(got), want)
 
 
-def test_cpu_counts_and_ab_point():
+def test_cpu_counts_and_refusals():
     """On the CPU the wrappers run the plain version and launch nothing;
-    the __dp4a and staged-epilogue A/B points and the tensor-core launcher
-    refuse what they do not take before touching a card."""
+    the staged-epilogue A/B point and the tensor-core launcher refuse what
+    they do not take before touching a card."""
     mod = _flagship()
     fc = FieldConsts.from_modulus(mod)
     t = ntt_mxu.make_mxu_tables(mod, 8, inverse=False, device="cpu")
     tu = ntt_mxu.make_mxu_tables(mod, 8, inverse=False, scheme="u7", device="cpu")
     x = from_numpy(np.zeros((8, 3), np.uint64))
-    ntt_mxu.KERNEL_LAUNCHES["dp4a"] = 5
+    ntt_mxu.KERNEL_LAUNCHES["tensor_core"] = 5
     ntt_mxu.reset_counts()
-    assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0, "dp4a": 0}
+    assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0}
     ntt_mxu.mxu_ntt(x, t, fc)
     ntt_mxu.mxu_ntt_mid(x.reshape(1, 8, 3), t, fc)
     ntt_mxu.mxu_ntt_lane(x.t(), t, fc, tw=MontPair(x.t(), None))
     assert ntt_mxu.PLAIN_CALLS == {"lead": 1, "mid": 1, "lane": 1}
-    assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0, "dp4a": 0}
+    assert ntt_mxu.KERNEL_LAUNCHES == {"tensor_core": 0}
     with pytest.raises(ValueError):
         ntt_mxu.mxu_ntt_lane(x.t(), t, fc, tw=MontPair(x, None))  # not the data's layout
-    with pytest.raises(ValueError):
-        ntt_mxu._launch_dp4a(x, t, fc)  # a CPU tensor
-    with pytest.raises(ValueError):
-        ntt_mxu._launch_dp4a(x.t(), tu, fc, lane=True)
     with pytest.raises(ValueError):
         ntt_mxu._launch_lane_form(x.t(), t, fc, "lane_staged")
     # u7 tables take the tensor-core route too; tables built on the CPU

@@ -139,7 +139,7 @@ def test_reset_counts_clears_the_limb_counts():
     pointwise.LIMBS["pointwise"] = 3
     ntt_mxu.reset_counts()
     pointwise.reset_counts()
-    assert ntt_mxu.LIMBS == {"tensor_core": 0, "dp4a": 0} and pointwise.LIMBS == {"pointwise": 0}
+    assert ntt_mxu.LIMBS == {"tensor_core": 0} and pointwise.LIMBS == {"pointwise": 0}
 
 
 def test_a_limb_call_records_the_single_modulus_spans():

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the butterfly kernels on one card: the grouped register
-kernel (csrc/ntt_grouped.cu), the radix-2 register kernel
-(csrc/ntt_radix2.cu) and, for the lane, the first port's stage-by-stage
-kernel (csrc/ntt_pallas.cu).
+kernel (csrc/ntt_grouped.cu) and the radix-2 register kernel
+(csrc/ntt_radix2.cu).
 
     python3 tools/grouped_ablation.py [--reps N]
 
@@ -10,9 +9,8 @@ Builds, besides the port's kernels, ablated copies of them and one
 microbenchmark, each with nvcc into a temporary directory, and times them
 at the 2^24 plans' shapes (K7 256 x 65536, K8 65536 rows of 256 with the
 pair twiddle, max_r 3; K4 256 x 65536, K5 (256, 256, 256) with the pair
-twiddle, K6 65536 rows of 256 with the pair twiddle, on the register
-kernel and on the stage-by-stage one, and on the register kernel without
-a twiddle ("K6 bare"); forward, K6 also inverse) in one call:
+twiddle, K6 65536 rows of 256 with the pair twiddle, and without a
+twiddle ("K6 bare"); forward, K6 also inverse) in one call:
 
 * "as built": the kernel itself;
 * "no products": every stage, constant and table multiply replaced by an
@@ -111,7 +109,6 @@ def _build_all(out_dir: str) -> dict:
 
     grouped = open(os.path.join(_build.CSRC, "ntt_grouped.cu")).read()
     radix2 = open(os.path.join(_build.CSRC, "ntt_radix2.cu")).read()
-    stages = open(os.path.join(_build.CSRC, "ntt_pallas.cu")).read()
     field = open(os.path.join(_build.CSRC, "field.cuh")).read()
     never = "if (v[k] == 0x123456789ull) "  # a store the compiler cannot drop
     lane_load = "for (int k = 0; k < K; ++k) v[k] = ok ? (u64)X[w0 + k * L] : 0ull;"
@@ -154,7 +151,7 @@ def _build_all(out_dir: str) -> dict:
         "          " + lane_store + "\n"
         "        }"))
     copies = {
-        "no products": ({"grouped": grouped, "radix2": radix2, "stages": stages},
+        "no products": ({"grouped": grouped, "radix2": radix2},
                         _sub(field, "  return mont_mul(a, w, wp, N, lazy);\n}", "  return a ^ w;\n}")),
         "no device memory": ({
             "grouped": _sub(_sub(
@@ -163,10 +160,6 @@ def _build_all(out_dir: str) -> dict:
                 "for (int k = 0; k < K; ++k) dst[k * Lsm] = (long long)v[k];",
                 "for (int k = 0; k < K; ++k)\n          " + never + "dst[k * Lsm] = (long long)v[k];"),
             "radix2": radix2_no_mem,
-            "stages": _sub(_sub(
-                stages, "v = (u64)x[a * sa + j * sm + col * sb];", "v = (u64)__ldg(x + j);"),
-                "out[a * sa + j * sm + col * sb] = (long long)v;",
-                "if (v == 0x123456789ull) out[a * sa + j * sm + col * sb] = (long long)v;"),
         }, field),
         "end direct": ({"radix2": direct}, field),
         "end vector": ({"radix2": vector}, field),
@@ -220,8 +213,7 @@ def main() -> int:
         for name in ("no products", "no device memory") + K6_ONLY:
             lib = ctypes.CDLL(paths[name])
             entries = (("sventt_grouped_ntt", P._GROUPED_REG_ARGTYPES),
-                       ("sventt_radix2_ntt", P._RADIX2_ARGTYPES),
-                       ("sventt_butterfly_ntt", P._ARGTYPES))
+                       ("sventt_radix2_ntt", P._RADIX2_ARGTYPES))
             for fname, argtypes in entries[1:2] if name in K6_ONLY else entries:
                 fn = getattr(lib, fname)
                 fn.restype = ctypes.c_int
@@ -245,7 +237,6 @@ def main() -> int:
         tw5 = P._mid_tw(cs.rand_twiddle(rng, (256, 256), flag, "pair", "cuda"), x5)
         t6, t6i = (P.make_lane_tables(flag, 256, inverse=i, device="cuda") for i in (False, True))
         x6 = x.view(1 << 16, 256)
-        cols6 = max(1, P.TILE_POINTS // 256)
         check = {"K7": P.grouped_plain(x, t7, fc).view(x7.shape),
                  "K8": P.lane_grouped_plain(x6, t8, fc, tw).view(x8.shape),
                  "K4": P._stages_plain(x7, t4, fc, False),
@@ -254,7 +245,6 @@ def main() -> int:
                  "K6 inv": P.lane_plain(x6, t6i, fc, tw).view(x8.shape),
                  "K6 bare": P.lane_plain(x6, t6, fc).view(x8.shape),
                  "K6 bare inv": P.lane_plain(x6, t6i, fc).view(x8.shape)}
-        check["K6 stages"], check["K6 stages inv"] = check["K6"], check["K6 inv"]
         calls = {"K7": lambda: P._launch_grouped(x7, t7, fc, None, False),
                  "K8": lambda: P._launch_grouped(x8, t8, fc, tw8, True),
                  "K4": lambda: P._launch_regs(x7, t4, fc, None, 0, 8),
@@ -262,12 +252,10 @@ def main() -> int:
                  "K6": lambda: P._launch_regs(x8, t6, fc, tw8, 0, 8, lane=True),
                  "K6 inv": lambda: P._launch_regs(x8, t6i, fc, tw8, 0, 8, lane=True),
                  "K6 bare": lambda: P._launch_regs(x8, t6, fc, None, 0, 8, lane=True),
-                 "K6 bare inv": lambda: P._launch_regs(x8, t6i, fc, None, 0, 8, lane=True),
-                 "K6 stages": lambda: P._launch(x8, t6, fc, tw8, True, cols6, 0, 8),
-                 "K6 stages inv": lambda: P._launch(x8, t6i, fc, tw8, True, cols6, 0, 8)}
+                 "K6 bare inv": lambda: P._launch_regs(x8, t6i, fc, None, 0, 8, lane=True)}
         cs.log(f"[ablation] median ms of {args.reps} CUDA-graph replays at the 2^24 shapes, "
                "forward unless marked (K7 / K8 max_r 3; K4 / K5 / K6 the radix-2 register "
-               "kernel, K6 stages the stage-by-stage one)")
+               "kernel)")
         build_load = _build.load
         for name, lib in libs.items():
             _build.load = (lambda lib=lib: lib)  # the launcher loads this library

@@ -117,7 +117,7 @@ def run(entry, x, t, fc, tw, orientation: str, form: str):
     from sventt_tpu_torch.ops import ntt_mxu
 
     x3, tw3, back = ntt_mxu._as3(x, tw, t.m, orientation)
-    out, head, tail = ntt_mxu._kernel_args(x3, t, fc, tw3, t.tc_planes)
+    out, head, tail = ntt_mxu._kernel_args(x3, t, fc, tw3)
     A, m, B = x3.shape
     geo = ntt_mxu.tc_geometry(m, B, A, torch.cuda.get_device_properties(0).multi_processor_count,
                               "strided" if form == "strided" else "lane", "u7", t.tc_nt)
