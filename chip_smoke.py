@@ -2007,6 +2007,140 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def program_phase(device, smi: str, oracles: dict) -> None:
+    """The launch program of eager butterfly calls (``planner.build_program``,
+    ``ntt_pallas.LaunchProgram``).  For the flagship at 2^17, 2^24 and 2^26
+    (engine "auto"), the test modulus at 2^24 (Shoup), Solinas at 2^17 and
+    2^24, a batched (2^17, 4) input and a donated 2^24 one, in both
+    directions: the planner's walk (``NTT._run``, each call's path before
+    programs), the call that builds the key's program and a replay give
+    the same words, the unbatched ones the native oracle's (of
+    ``device_fill``), with the walk's launches per call; ``PROGRAMS``
+    counts one build and then replays.  Then the host time of a call until
+    it returns, untraced, by perf_counter after a synchronize: the walk
+    against the replay in turns (P C C P) at 2^17 and 2^24, every replay
+    counted as one; and the parts of a replayed launch: the ctypes call
+    alone (the C entry refusing A = 0 before any CUDA call), an output's
+    ``torch.empty``, the current stream's read."""
+    import numpy as np
+    import torch
+
+    from sventt_tpu_torch import _build
+    from sventt_tpu_torch.field.limb import to_numpy
+    from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.plan import NTT, NttConfig, planner
+    from sventt_tpu_torch.utils.fill import device_fill
+
+    flag, test = moduli()
+    F, G = flag.modulus, flag.generator
+    cases = [(f"flagship 2^{k}", F, G, 1 << k, {}, 1, False) for k in (17, 24, 26)] + [
+        ("TEST 2^24 shoup", test.modulus, test.generator, 1 << 24, {}, 1, False),
+        ("solinas 2^17", F, G, 1 << 17, dict(modmul="solinas"), 1, False),
+        ("solinas 2^24", F, G, 1 << 24, dict(modmul="solinas"), 1, False),
+        ("flagship 2^17 batch 4", F, G, 1 << 17, {}, 4, False),
+        ("flagship 2^24 donated", F, G, 1 << 24, {}, 1, True),
+    ]
+    for label, N, g, n, kw, batch, donate in cases:
+        ntt = NTT(NttConfig(N, g, n, **kw), donate_input=donate, device=device)
+        if label.startswith("TEST"):
+            check(ntt.fc.modmul == "shoup", f"{label}: modmul {ntt.fc.modmul}")
+        x = device_fill(n * batch, N, device)
+        x = x.reshape(batch, n).t().contiguous() if batch > 1 else x
+        for inverse in (False, True):
+            what = f"{label} {'inverse' if inverse else 'forward'}"
+            run = planner.run_inverse if inverse else planner.run_forward
+            tables = ntt._inv_tables if inverse else ntt._fwd_tables
+            call = ntt.compute_inverse if inverse else ntt.compute_forward
+            reset_counts()
+            walk = ntt._run(run, x, tables)
+            sync(device)
+            walked = dict(P.KERNEL_LAUNCHES)
+            outs, launched, programs = [], [], []
+            for _ in range(2):
+                reset_counts()
+                arg = x.clone()
+                outs.append(call(arg))
+                sync(device)
+                launched.append(dict(P.KERNEL_LAUNCHES))
+                programs.append(dict(P.PROGRAMS))
+                check(arg.untyped_storage().nbytes() == (0 if donate else 8 * arg.numel()),
+                      f"{what}: the input was {'kept' if donate else 'released'}")
+                del arg
+            same = all(torch.equal(walk, o) for o in outs)
+            bad = None
+            if batch == 1:
+                want = oracle(oracles, N, g, n)[int(inverse)]
+                bad = int(np.count_nonzero(to_numpy(ntt.normalize(outs[1])) != want))
+            log(f"  {what}: walk == build == replay bitwise: {same}; the replay's elements "
+                f"differing from the oracle: {bad}; launches walk {walked}, build "
+                f"{launched[0]}, replay {launched[1]}; programs {programs}")
+            check(same and bad in (None, 0), f"{what}: the program's output differs")
+            check(launched == [walked, walked] and walked["registers"] == 0
+                  and walked["radix2_registers"] in (2, 3), f"{what}: launches differ")
+            check(programs == [{"built": 1, "replayed": 0}, {"built": 0, "replayed": 1}],
+                  f"{what}: not one build, then a replay")
+            del walk, outs
+        del ntt, x
+        torch.cuda.empty_cache()
+
+    lib = _build.load()
+    for log2n in (17, 24):
+        n = 1 << log2n
+        ntt = NTT(NttConfig(F, G, n), enable_inverse=False, device=device)
+        x = device_fill(n, F, device)
+        tables = ntt._fwd_tables
+
+        def walk():
+            return ntt._run(planner.run_forward, ntt._check(x), tables)
+
+        def replay():
+            return ntt.compute_forward(x)
+
+        reps = 4000 if log2n == 17 else 1000
+        for fn in (walk, replay):
+            for _ in range(50):
+                fn()
+        sync(device)
+        reset_counts()
+        us = {"walk": [], "program": []}
+        for name, fn in (("walk", walk), ("program", replay), ("program", replay),
+                         ("walk", walk)):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                times.append(time.perf_counter() - t0)
+                del out
+            torch.cuda.synchronize()
+            us[name].append((statistics.mean(times) * 1e6, statistics.median(times) * 1e6))
+        check(P.PROGRAMS == {"built": 0, "replayed": 2 * reps},
+              f"2^{log2n}: not every call replayed: {P.PROGRAMS}")
+        program = ntt._programs[(False, x.shape, x.stride())]
+        args = list(program.launches[0].args)
+        args[4] = 0  # A = 0: the C entry refuses it before any CUDA call
+        check(lib.sventt_radix2_ntt(0, 0, *args, 0) != 0, "the C entry took A = 0")
+        parts = {}
+        for part, fn in (
+            ("ctypes", lambda: lib.sventt_radix2_ntt(0, 0, *args, 0)),
+            ("empty", lambda: torch.empty(program.launches[0].shape, dtype=torch.int64,
+                                          device=x.device)),
+            ("stream", lambda: P.current_stream(x.device)),
+        ):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            parts[part] = (time.perf_counter() - t0) / reps * 1e6
+        fmt = "; ".join(f"{k} " + " / ".join(f"mean {a:.2f} median {b:.2f}" for a, b in v)
+                        for k, v in us.items())
+        log(f"  flagship 2^{log2n} forward, host us a call until it returns ({reps} calls a "
+            f"turn, turns walk, program, program, walk): {fmt}; a replayed launch's parts "
+            f"(us): ctypes call {parts['ctypes']:.2f}, torch.empty {parts['empty']:.2f}, "
+            f"current stream {parts['stream']:.2f}; {len(program.launches)} launches ({smi})")
+        del ntt, x
+    torch.cuda.empty_cache()
+
+
 def profiling_phase(device, smi: str, ntts: dict) -> None:
     """``phase_breakdown`` of the 2^24 mxu and pallas plans (CUDA-graph
     replays at the plan's shapes), and ``trace`` writing its Chrome trace."""
@@ -2713,6 +2847,9 @@ def main() -> int:
     log("[route auto] NTT(engine='auto'): one modulus on the butterfly engine, one launch a "
         "level; an RNS configuration on the tensor cores; vs the native oracle")
     auto_route(device, oracles)
+    log("[launch program] eager butterfly calls: walk, building call and replay bitwise, vs "
+        "the native oracle, launches and programs counted; host time walk against replay")
+    program_phase(device, smi, oracles)
     log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
         "elementwise")
     grp = dict(engine="pallas", max_r=3)

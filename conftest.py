@@ -108,6 +108,7 @@ FILE_SECONDS = {
     "tests/test_torch_twiddle.py": 15.5,
     "tests/test_torch_tracing.py": 12.9,
     "tests/test_torch_solinas.py": 9.5,
+    "tests/test_torch_launch_program.py": 6.0,
     "tests/test_torch_ring.py": 9.5,
     "tests/test_torch_field.py": 7.3,
     "tests/test_native_series.py": 6.6,

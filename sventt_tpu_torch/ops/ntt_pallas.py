@@ -63,13 +63,23 @@ On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation;
 ``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran.
+
+A radix-2 launch is two steps: ``prepare_regs`` works out everything but
+the data -- geometry, table and twiddle pointers, dims, strides, modes --
+as a ``RegsLaunch``, and ``call_regs`` calls the C entry with it, the
+input and output pointers and the stream.  ``_launch_regs`` runs both;
+a ``LaunchProgram`` (a planner walk's launches, recorded by
+``recording``) keeps the prepared launches and reruns only the second
+step, on new pointers (``PROGRAMS`` counts programs built and replayed).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -115,6 +125,9 @@ PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 #: Launches per kernel: radix-2 "radix2_registers" (every K4 / K5 / K6
 #: call), grouped "registers" (every K7 / K8 call).
 KERNEL_LAUNCHES = {"radix2_registers": 0, "registers": 0}
+#: Launch programs of eager calls: "built" (a call's recorded walk),
+#: "replayed" (a call that ran one instead of the walk).
+PROGRAMS = {"built": 0, "replayed": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
 GROUPED_THREADS = 256
@@ -923,42 +936,151 @@ def _tw_args(tw3: MontPair | None, fc: FieldConsts) -> tuple:
     return tw3.w.data_ptr(), wp, mode
 
 
+@dataclass(frozen=True)
+class RegsLaunch:
+    """One launch of the radix-2 register kernel, everything but its data
+    worked out (``prepare_regs``).  ``args``: the C entry's arguments from
+    the stage table's pointer to the scale's companion (tables, twiddles,
+    dims, strides, stage range, geometry, modes, constants); ``shape``: the
+    (A, m, B) shape of its input and output; ``orientation``: the
+    ``LAUNCHES`` key it counts under (None: none, a direct launch);
+    ``tensors``: what ``args`` points into, held while the launch is."""
+
+    args: tuple
+    shape: tuple[int, ...]
+    orientation: str | None
+    tensors: tuple = field(repr=False, compare=False)
+
+
+def prepare_regs(
+    x3: torch.Tensor, t: FusedDirection | LaneDirection, fc: FieldConsts,
+    tw3: MontPair | None, first: int, last: int, lane: bool = False,
+    orientation: str | None = None,
+) -> RegsLaunch:
+    """The launch of stages [first, last) of ``t`` along axis 1 of the (A,
+    m, B) tensor ``x3`` (see ``_launch_regs``), checked and prepared; it
+    reads nothing of ``x3`` but its device, shape and strides."""
+    _check_cuda(t, fc, x3, tw3)
+    m = t.m
+    (A, _, B), strides, (ta, tm, tb) = _view(x3, lane)
+    if lane:
+        ta = tb  # the twiddle's row stride: the data's layout
+    w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
+    tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
+    geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
+                             t.rows if lane else t.block_b, sm_count(x3.device.index), lane)
+    ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
+    s, sp = t.scale if t.scale is not None else (0, 0)
+    args = (
+        t.w.data_ptr(), None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
+        A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
+        geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), int(lane),
+        _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
+    )
+    tensors = (t.w, t.wp) + (() if tw3 is None else tuple(tw3))
+    return RegsLaunch(args, tuple(x3.shape), orientation, tensors)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, which a launch joins:
+    the raw handle, as PyTorch's generated kernels read it
+    (``torch.cuda.current_stream`` builds a ``Stream`` object first, 4 us
+    of a 35 us replayed 2^17 call on the H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def call_regs(launch: RegsLaunch, src: int, out: int, stream: int) -> None:
+    """The C call of a prepared launch: input at ``src``, output at
+    ``out``, on ``stream``; counted."""
+    from .. import _build
+
+    rc = _build.load().sventt_radix2_ntt(src, out, *launch.args, stream)
+    if rc != 0:
+        raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES["radix2_registers"] += 1
+    if launch.orientation is not None:
+        LAUNCHES[launch.orientation] += 1
+
+
+#: The list ``recording`` appends this context's radix-2 launches to.
+_RECORD: contextvars.ContextVar[list | None] = contextvars.ContextVar("radix2_record",
+                                                                      default=None)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the radix-2 launches the block makes in this context, in
+    order, as (launch, input pointer, output pointer, whether the input
+    was contiguous)."""
+    record: list = []
+    token = _RECORD.set(record)
+    try:
+        yield record
+    finally:
+        _RECORD.reset(token)
+
+
 def _launch_regs(
     x3: torch.Tensor, t: FusedDirection | LaneDirection, fc: FieldConsts,
     tw3: MontPair | None, first: int, last: int, lane: bool = False,
+    orientation: str | None = None,
 ) -> torch.Tensor:
     """One launch of the radix-2 register kernel on stages [first, last)
     of ``t`` along axis 1 of the (A, m, B) tensor ``x3`` (K4, or K5 with
     the (A, m, 1) inter-step twiddle ``tw3``; with ``lane`` K6 on the
     contiguous (rows, m, 1) ``x3``, its twiddle of the same shape), in
-    ``butterfly_geometry``'s geometry."""
-    from .. import _build
-
+    ``butterfly_geometry``'s geometry, counted under ``orientation`` too."""
     with span("sventt.launch.radix2_registers"):
-        _check_cuda(t, fc, x3, tw3)
-        m = t.m
-        (A, _, B), strides, (ta, tm, tb) = _view(x3, lane)
-        if lane:
-            ta = tb  # the twiddle's row stride: the data's layout
-        w_ptr, wp_ptr, mode = _tw_args(tw3, fc)
-        tw_words = 0 if tw3 is None else (1 if wp_ptr is None else 2)
-        geo = butterfly_geometry(m, first, last, t.inverse, B, A, fc.modmul == "solinas", tw_words,
-                                 t.rows if lane else t.block_b, sm_count(x3.device.index), lane)
-        ranks = sum(R << (4 * g) for g, R in enumerate(geo.ranks))
-        s, sp = t.scale if t.scale is not None else (0, 0)
+        launch = prepare_regs(x3, t, fc, tw3, first, last, lane, orientation)
         out = torch.empty_like(x3)
-        rc = _build.load().sventt_radix2_ntt(
-            x3.data_ptr(), out.data_ptr(), t.w.data_ptr(),
-            None if t.wp is None else t.wp.data_ptr(), w_ptr, wp_ptr,
-            A, m.bit_length() - 1, B, *strides, ta, tm, first, last, ranks,
-            geo.cols.bit_length() - 1, geo.threads, geo.smem, int(t.inverse), int(lane),
-            _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
-            torch.cuda.current_stream(x3.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES["radix2_registers"] += 1
+        call_regs(launch, x3.data_ptr(), out.data_ptr(), current_stream(x3.device))
+    record = _RECORD.get()
+    if record is not None:
+        record.append((launch, x3.data_ptr(), out.data_ptr(), x3.is_contiguous()))
     return out
+
+
+class LaunchProgram:
+    """The radix-2 launches of one eager planner walk, replayed on new
+    data: each launch's prepared arguments, launched in order on the current
+    stream, each into a new output that the next reads; the first reads the
+    caller's tensor, and the last's output, viewed as ``shape``, is the
+    result.  A replay gives the walk's launches, geometry and counts; only
+    the pointers and the stream are the call's own."""
+
+    def __init__(self, launches: tuple[RegsLaunch, ...], shape: tuple[int, ...]):
+        self.launches = launches
+        self.shape = shape
+
+    @classmethod
+    def from_record(cls, record: list, src: int, out: torch.Tensor) -> "LaunchProgram":
+        """The program of a walk that read the tensor at ``src`` and
+        returned ``out``, its launches ``record`` (``recording``'s): a chain
+        on contiguous data, each launch reading the one before's output, the
+        first ``src``, and ``out`` the last's."""
+        for _, x_ptr, out_ptr, contiguous in record:
+            if x_ptr != src or not contiguous:
+                raise RuntimeError("the walk's launches are not a chain on contiguous data")
+            src = out_ptr
+        if not record or out.data_ptr() != src or not out.is_contiguous():
+            raise RuntimeError("the walk's result is not its last launch's output")
+        return cls(tuple(r[0] for r in record), tuple(out.shape))
+
+    def __call__(self, x: torch.Tensor, donated: torch.Tensor | None = None) -> torch.Tensor:
+        """The walk's result for ``x`` (contiguous, of the recorded shape);
+        ``donated``'s storage is released once the first launch, the only
+        one that reads it, is launched (as the planner's ``_release``)."""
+        stream = current_stream(x.device)
+        out = x
+        for i, launch in enumerate(self.launches):
+            src = out
+            with span("sventt.launch.radix2_registers"):
+                out = torch.empty(launch.shape, dtype=torch.int64, device=x.device)
+                call_regs(launch, src.data_ptr(), out.data_ptr(), stream)
+            if i == 0 and donated is not None:
+                donated.untyped_storage().resize_(0)
+        PROGRAMS["replayed"] += 1
+        return out.view(self.shape)
 
 
 def _launch_grouped(
@@ -1010,9 +1132,9 @@ def _run(
         for first in range(0, n, step):
             if grouped:
                 x3 = _launch_grouped(x3, t, fc, tw3, lane)
+                LAUNCHES[orientation] += 1
             else:
-                x3 = _launch_regs(x3, t, fc, tw3, first, min(first + step, n), lane)
-            LAUNCHES[orientation] += 1
+                x3 = _launch_regs(x3, t, fc, tw3, first, min(first + step, n), lane, orientation)
         return x3
     if x3.device.type != "cpu":
         raise ValueError(f"butterfly engine runs on cpu or cuda tensors, got {x3.device}")
@@ -1078,8 +1200,8 @@ def fused_ntt_lane(
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES):
+    """Set every launch, plain-call and program count to zero."""
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, PROGRAMS):
         for k in d:
             d[k] = 0
 

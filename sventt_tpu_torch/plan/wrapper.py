@@ -20,6 +20,15 @@ tables, as the JAX package's do for its chained timing: here the step is
 what a ``torch.cuda.CUDAGraph`` captures (it synchronizes nothing and
 builds no table; ``utils.timing.time_chained`` times it so).
 
+An eager call (``compute_forward`` / ``compute_inverse``) whose every
+launch is the radix-2 register kernel -- a one-modulus butterfly plan on
+a card, the plan "auto" builds there -- on a contiguous input walks the
+planner once for each direction, shape and strides, and records the walk
+as a launch program (``planner.build_program``); each later call of that
+key replays it: the same launches, in the same order, on the current
+stream, with only the data pointers and the fresh outputs its own.
+Every other call walks the plan.
+
 ``tune=True`` resolves the config's knobs through the autotuner
 (``plan/autotune.py``) on the NTT's device before anything else, as in the
 JAX package.  ``donate_input=True`` lets ``compute_forward`` /
@@ -145,6 +154,9 @@ class NTT:
             config = tune(config, device=self.device)
         self.config = config
         self.donate_input = donate_input
+        #: (inverse, shape, strides) of an eager call -> its launch
+        #: program, or None where the call walks the plan.
+        self._programs: dict = {}
         #: Limbs of a multi-modular configuration (None: one modulus).
         self.limbs = len(config.limb_mods) if config.rns else None
         if self.limbs is None:
@@ -266,14 +278,33 @@ class NTT:
             raise RuntimeError("forward transform was not enabled")
         with span("sventt.forward"):
             x = self._check(x, donate)
-            return self._run(planner.run_forward, x, self._fwd_tables, x if donate else None)
+            return self._call(planner.run_forward, x, self._fwd_tables, x if donate else None)
 
     def _inverse(self, x: torch.Tensor, donate: bool) -> torch.Tensor:
         if self._inv_tables is None:
             raise RuntimeError("inverse transform was not enabled")
         with span("sventt.inverse"):
             x = self._check(x, donate)
-            return self._run(planner.run_inverse, x, self._inv_tables, x if donate else None)
+            return self._call(planner.run_inverse, x, self._inv_tables, x if donate else None)
+
+    def _call(self, run, x: torch.Tensor, tables, donated=None) -> torch.Tensor:
+        """An eager call: the launch program of its key, built on the key's
+        first call where every launch of the walk is the radix-2 register
+        kernel on contiguous card data, else ``_run``'s walk."""
+        key = (tables.inverse, x.shape, x.stride())
+        if key not in self._programs:
+            if x.is_cuda and x.is_contiguous() and planner.radix2_only(
+                self.plan, tables, x.dim() > 1
+            ):
+                out, self._programs[key] = planner.build_program(
+                    run, x, self.plan, tables, donated
+                )
+                return out
+            self._programs[key] = None
+        program = self._programs[key]
+        if program is None:
+            return self._run(run, x, tables, donated)
+        return program(x, donated)
 
     def _run(self, run, x: torch.Tensor, tables, donated=None) -> torch.Tensor:
         """``run`` (the planner's ``run_forward`` or ``run_inverse``) on

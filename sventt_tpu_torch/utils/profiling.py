@@ -11,14 +11,18 @@ standalone program at the plan's own shapes, by
 The spans, all static names:
 
 * ``sventt.forward`` / ``sventt.inverse``: a call into ``NTT``, its input
-  check and the planner's walk;
+  check and the planner's walk or the replay of its launch program;
+* ``sventt.program.build``: the walk that builds a call's launch program
+  (``planner.build_program``), once a direction, shape and strides;
 * ``sventt.row.L<k>`` (k the depth from the root, 0 the root) and
-  ``sventt.leaf``: a plan level's row step and the column leaf;
+  ``sventt.leaf``: a plan level's row step and the column leaf, in a walk
+  (a replay has neither);
 * ``sventt.launch.<kernel>``: a kernel's launch on the host, argument
   building, geometry and the C call, ``<kernel>`` the key its launch is
   counted under (``tensor_core``, ``radix2_registers``, ``registers``,
   ``inter_step``, ``plane``, ``pair``, ``ring``, ``fused``,
-  ``pointwise``);
+  ``pointwise``); a replayed radix-2 launch's: its output's allocation
+  and the C call;
 * ``sventt.convolve`` and ``sventt.convolve.pointwise``: a cyclic product
   and its pointwise step (on the card, one ``sventt.launch.pointwise`` a
   tensor or shard);
