@@ -71,7 +71,9 @@ Phases, each printing its own lines:
    ``mxu_ntt_lane`` and K11 through ``mxu_fused_ntt``, against the golden
    model, an exact roundtrip and s8, every launch on the tensor cores;
    the Solinas engine
-   (``modmul="solinas"``) on both engines at 2^17, 2^24 and 2^26, with
+   (``modmul="solinas"``) on both engines at 2^17, 2^24 and 2^26, and the
+   Goldilocks modulus at 2^24 on the default engine (the benchmark's
+   ``goldilocks-2p24`` configuration), with
    ``max_r=3`` at 2^24 (radix-2, as in JAX: K7/K8 launch 0 times) and a
    ``strategy="six_step"`` 2^24 plan whose row subtree runs the
    inter-step pass.  Each path runs with the launch counts
@@ -1072,12 +1074,13 @@ def solinas_kernel_cases(device, rng):
     gold = Modulus(GOLDILOCKS_MODULUS, 7)
     worst = {k: 0 for k in ("lead", "mid", "leaf", "pallas mid", "lane", "inter_step")}
     # (kernel, orientation, data shape, on the flagship only); each forward
-    # and inverse.  The 2^24 shapes run on the flagship modulus, the small
-    # ones, which reach every branch, on both.
+    # and inverse.  K1 / K2's 2^24 shapes run on the flagship modulus; K4 /
+    # K5 / K6's, the default engine's, and the small ones, which reach
+    # every branch, on both.
     shapes = [
         ("K1", "lead", (256, 1 << 16), True), ("K2", "mid", (256, 256, 256), True),
-        ("K4", "leaf", (256, 1 << 16), True), ("K5", "pallas mid", (256, 256, 256), True),
-        ("K6", "lane", (1 << 16, 256), True),
+        ("K4", "leaf", (256, 1 << 16), False), ("K5", "pallas mid", (256, 256, 256), False),
+        ("K6", "lane", (1 << 16, 256), False),
         ("K1", "lead", (64, 300), False), ("K2", "mid", (8, 64, 300), False),
         ("K1", "lead", (2, 5), False), ("K2", "mid", (3, 2, 5), False),
         ("K4", "leaf", (64, 300), False),
@@ -2011,12 +2014,14 @@ def program_phase(device, smi: str, oracles: dict) -> None:
     """The launch program of eager butterfly calls (``planner.build_program``,
     ``ntt_pallas.LaunchProgram``).  For the flagship at 2^17, 2^24 and 2^26
     (engine "auto"), the test modulus at 2^24 (Shoup), Solinas at 2^17 and
-    2^24, a batched (2^17, 4) input and a donated 2^24 one, in both
-    directions: the planner's walk (``NTT._run``, each call's path before
-    programs), the call that builds the key's program and a replay give
-    the same words, the unbatched ones the native oracle's (of
-    ``device_fill``), with the walk's launches per call; ``PROGRAMS``
-    counts one build and then replays.  Then the host time of a call until
+    2^24, Goldilocks under Solinas at 2^24, a batched (2^17, 4) input and a
+    donated 2^24 one, in both directions: the planner's walk (``NTT._run``,
+    each call's path before programs), the call that builds the key's
+    program and a replay give the same words, the unbatched ones the native
+    oracle's (of ``device_fill``), with the walk's launches per call, each
+    counted under the configuration's multiply alone (``MODMUL``; 3
+    Solinas launches a Goldilocks call); ``PROGRAMS`` counts one build and
+    then replays.  Then the host time of a call until
     it returns, untraced, by perf_counter after a synchronize: the walk
     against the replay in turns (P C C P) at 2^17 and 2^24, every replay
     counted as one; and the parts of a replayed launch: the ctypes call
@@ -2027,6 +2032,7 @@ def program_phase(device, smi: str, oracles: dict) -> None:
 
     from sventt_tpu_torch import _build
     from sventt_tpu_torch.field.limb import to_numpy
+    from sventt_tpu_torch.field.modulus import GOLDILOCKS_MODULUS
     from sventt_tpu_torch.ops import ntt_pallas as P
     from sventt_tpu_torch.plan import NTT, NttConfig, planner
     from sventt_tpu_torch.utils.fill import device_fill
@@ -2037,6 +2043,8 @@ def program_phase(device, smi: str, oracles: dict) -> None:
         ("TEST 2^24 shoup", test.modulus, test.generator, 1 << 24, {}, 1, False),
         ("solinas 2^17", F, G, 1 << 17, dict(modmul="solinas"), 1, False),
         ("solinas 2^24", F, G, 1 << 24, dict(modmul="solinas"), 1, False),
+        ("goldilocks 2^24 solinas", GOLDILOCKS_MODULUS, 7, 1 << 24, dict(modmul="solinas"), 1,
+         False),
         ("flagship 2^17 batch 4", F, G, 1 << 17, {}, 4, False),
         ("flagship 2^24 donated", F, G, 1 << 24, {}, 1, True),
     ]
@@ -2055,6 +2063,7 @@ def program_phase(device, smi: str, oracles: dict) -> None:
             walk = ntt._run(run, x, tables)
             sync(device)
             walked = dict(P.KERNEL_LAUNCHES)
+            multiplies = [dict(P.MODMUL)]
             outs, launched, programs = [], [], []
             for _ in range(2):
                 reset_counts()
@@ -2062,6 +2071,7 @@ def program_phase(device, smi: str, oracles: dict) -> None:
                 outs.append(call(arg))
                 sync(device)
                 launched.append(dict(P.KERNEL_LAUNCHES))
+                multiplies.append(dict(P.MODMUL))
                 programs.append(dict(P.PROGRAMS))
                 check(arg.untyped_storage().nbytes() == (0 if donate else 8 * arg.numel()),
                       f"{what}: the input was {'kept' if donate else 'released'}")
@@ -2073,10 +2083,16 @@ def program_phase(device, smi: str, oracles: dict) -> None:
                 bad = int(np.count_nonzero(to_numpy(ntt.normalize(outs[1])) != want))
             log(f"  {what}: walk == build == replay bitwise: {same}; the replay's elements "
                 f"differing from the oracle: {bad}; launches walk {walked}, build "
-                f"{launched[0]}, replay {launched[1]}; programs {programs}")
+                f"{launched[0]}, replay {launched[1]}; by multiply (walk, build, replay) "
+                f"{multiplies}; programs {programs}")
             check(same and bad in (None, 0), f"{what}: the program's output differs")
             check(launched == [walked, walked] and walked["registers"] == 0
                   and walked["radix2_registers"] in (2, 3), f"{what}: launches differ")
+            mm = {k: walked["radix2_registers"] * (k == ntt.fc.modmul) for k in P.MODMUL}
+            check(multiplies == [mm] * 3, f"{what}: launches by multiply {multiplies}, not {mm}")
+            if label.startswith("goldilocks"):
+                check(ntt.fc.modmul == "solinas" and mm["solinas"] == 3,
+                      f"{what}: not 3 Solinas launches a call")
             check(programs == [{"built": 1, "replayed": 0}, {"built": 0, "replayed": 1}],
                   f"{what}: not one build, then a replay")
             del walk, outs
@@ -2732,7 +2748,8 @@ def main() -> int:
         from sventt_tpu_torch import _build, native
         from sventt_tpu_torch.ops import ntt_mxu
         from sventt_tpu_torch.field.modulus import (
-            FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS,
+            FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, GOLDILOCKS_MODULUS, TEST_GENERATOR,
+            TEST_MODULUS,
         )
     except ImportError as e:
         print(f"chip_smoke: the sventt_tpu_torch package is missing ({e})", file=sys.stderr)
@@ -2881,12 +2898,15 @@ def main() -> int:
         device,
         [(f"mxu solinas 2^{k}", F, G, 1 << k, dict(engine="mxu", **sol)) for k in (17, 24, 26)]
         + [(f"pallas solinas 2^{k}", F, G, 1 << k, dict(engine="pallas", **sol))
-           for k in (17, 24, 26)],
+           for k in (17, 24, 26)]
+        + [("goldilocks 2^24 solinas", GOLDILOCKS_MODULUS, 7, 1 << 24, sol)],
         oracles,
     )
     log(f"  launches {c_sol['launches']}, plain calls {c_sol['plain']}")
     ls = c_sol["launches"]
     check(all(ntt.fc.modmul == "solinas" for ntt in ntts_sol.values()), "modmul != solinas")
+    check(ntts_sol["goldilocks 2^24 solinas"].engine == "pallas",
+          "goldilocks 2^24: the default engine is not the butterfly engine")
     check(ls["mxu"]["lead"] > 0 and ls["mxu"]["mid"] > 0
           and all(ls["pallas"][k] > 0 for k in ("leaf", "mid", "lane")),
           "a kernel of the Solinas paths never ran")

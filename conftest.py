@@ -117,6 +117,7 @@ FILE_SECONDS = {
     "tests/test_truetime.py": 2.4,
     "tests/test_modulus.py": 2.4,
     "tests/test_torch_mxu_fused.py": 2.1,
+    "tests/test_torch_goldilocks.py": 2.0,
     "tests/test_torch_budget.py": 1.8,
     "tests/test_torch_pointwise.py": 0.5,
     "tests/test_torch_native_series.py": 0.3,

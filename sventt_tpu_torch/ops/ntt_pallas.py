@@ -62,7 +62,8 @@ point by its (then unit) table entry.
 On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation;
-``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran.
+``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran, and
+``MODMUL`` the radix-2 launches by their stage multiply.
 
 A radix-2 launch is two steps: ``prepare_regs`` works out everything but
 the data -- geometry, table and twiddle pointers, dims, strides, modes --
@@ -128,6 +129,9 @@ KERNEL_LAUNCHES = {"radix2_registers": 0, "registers": 0}
 #: Launch programs of eager calls: "built" (a call's recorded walk),
 #: "replayed" (a call that ran one instead of the walk).
 PROGRAMS = {"built": 0, "replayed": 0}
+#: Radix-2 register-kernel launches (K4 / K5 / K6, walked or replayed) by
+#: their stage multiply: the keys of ``_MODMUL``.
+MODMUL = {"montgomery": 0, "shoup": 0, "solinas": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
 GROUPED_THREADS = 256
@@ -944,11 +948,13 @@ class RegsLaunch:
     dims, strides, stage range, geometry, modes, constants); ``shape``: the
     (A, m, B) shape of its input and output; ``orientation``: the
     ``LAUNCHES`` key it counts under (None: none, a direct launch);
+    ``modmul``: the ``MODMUL`` key it counts under, its stage multiply;
     ``tensors``: what ``args`` points into, held while the launch is."""
 
     args: tuple
     shape: tuple[int, ...]
     orientation: str | None
+    modmul: str
     tensors: tuple = field(repr=False, compare=False)
 
 
@@ -978,7 +984,7 @@ def prepare_regs(
         _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
     )
     tensors = (t.w, t.wp) + (() if tw3 is None else tuple(tw3))
-    return RegsLaunch(args, tuple(x3.shape), orientation, tensors)
+    return RegsLaunch(args, tuple(x3.shape), orientation, fc.modmul, tensors)
 
 
 def current_stream(device: torch.device) -> int:
@@ -998,6 +1004,7 @@ def call_regs(launch: RegsLaunch, src: int, out: int, stream: int) -> None:
     if rc != 0:
         raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["radix2_registers"] += 1
+    MODMUL[launch.modmul] += 1
     if launch.orientation is not None:
         LAUNCHES[launch.orientation] += 1
 
@@ -1200,8 +1207,8 @@ def fused_ntt_lane(
 
 
 def reset_counts() -> None:
-    """Set every launch, plain-call and program count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, PROGRAMS):
+    """Set every launch, plain-call, multiply and program count to zero."""
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, PROGRAMS, MODMUL):
         for k in d:
             d[k] = 0
 

@@ -22,6 +22,7 @@ from sventt_tpu_torch import _build
 from sventt_tpu_torch.field.modulus import (
     FLAGSHIP_GENERATOR,
     FLAGSHIP_MODULUS,
+    GOLDILOCKS_MODULUS,
     TEST_GENERATOR,
     TEST_MODULUS,
 )
@@ -126,6 +127,8 @@ CASES = [
     ("test-shoup-2^17", NttConfig(TEST_MODULUS, TEST_GENERATOR, 1 << 17, modmul="shoup"),
      (1 << 17,)),
     ("solinas-2^17", NttConfig(F, G, 1 << 17, modmul="solinas"), (1 << 17,)),
+    ("goldilocks-solinas-2^12", NttConfig(GOLDILOCKS_MODULUS, 7, 1 << 12, engine="pallas",
+                                          modmul="solinas", max_fused=16), (1 << 12,)),
 ]
 
 
@@ -139,17 +142,20 @@ def make(cfg: NttConfig | None, inverse: bool) -> NTT:
 @pytest.mark.parametrize("cfg,shape", [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
     """The walk, the call that builds the program and two replays make
-    the same launches, arguments and counts; a replay's result is its last
-    launch's output in the walk's shape."""
+    the same launches, arguments and counts, every launch counted under
+    the configuration's stage multiply (``MODMUL``); a replay's result is
+    its last launch's output in the walk's shape."""
     ntt = make(cfg, inverse)
     step, tables = ntt.inverse_step() if inverse else ntt.forward_step()
     call = ntt.compute_inverse if inverse else ntt.compute_forward
     x = torch.empty(shape, dtype=torch.int64)
     want_out = step(x, *tables)
     want = roles(card.take(), x.data_ptr())
-    walk_counts = dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES)
+    walk_counts = (dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES),
+                   dict(ntt_pallas.MODMUL))
     assert want and {name for name, *_ in want} == {"sventt_radix2_ntt"}
     assert sum(walk_counts[0].values()) == walk_counts[1]["radix2_registers"] == len(want)
+    assert walk_counts[2] == {k: len(want) * (k == ntt.fc.modmul) for k in ntt_pallas.MODMUL}
     assert ntt_pallas.PROGRAMS == {"built": 0, "replayed": 0}
     for i in range(3):
         ntt_pallas.reset_counts()
@@ -157,10 +163,13 @@ def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
         out = call(y)
         calls = card.take()
         assert roles(calls, y.data_ptr()) == want, i
-        assert (dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES)) == walk_counts
+        assert (dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES),
+                dict(ntt_pallas.MODMUL)) == walk_counts
         assert ntt_pallas.PROGRAMS == {"built": int(i == 0), "replayed": int(i > 0)}
         assert out.shape == want_out.shape and out.is_contiguous()
         assert out.data_ptr() == calls[-1][1][1]
+    program = ntt._programs[(inverse, tuple(shape), y.stride())]
+    assert {launch.modmul for launch in program.launches} == {ntt.fc.modmul}
 
 
 def test_one_program_a_direction_shape_and_strides(card):
