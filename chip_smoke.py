@@ -45,12 +45,18 @@ Phases, each printing its own lines:
    JAX's corner values of the fold (0, 1, N - 1, N, 2^63, 2^64 - 1)
    against the twiddle N - 1 and random ones; the multi-modular (RNS)
    path at the benchmark's ``rns32-2p17`` size (``rns_cases``: 32 limbs
-   of 64-bit primes at 2^17, forward, inverse and product against the
-   plain composition of the stacked tables and against each limb's
-   single-modulus NTT, one launch a level carrying 32 limbs (``LIMBS``),
-   a batched mid shape and two lazy limbs against the plain versions, and
-   the limb-axis launches' graph replays beside one limb's and 32 limbs'
-   single-modulus launches);
+   of 64-bit primes at 2^17 through "auto", the plan (32 x 64) x 64 --
+   K1 lead at m = 32, K2 mid and K3 lane at 64 --, forward, inverse and
+   product against the plain composition of the stacked tables, against
+   the 256 x 512 plan (``engine="mxu"``) and against each limb's
+   single-modulus NTT, one launch a level carrying 32 limbs (``LIMBS``:
+   3 launches and 96 limbs a forward),
+   a batched mid shape and two lazy limbs against the plain versions, the
+   launch program of an eager 32-limb call (``rns_program``: walk, build
+   and replay bitwise equal with the same launches, kept and donated, both
+   directions; the host ms of a forward and a product walked against
+   replayed), and the limb-axis launches' graph replays beside one limb's
+   and 32 limbs' single-modulus launches);
 4. paths: the matrix engine (``engine="mxu"``), the butterfly engine
    (``engine="pallas"``) and the grouped butterfly engine
    (``engine="pallas", max_r=3``) at n = 2^17, 2^24 and 2^26 on the
@@ -60,7 +66,7 @@ Phases, each printing its own lines:
    length), with an exact roundtrip; the default route (``engine="auto"``):
    a single-modulus forward at 2^17 and 2^24 on the butterfly engine, 2 and
    3 launches of the radix-2 register kernel and none of the matrix
-   kernel, and a two-limb RNS forward at 2^17 on the tensor cores, 2
+   kernel, and a two-limb RNS forward at 2^17 on the tensor cores, 3
    launches, each against the native oracle; the mxu paths must run every root on
    K3 (``mxu_ntt_lane``) and no transpose (the planner's ``transpose01``
    is counted); then K3 with the fused twiddle on the 2^24 root shape
@@ -898,11 +904,14 @@ def pointwise_cases(device, rng):
 def rns_cases(device, rng):
     """Multi-modular (RNS) transforms, one launch a level for every limb:
     the 32 limbs of the benchmark's ``rns32-2p17`` configuration at 2^17
-    (K1 leaf and the K3 lane root with the limb axis, and the pointwise
-    kernel's), forward, inverse and ``cyclic_convolve`` against the plain
-    composition of the same stacked tables on the card and against each
-    limb's single-modulus ``NTT``, 0 words differing; the counts (one launch
-    a level, ``LIMBS`` 32 a launch); the limb kernels against their plain
+    through ``engine="auto"`` -- the plan (32 x 64) x 64: the K1 leaf at m
+    = 32, the K2 mid and the K3 lane root at m = 64 with the limb axis, and
+    the pointwise kernel's -- forward, inverse and ``cyclic_convolve``
+    against the plain composition of the same stacked tables on the card
+    (each level's plain version, the staged inverse's included), against
+    the RNS ``engine="mxu"`` plan (256 x 512) and against each limb's
+    single-modulus ``NTT``, 0 words differing; the counts (3 launches a
+    forward, ``LIMBS`` 32 a launch); the limb kernels against their plain
     versions at a batched mid shape and with two lazy limbs; then the
     graph-replay times of the limb-axis launches beside one limb's
     single-modulus launch and beside 32 of them, in this call."""
@@ -911,20 +920,26 @@ def rns_cases(device, rng):
     import torch
 
     from sventt_tpu_torch.apps.convolve import cyclic_convolve
-    from sventt_tpu_torch.field.modulus import Modulus
     from sventt_tpu_torch.ops import ntt_mxu, pointwise
-    from sventt_tpu_torch.plan import NTT, NttConfig
+    from sventt_tpu_torch.plan import NTT, NttConfig, planner
+    from sventt_tpu_torch.plan.wrapper import RNS_MAX_FUSED
 
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "bench_port", "configs", "rns32-2p17.json")) as f:
         cell = json.load(f)
     qs, gs, n = tuple(cell["moduli"]), tuple(cell["generators"]), cell["n"]
-    L, m0, m1 = len(qs), 256, 512
+    L = len(qs)
     t0 = time.perf_counter()
     ntt = NTT(NttConfig(qs, gs, n), device=device)
     sync(device)
     log(f"  {L} limbs at 2^17: NTT(...) in {time.perf_counter() - t0:.3f} s; {ntt.describe()!r}")
-    singles = [NTT(NttConfig(q, g, n, engine="mxu"), device=device) for q, g in zip(qs, gs)]
+    leaf = planner.Leaf
+    check(ntt.plan == planner.Split(n, 2048, 64, planner.Split(
+        2048, 32, 64, leaf(32, "mxu"), leaf(64, "mxu")), leaf(64, "mxu")),
+        "rns auto 2^17: not the plan (32 x 64) x 64")
+    own = NTT(NttConfig(qs, gs, n, engine="mxu"), device=device)
+    singles = [NTT(NttConfig(q, g, n, engine="mxu", max_fused=RNS_MAX_FUSED), device=device)
+               for q, g in zip(qs, gs)]
     x = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
     y = torch.stack([rand_u64(rng, (n,), device, below=q) for q in qs])
     x[:, n // 2:] = 0
@@ -932,21 +947,28 @@ def rns_cases(device, rng):
     fwd, inv = ntt._fwd_tables, ntt._inv_tables
     fc = ntt.fc
 
-    def plain_forward(v):
-        mat = ntt_mxu.mxu_plain(v.reshape(L, m0, m1), fwd.leaf[(m0, "mxu")], fc)
-        return ntt_mxu.mxu_plain(mat, fwd.leaf[(m1, "mxu")], fc, fwd.split_tw[(m0, m1)],
-                                 lane=True).reshape(L, n)
+    def plain(v, node, t):
+        """The planner's walk of ``node`` on (L, m, batch...) data with each
+        level's plain version: lead leaves, rows mid when batched, the lane
+        root; the inverse undoes the row step first."""
+        if isinstance(node, planner.Leaf):
+            return ntt_mxu.mxu_plain(v, t.leaf[(node.m, "mxu")], fc)
+        batch = tuple(v.shape[2:])
+        mat = v.reshape((L, node.m0, node.m1) + batch)
 
-    def plain_inverse(v):
-        mat = ntt_mxu.mxu_plain(v.reshape(L, m0, m1), inv.leaf[(m1, "mxu")], fc,
-                                inv.split_tw[(m0, m1)], lane=True)
-        return ntt_mxu.mxu_plain(mat, inv.leaf[(m0, "mxu")], fc).reshape(L, n)
+        def row(u):
+            return ntt_mxu.mxu_plain(u, t.leaf[(node.m1, "mxu")], fc,
+                                     t.split_tw[(node.m0, node.m1)], mid=bool(batch),
+                                     lane=not batch)
+
+        mat = plain(row(mat), node.col, t) if t.inverse else row(plain(mat, node.col, t))
+        return mat.reshape((L, node.m) + batch)
 
     def plain_product(a, b):
-        fa, fb = plain_forward(a), plain_forward(b)
-        return plain_inverse(torch.stack([
+        fa, fb = plain(a, ntt.plan, fwd), plain(b, ntt.plan, fwd)
+        return plain(torch.stack([
             pointwise.mont_product_plain(f, u, w, pow(2, 128, f.modulus))
-            for f, u, w in zip(fc.limbs, fa, fb)]))
+            for f, u, w in zip(fc.limbs, fa, fb)]), ntt.plan, inv)
 
     reset_counts()
     got_f = ntt.compute_forward(x)
@@ -958,26 +980,30 @@ def rns_cases(device, rng):
     c_p = (dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS), dict(pointwise.LAUNCHES),
            dict(pointwise.LIMBS))
     got_i = ntt.compute_inverse(got_f)
-    for name, got, plain, single in (
-        ("forward", got_f, plain_forward(x), lambda i: singles[i].compute_forward(x[i])),
-        ("inverse", ntt.compute_inverse(y), plain_inverse(y),
+    for name, got, want, whole, single in (
+        ("forward", got_f, plain(x, ntt.plan, fwd), own.compute_forward(x),
+         lambda i: singles[i].compute_forward(x[i])),
+        ("inverse", ntt.compute_inverse(y), plain(y, ntt.plan, inv), own.compute_inverse(y),
          lambda i: singles[i].compute_inverse(y[i])),
-        ("product", got_p, plain_product(x, y), lambda i: cyclic_convolve(singles[i], x[i], y[i])),
+        ("product", got_p, plain_product(x, y), cyclic_convolve(own, x, y),
+         lambda i: cyclic_convolve(singles[i], x[i], y[i])),
     ):
         per_limb = torch.stack([single(i) for i in range(L)])
         sync(device)
-        d_plain, d_single = int((got != plain).sum()), int((got != per_limb).sum())
+        d_plain, d_own = int((got != want).sum()), int((got != whole).sum())
+        d_single = int((got != per_limb).sum())
         log(f"  {L}-limb 2^17 {name}: {d_plain} words differ from the plain composition, "
-            f"{d_single} from each limb's single-modulus NTT")
-        check(d_plain == 0 and d_single == 0, f"rns {name}: != the plain path / the single limbs")
+            f"{d_own} from the 256 x 512 plan's, {d_single} from each limb's single-modulus NTT")
+        check(d_plain == 0 and d_own == 0 and d_single == 0,
+              f"rns {name}: != the plain path / the 256 x 512 plan / the single limbs")
     check(torch.equal(got_i, x), "rns roundtrip not exact")
     log(f"  forward: launches {c_f[0]}, limbs {c_f[1]}, per orientation {c_f[2]}")
     log(f"  product: mxu launches {c_p[0]}, limbs {c_p[1]}; pointwise launches {c_p[2]}, "
         f"limbs {c_p[3]}")
-    check(c_f[0]["tensor_core"] == 2 and c_f[1]["tensor_core"] == 2 * L
-          and c_f[2] == {"lead": 1, "mid": 0, "lane": 1},
+    check(c_f[0]["tensor_core"] == 3 and c_f[1]["tensor_core"] == 3 * L
+          and c_f[2] == {"lead": 1, "mid": 1, "lane": 1},
           "rns forward: not one launch a level carrying every limb")
-    check(c_p[0]["tensor_core"] == 6 and c_p[1]["tensor_core"] == 6 * L
+    check(c_p[0]["tensor_core"] == 9 and c_p[1]["tensor_core"] == 9 * L
           and c_p[2] == {"pointwise": 1} and c_p[3] == {"pointwise": L},
           "rns product: not one launch a level and one pointwise launch for every limb")
     # the limb kernels vs their plain versions: a batched mid shape (K2 with
@@ -996,26 +1022,31 @@ def rns_cases(device, rng):
         d += int((iv.cpu() != cpu.compute_inverse(v.cpu())).sum())
         log(f"  {label}: {d} words differ from the plain versions ({card.describe(bool(batch))!r})")
         check(d == 0, f"rns {label}: kernel != plain")
+    rns_program(device, NttConfig(qs, gs, n), x, y)
     # graph replays: the limb axis beside one limb's launch and 32 of them
-    k1, k3f, k3i = fwd.leaf[(m0, "mxu")], fwd.leaf[(m1, "mxu")], inv.leaf[(m1, "mxu")]
-    s1 = [s._fwd_tables.leaf[(m0, "mxu")] for s in singles]
-    s3f = [s._fwd_tables.leaf[(m1, "mxu")] for s in singles]
-    s3i = [s._inv_tables.leaf[(m1, "mxu")] for s in singles]
-    twf, twi = fwd.split_tw[(m0, m1)], inv.split_tw[(m0, m1)]
-    stwf = [s._fwd_tables.split_tw[(m0, m1)] for s in singles]
-    stwi = [s._inv_tables.split_tw[(m0, m1)] for s in singles]
-    xs = x.reshape(L, m0, m1)
+    def level(name, view, m, key, orientation):
+        """(the limbs' launch, one limb's) of the level ``key`` (a leaf's
+        m0, or a split's (m0, m1)) on the (L, ...) view ``view`` of x."""
+        run = getattr(ntt_mxu, {"lead": "mxu_ntt", "mid": "mxu_ntt_mid",
+                                "lane": "mxu_ntt_lane"}[orientation])
+        t = inv if "inv" in name else fwd
+        tw = t.split_tw[key] if orientation != "lead" else None
+        st = [(s._inv_tables if t is inv else s._fwd_tables) for s in singles]
+        v = x.reshape(view)
+        return name, (
+            lambda: run(v, t.leaf[(m, "mxu")], fc, tw),
+            lambda i: run(v[i], st[i].leaf[(m, "mxu")], singles[i].fc,
+                          st[i].split_tw[key] if tw is not None else None))
+
     fa, fb = ntt.compute_forward(x), ntt.compute_forward(y)
-    cases = {
-        "K1 leaf (256, 512)": (
-            lambda: ntt_mxu.mxu_ntt(xs, k1, fc),
-            lambda i: ntt_mxu.mxu_ntt(xs[i], s1[i], singles[i].fc)),
-        "K3 lane root fwd (256 x 512)": (
-            lambda: ntt_mxu.mxu_ntt_lane(xs, k3f, fc, twf),
-            lambda i: ntt_mxu.mxu_ntt_lane(xs[i], s3f[i], singles[i].fc, stwf[i])),
-        "K3 lane root inv (256 x 512)": (
-            lambda: ntt_mxu.mxu_ntt_lane(xs, k3i, fc, twi),
-            lambda i: ntt_mxu.mxu_ntt_lane(xs[i], s3i[i], singles[i].fc, stwi[i])),
+    cases = dict([
+        level("K1 leaf (32, 4096)", (L, 32, 4096), 32, 32, "lead"),
+        level("K2 mid fwd (32, 64, 64)", (L, 32, 64, 64), 64, (32, 64), "mid"),
+        level("K2 mid inv (32, 64, 64)", (L, 32, 64, 64), 64, (32, 64), "mid"),
+        level("K3 lane root fwd (2048 x 64)", (L, 2048, 64), 64, (2048, 64), "lane"),
+        level("K3 lane root inv (2048 x 64)", (L, 2048, 64), 64, (2048, 64), "lane"),
+    ])
+    cases.update({
         "pointwise 2^17": (
             lambda: pointwise.mont_product(fc, fa, fb, None),
             lambda i: pointwise.mont_product(singles[i].fc, fa[i], fb[i],
@@ -1023,7 +1054,7 @@ def rns_cases(device, rng):
         "product 2^17": (
             lambda: cyclic_convolve(ntt, x, y),
             lambda i: cyclic_convolve(singles[i], x[i], y[i])),
-    }
+    })
     times = {}
     for name, (limbs, one) in cases.items():
         t_l = timed_graph(limbs, 3, 20)
@@ -1032,8 +1063,98 @@ def rns_cases(device, rng):
         times[name] = (t_l, t_1, t_32)
         log(f"  [rns A/B] {name}: {L} limbs in one launch {t_l:.4f} ms; one limb's "
             f"single-modulus launch {t_1:.4f} ms; {L} of those {t_32:.4f} ms (graph replays)")
-    del ntt, singles, x, y, fa, fb, got_f, got_p, got_i
+    del ntt, own, singles, x, y, fa, fb, got_f, got_p, got_i
     return times
+
+
+def rns_program(device, cfg, x, y) -> None:
+    """The launch program of an eager multi-modular call (the tensor-core
+    limb launches of ``planner.build_program`` / ``LaunchProgram``) for the
+    RNS configuration ``cfg`` on its (L, n) inputs ``x``, ``y``: kept and
+    donated, in both directions, the planner's walk (``NTT._run``), the
+    call that builds the key's program and a replay give the same words
+    with the walk's launches, limbs and orientations, and ``PROGRAMS``
+    counts one build, then a replay.  Then the host time of a call until it
+    returns, untraced, by perf_counter after a synchronize: a forward and a
+    ``cyclic_convolve`` product walked (an NTT whose keys hold no program)
+    against replayed, in turns (walk, replay, replay, walk)."""
+    import torch
+
+    from sventt_tpu_torch.apps.convolve import cyclic_convolve
+    from sventt_tpu_torch.ops import ntt_mxu
+    from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.plan import NTT, planner
+
+    L = len(cfg.modulus)
+    for donate in (False, True):
+        ntt = NTT(cfg, donate_input=donate, device=device)
+        for inverse in (False, True):
+            what = f"{L} limbs 2^17 {'donated ' if donate else ''}" + (
+                "inverse" if inverse else "forward")
+            run = planner.run_inverse if inverse else planner.run_forward
+            tables = ntt._inv_tables if inverse else ntt._fwd_tables
+            call = ntt.compute_inverse if inverse else ntt.compute_forward
+            reset_counts()
+            walk = ntt._run(run, x, tables)
+            sync(device)
+            walked = (dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS), dict(ntt_mxu.LAUNCHES))
+            outs, launched, programs = [], [], []
+            for _ in range(2):
+                reset_counts()
+                arg = x.clone()
+                outs.append(call(arg))
+                sync(device)
+                launched.append((dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS),
+                                 dict(ntt_mxu.LAUNCHES)))
+                programs.append(dict(P.PROGRAMS))
+                check(arg.untyped_storage().nbytes() == (0 if donate else 8 * arg.numel()),
+                      f"rns program {what}: the input was {'kept' if donate else 'released'}")
+                del arg
+            same = all(torch.equal(walk, o) for o in outs)
+            log(f"  [rns program] {what}: walk == build == replay bitwise: {same}; launches "
+                f"walk {walked}, build {launched[0]}, replay {launched[1]}; programs {programs}")
+            check(same, f"rns program {what}: the program's output differs")
+            check(launched == [walked, walked] and walked[0] == {"tensor_core": 3}
+                  and walked[1] == {"tensor_core": 3 * L}
+                  and walked[2] == {"lead": 1, "mid": 1, "lane": 1},
+                  f"rns program {what}: launches differ")
+            check(programs == [{"built": 1, "replayed": 0}, {"built": 0, "replayed": 1}],
+                  f"rns program {what}: not one build, then a replay")
+            del walk, outs
+        del ntt
+    walker, ntt = NTT(cfg, device=device), NTT(cfg, device=device)
+    walker._programs = {(inverse, x.shape, x.stride()): None for inverse in (False, True)}
+    ntt.compute_inverse(ntt.compute_forward(x))  # build both programs
+    for label, reps, fns in (
+        ("forward", 1000, (walker.compute_forward, ntt.compute_forward)),
+        ("product", 400, (lambda v: cyclic_convolve(walker, v, y),
+                          lambda v: cyclic_convolve(ntt, v, y))),
+    ):
+        for fn in fns:
+            for _ in range(20):
+                fn(x)
+        reset_counts()
+        turns = {"walk": [], "program": []}
+        for name, fn in (("walk", fns[0]), ("program", fns[1]), ("program", fns[1]),
+                         ("walk", fns[0])):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x)
+                times.append(time.perf_counter() - t0)
+                del out
+            torch.cuda.synchronize()
+            turns[name].append((statistics.mean(times) * 1e3, statistics.median(times) * 1e3))
+        replays = reps * 2 * (1 if label == "forward" else 3)
+        check(P.PROGRAMS == {"built": 0, "replayed": replays},
+              f"rns {label}: not every replay counted: {P.PROGRAMS}")
+        log(f"  [rns program] {L} limbs 2^17 {label}, host ms a call until it returns "
+            f"({reps} calls a turn; turns walk, program, program, walk): "
+            + "; ".join(f"{k} " + " / ".join(f"mean {a:.4f} median {b:.4f}" for a, b in v)
+                        for k, v in turns.items()))
+    del walker, ntt
+    torch.cuda.empty_cache()
 
 
 def corner_data(shape, mod, rng):
@@ -1309,8 +1430,9 @@ def auto_route(device, oracles: dict) -> None:
     runs the butterfly engine, one launch of the radix-2 register kernel a
     plan level (2 and 3) and none of the matrix kernel; a two-limb RNS
     forward at 2^17 (the first two primes of ``rns32-2p17``) runs the
-    matrix engine, one tensor-core launch a level for both limbs.  Each
-    forward against the native oracle (a limb's against its own)."""
+    matrix engine's plan (32 x 64) x 64, one tensor-core launch a level for
+    both limbs: 3 launches, 6 limbs.  Each forward against the native
+    oracle (a limb's against its own)."""
     import os
 
     import numpy as np
@@ -1358,9 +1480,9 @@ def auto_route(device, oracles: dict) -> None:
         f"limb's oracle; matrix kernels {c['mxu_kernels']}, limbs {dict(ntt_mxu.LIMBS)}, "
         f"radix-2 kernels {c['pallas_kernels']}")
     check(ntt.engine == "mxu" and bad == 0, "auto RNS: not the matrix engine, or a mismatch")
-    check(c["mxu_kernels"]["tensor_core"] == 2 and mxu_on_tensor_cores(c)
-          and c["pallas_kernels"]["radix2_registers"] == 0 and no_plain(c),
-          "auto RNS: not 2 tensor-core launches")
+    check(c["mxu_kernels"]["tensor_core"] == 3 and ntt_mxu.LIMBS["tensor_core"] == 6
+          and mxu_on_tensor_cores(c) and c["pallas_kernels"]["radix2_registers"] == 0
+          and no_plain(c), "auto RNS: not 3 tensor-core launches carrying 2 limbs each")
 
 
 def lane_path(device, rng):

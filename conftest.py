@@ -101,7 +101,7 @@ FILE_SECONDS = {
     "tests/test_budget.py": 46.5,
     "tests/test_torch_ntt_grouped_regs.py": 43.0,
     "tests/test_torch_strategy.py": 42.2,
-    "tests/test_torch_rns.py": 32.9,
+    "tests/test_torch_rns.py": 53.6,
     "tests/test_torch_autotune.py": 27.7,
     "tests/test_limb.py": 20.2,
     "tests/test_torch_ntt_mxu_tc_u7.py": 18.5,

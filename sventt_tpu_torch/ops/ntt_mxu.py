@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -93,6 +93,7 @@ from ..field.limb import reduce_consts as _reduce_consts
 from ..field.modulus import MASK32, Modulus
 from ..utils.device import resolve_device, sm_count
 from ..utils.profiling import span
+from . import ntt_pallas
 from .twiddle import MontPair, check_companion, inter_step_mul, montpair_map
 
 #: Seven-bit planes per u64 for the "u7" scheme (10 * 7 = 70 >= 64 bits).
@@ -488,7 +489,8 @@ def _kernel_args(x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair
     dense (A, m, B) view (any strides; the output takes the same layout),
     after ``_check_cuda``."""
     _check_cuda(t, x, tw)
-    out, head = _head_args(x, t, fc, tw, t.tc_planes, t.corr)
+    out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
+    head = (x.data_ptr(), out.data_ptr()) + _head_args(x, t, fc, tw, t.tc_planes, t.corr)
     nsub, barrett = _reduce_consts(t.modulus)
     N = t.modulus
     tail = (N, t.nprime, t.c128, (1 << 64) // N, fc.montgomery_inverse, nsub, int(barrett))
@@ -496,11 +498,12 @@ def _kernel_args(x: torch.Tensor, t: MxuDirection, fc: FieldConsts, tw: MontPair
 
 
 def _head_args(x: torch.Tensor, t, fc, tw: MontPair | None, planes: torch.Tensor, corr):
-    """(output, the C entries' arguments up to the lazy flag) for a dense
-    (A, m, B) view: the pointers, the shape, the data's and the twiddle's
-    strides, the twiddle mode, the direction and the lazy flag."""
+    """The C entries' arguments after the data's and the output's pointers,
+    up to the lazy flag, for a dense (A, m, B) view whose output takes its
+    layout: the tables' and twiddles' pointers, the shape, the data's and
+    the twiddle's strides, the twiddle mode, the direction and the lazy
+    flag."""
     A, m, B = x.shape
-    out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
     # twiddle mode: 0 none, 1 "pair", 2 "w", 3 Solinas (plain w; the C
     # entries refuse a companion with it, as _run does)
     if tw is None:
@@ -520,12 +523,10 @@ def _head_args(x: torch.Tensor, t, fc, tw: MontPair | None, planes: torch.Tensor
             if wp.stride() != ts:
                 raise ValueError("twiddle and companion layouts differ")
             wp_ptr = wp.data_ptr()
-    head = (
-        x.data_ptr(), out.data_ptr(), planes.data_ptr(),
-        None if corr is None else corr.data_ptr(),
+    return (
+        planes.data_ptr(), None if corr is None else corr.data_ptr(),
         w_ptr, wp_ptr, A, m, B, *x.stride(), *ts, mode, int(t.inverse), int(fc.lazy),
     )
-    return out, head
 
 
 @dataclass(frozen=True)
@@ -837,33 +838,79 @@ def _check_limbs(t: "MxuLimbs", fc: LimbConsts, x: torch.Tensor, tw: MontPair | 
         raise TypeError("twiddles must be int64")
 
 
+@dataclass(frozen=True)
+class TcLimbLaunch:
+    """One launch of the tensor-core kernel's limb instantiations, all but
+    its data worked out (``prepare_tc_limbs``), for an ``ntt_pallas``
+    ``LaunchProgram`` to replay.  ``args``: the C entry's arguments from
+    the planes' pointer to the shared memory (tables, twiddles, dims,
+    strides, modes, the limbs' constants, form and geometry); ``shape``:
+    the dense block its input and output fill, flat; ``orientation``: the
+    ``LAUNCHES`` key it counts under; ``limbs``: the limbs it carries;
+    ``tensors``: what ``args`` points into, held while the launch is."""
+
+    args: tuple
+    shape: tuple[int, ...]
+    orientation: str
+    limbs: int
+    tensors: tuple = field(repr=False, compare=False)
+
+    #: The span a launch runs in.
+    span = LAUNCH_SPANS["tensor_core"]
+
+    def call(self, src: int, out: int, stream: int) -> None:
+        """The C call on input ``src`` and output ``out`` on ``stream``;
+        counted."""
+        from .. import _build
+
+        rc = _build.load().sventt_mxu_ntt_tc_limbs(src, out, *self.args, stream)
+        if rc != 0:
+            raise RuntimeError(f"mxu tensor-core limb kernel launch failed: CUDA error {rc}")
+        KERNEL_LAUNCHES["tensor_core"] += 1
+        LIMBS["tensor_core"] += self.limbs
+        LAUNCHES[self.orientation] += 1
+
+
+def prepare_tc_limbs(
+    x: torch.Tensor, t: "MxuLimbs", fc: LimbConsts, tw: MontPair | None, form: str, apl: int,
+    orientation: str,
+) -> TcLimbLaunch:
+    """The launch of ``_launch_tc_limbs`` on the dense (L * apl, m, B) view
+    ``x`` (16-byte aligned in a lane form), checked and prepared; it reads
+    nothing of ``x`` but its device, shape and strides."""
+    if t.tc_planes is None:
+        raise ValueError("the tensor-core kernel takes tables built on a CUDA device")
+    _check_limbs(t, fc, x, tw)
+    A, m, B = x.shape
+    geo = tc_geometry(m, B, A, sm_count(x.device.index), form, limbs=True)
+    consts = fc.table(x.device)
+    args = _head_args(x, t, fc, tw, t.tc_planes, t.corr) + (
+        consts.data_ptr(), apl, t.tc_planes.shape[1], TC_FORMS.index(form), geo.nt,
+        geo.split, geo.smem,
+    )
+    tensors = (t.tc_planes, t.corr, consts) + (() if tw is None else tuple(tw))
+    return TcLimbLaunch(args, (x.numel(),), orientation, len(t.moduli), tensors)
+
+
 def _launch_tc_limbs(
     x: torch.Tensor, t: "MxuLimbs", fc: LimbConsts, tw: MontPair | None, form: str, apl: int,
+    orientation: str,
 ) -> torch.Tensor:
     """Launch the tensor-core kernel's limb instantiations
     (csrc/ntt_mxu_tc_limbs.cu) once on the (L * apl, m, B) view of every
     limb's data: slice a reads limb a // apl's planes, corr and constants
-    (``LimbConsts.table``); raise on any error."""
-    from .. import _build
-
-    if t.tc_planes is None:
-        raise ValueError("the tensor-core kernel takes tables built on a CUDA device")
-    _check_limbs(t, fc, x, tw)
+    (``LimbConsts.table``); counted under ``orientation``, recorded for a
+    ``LaunchProgram``; raise on any error."""
     if form != "strided":
         # each limb's rows stay contiguous; the lane forms read 16 bytes at a time
         x = _aligned16(x.transpose(1, 2)).transpose(1, 2)
         if tw is not None:
             tw = montpair_map(lambda v: _aligned16(v.transpose(1, 2)).transpose(1, 2), tw)
-    out, head = _head_args(x, t, fc, tw, t.tc_planes, t.corr)
-    A, m, B = x.shape
-    geo = tc_geometry(m, B, A, sm_count(x.device.index), form, limbs=True)
-    rc = _build.load().sventt_mxu_ntt_tc_limbs(
-        *head, fc.table(x.device).data_ptr(), apl, t.tc_planes.shape[1],
-        TC_FORMS.index(form), geo.nt, geo.split, geo.smem,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"mxu tensor-core limb kernel launch failed: CUDA error {rc}")
+    launch = prepare_tc_limbs(x, t, fc, tw, form, apl, orientation)
+    out = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype, device=x.device)
+    launch.call(x.data_ptr(), out.data_ptr(), ntt_pallas.current_stream(x.device))
+    dense = (x.transpose(1, 2) if form != "strided" else x).is_contiguous()
+    ntt_pallas.record_launch(launch, x.data_ptr(), out.data_ptr(), dense)
     return out
 
 
@@ -891,10 +938,7 @@ def _run_limbs(x, t: "MxuLimbs", fc: LimbConsts, tw, orientation: str):
         if form == "lane_staged" and fc.lazy:
             form = "lane"  # the staged epilogue's lazy limb instantiation is not built
         with span(LAUNCH_SPANS[kernel]):
-            out = _launch_tc_limbs(x3, t, fc, tw3, form, apl)
-        KERNEL_LAUNCHES[kernel] += 1
-        LIMBS[kernel] += L
-        LAUNCHES[orientation] += 1
+            out = _launch_tc_limbs(x3, t, fc, tw3, form, apl, orientation)
         return back(out)
     if x.device.type != "cpu":
         raise ValueError(f"mxu engine runs on cpu or cuda tensors, got {x.device}")

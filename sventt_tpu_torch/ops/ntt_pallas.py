@@ -72,6 +72,8 @@ input and output pointers and the stream.  ``_launch_regs`` runs both;
 a ``LaunchProgram`` (a planner walk's launches, recorded by
 ``recording``) keeps the prepared launches and reruns only the second
 step, on new pointers (``PROGRAMS`` counts programs built and replayed).
+The tensor-core kernel's limb launches (``ntt_mxu.TcLimbLaunch``) are
+prepared, recorded and replayed the same way.
 """
 
 from __future__ import annotations
@@ -957,6 +959,12 @@ class RegsLaunch:
     modmul: str
     tensors: tuple = field(repr=False, compare=False)
 
+    #: The span a launch runs in.
+    span = "sventt.launch.radix2_registers"
+
+    def call(self, src: int, out: int, stream: int) -> None:
+        call_regs(self, src, out, stream)
+
 
 def prepare_regs(
     x3: torch.Tensor, t: FusedDirection | LaneDirection, fc: FieldConsts,
@@ -1009,22 +1017,31 @@ def call_regs(launch: RegsLaunch, src: int, out: int, stream: int) -> None:
         LAUNCHES[launch.orientation] += 1
 
 
-#: The list ``recording`` appends this context's radix-2 launches to.
-_RECORD: contextvars.ContextVar[list | None] = contextvars.ContextVar("radix2_record",
+#: The list ``recording`` appends this context's launches to.
+_RECORD: contextvars.ContextVar[list | None] = contextvars.ContextVar("launch_record",
                                                                       default=None)
 
 
 @contextlib.contextmanager
 def recording():
-    """Record the radix-2 launches the block makes in this context, in
-    order, as (launch, input pointer, output pointer, whether the input
-    was contiguous)."""
+    """Record the launches the block makes in this context -- the radix-2
+    register kernel's and the tensor-core kernel's limb launches -- in
+    order, as (launch, input pointer, output pointer, whether input and
+    output each fill a dense block of ``launch.shape``'s size)."""
     record: list = []
     token = _RECORD.set(record)
     try:
         yield record
     finally:
         _RECORD.reset(token)
+
+
+def record_launch(launch, src: int, out: int, dense: bool) -> None:
+    """Append a launch to the record of the ``recording`` around it, if
+    any (see ``recording``)."""
+    record = _RECORD.get()
+    if record is not None:
+        record.append((launch, src, out, dense))
 
 
 def _launch_regs(
@@ -1041,21 +1058,20 @@ def _launch_regs(
         launch = prepare_regs(x3, t, fc, tw3, first, last, lane, orientation)
         out = torch.empty_like(x3)
         call_regs(launch, x3.data_ptr(), out.data_ptr(), current_stream(x3.device))
-    record = _RECORD.get()
-    if record is not None:
-        record.append((launch, x3.data_ptr(), out.data_ptr(), x3.is_contiguous()))
+    record_launch(launch, x3.data_ptr(), out.data_ptr(), x3.is_contiguous())
     return out
 
 
 class LaunchProgram:
-    """The radix-2 launches of one eager planner walk, replayed on new
-    data: each launch's prepared arguments, launched in order on the current
-    stream, each into a new output that the next reads; the first reads the
-    caller's tensor, and the last's output, viewed as ``shape``, is the
-    result.  A replay gives the walk's launches, geometry and counts; only
-    the pointers and the stream are the call's own."""
+    """The launches of one eager planner walk, replayed on new data: each
+    launch's prepared arguments (a ``RegsLaunch`` or an
+    ``ntt_mxu.TcLimbLaunch``), launched in order on the current stream,
+    each into a new dense block of its ``shape`` that the next reads; the
+    first reads the caller's tensor, and the last's output, viewed as
+    ``shape``, is the result.  A replay gives the walk's launches, geometry
+    and counts; only the pointers and the stream are the call's own."""
 
-    def __init__(self, launches: tuple[RegsLaunch, ...], shape: tuple[int, ...]):
+    def __init__(self, launches: tuple, shape: tuple[int, ...]):
         self.launches = launches
         self.shape = shape
 
@@ -1063,11 +1079,11 @@ class LaunchProgram:
     def from_record(cls, record: list, src: int, out: torch.Tensor) -> "LaunchProgram":
         """The program of a walk that read the tensor at ``src`` and
         returned ``out``, its launches ``record`` (``recording``'s): a chain
-        on contiguous data, each launch reading the one before's output, the
+        on dense data, each launch reading the one before's output, the
         first ``src``, and ``out`` the last's."""
-        for _, x_ptr, out_ptr, contiguous in record:
-            if x_ptr != src or not contiguous:
-                raise RuntimeError("the walk's launches are not a chain on contiguous data")
+        for _, x_ptr, out_ptr, dense in record:
+            if x_ptr != src or not dense:
+                raise RuntimeError("the walk's launches are not a chain on dense data")
             src = out_ptr
         if not record or out.data_ptr() != src or not out.is_contiguous():
             raise RuntimeError("the walk's result is not its last launch's output")
@@ -1081,9 +1097,9 @@ class LaunchProgram:
         out = x
         for i, launch in enumerate(self.launches):
             src = out
-            with span("sventt.launch.radix2_registers"):
+            with span(launch.span):
                 out = torch.empty(launch.shape, dtype=torch.int64, device=x.device)
-                call_regs(launch, src.data_ptr(), out.data_ptr(), stream)
+                launch.call(src.data_ptr(), out.data_ptr(), stream)
             if i == 0 and donated is not None:
                 donated.untyped_storage().resize_(0)
         PROGRAMS["replayed"] += 1

@@ -16,8 +16,9 @@ The port's own: ``modulus`` and ``generator`` may be equal-length tuples,
 one entry a limb, for a multi-modular (RNS) transform of L limbs at once
 (``limb_mods``; ``NTT`` then takes (L, n) data, row l over limb l's field).
 Every limb must be prime, of 2-adicity at least log2 n, with a generator
-of its group.  Such a configuration runs the matrix engine's default plan
-and nothing else: ``engine`` "pallas" or "jnp", ``tune=True`` and
+of its group.  Such a configuration runs the matrix engine and nothing
+else ("auto" cuts its plan at leaves of up to 128 points, ``plan/wrapper.py``
+``RNS_MAX_FUSED``): ``engine`` "pallas" or "jnp", ``tune=True`` and
 ``modmul="solinas"`` are refused here, a plan with another engine or a
 row subtree by ``NTT``, and ``parallel.DistributedNTT`` refuses it too.
 

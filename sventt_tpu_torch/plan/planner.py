@@ -30,9 +30,10 @@ fallback: the inter-step multiply as its own pass (``ops.inter_step``), a
 transpose, the row as a leading-axis transform, a transpose back
 (mirrored on the inverse).
 
-A walk whose every launch is the radix-2 register kernel (``radix2_only``:
-pallas leaves and rows on per-stage tables) is a chain of launches, each
-reading the one before's output; ``build_program`` runs such a walk once
+A walk whose every launch is the radix-2 register kernel (pallas leaves
+and rows on per-stage tables) or the tensor-core kernel's limb launch
+(stacked limbs' tables) is a chain of launches, each reading the one
+before's output (``replayable``); ``build_program`` runs such a walk once
 and records it as an ``ntt_pallas.LaunchProgram``, which ``NTT``'s eager
 calls replay in place of the walk.
 
@@ -484,15 +485,18 @@ def _release(donated: torch.Tensor | None) -> None:
         donated.untyped_storage().resize_(0)
 
 
-def radix2_only(node, tables: PlanTables, batched: bool) -> bool:
-    """Whether every launch of a walk of ``node`` on a card, on data with
-    batch axes (``batched``) or without, is the radix-2 register kernel:
-    one modulus, pallas leaves on per-stage tables (K4) and every row a
-    pallas leaf on per-stage tables -- lane-axis at an unbatched root (K6),
-    mid-axis when batched (K5); no grouped, matrix or jnp kernel, inter-step
-    pass or transpose."""
+def replayable(node, tables: PlanTables, batched: bool) -> bool:
+    """Whether a walk of ``node`` on a card, on data with batch axes
+    (``batched``) or without, is a chain of launches that a
+    ``LaunchProgram`` replays: of stacked limbs' tables always (mxu leaves
+    and fused mxu rows, each one tensor-core launch for every limb); of
+    one modulus where every launch is the radix-2 register kernel -- pallas
+    leaves on per-stage tables (K4) and every row a pallas leaf on
+    per-stage tables, lane-axis at an unbatched root (K6), mid-axis when
+    batched (K5); no grouped, matrix or jnp kernel, inter-step pass or
+    transpose."""
     if tables.limbs is not None:
-        return False
+        return True
     if isinstance(node, Leaf):
         t = tables.leaf[(node.m, node.engine)]
         return node.engine == "pallas" and isinstance(t, ntt_pallas.FusedDirection)
@@ -500,7 +504,7 @@ def radix2_only(node, tables: PlanTables, batched: bool) -> bool:
         row = _mid_row(node, tables)
     else:
         row = _lane_row(node) and isinstance(tables.lane[node.m1], ntt_pallas.LaneDirection)
-    return row and radix2_only(node.col, tables, True)
+    return row and replayable(node.col, tables, True)
 
 
 def build_program(
@@ -509,7 +513,7 @@ def build_program(
     """``run(x, node, tables, donated)`` (``run_forward`` or
     ``run_inverse``) with its launches recorded: (its output, the
     ``LaunchProgram`` that repeats it on any contiguous tensor of ``x``'s
-    shape on ``x``'s device).  For a walk that ``radix2_only`` admits, on
+    shape on ``x``'s device).  For a walk that ``replayable`` admits, on
     contiguous card data."""
     src = x.data_ptr()
     with span("sventt.program.build"), ntt_pallas.recording() as record:

@@ -20,14 +20,16 @@ tables, as the JAX package's do for its chained timing: here the step is
 what a ``torch.cuda.CUDAGraph`` captures (it synchronizes nothing and
 builds no table; ``utils.timing.time_chained`` times it so).
 
-An eager call (``compute_forward`` / ``compute_inverse``) whose every
-launch is the radix-2 register kernel -- a one-modulus butterfly plan on
-a card, the plan "auto" builds there -- on a contiguous input walks the
-planner once for each direction, shape and strides, and records the walk
-as a launch program (``planner.build_program``); each later call of that
-key replays it: the same launches, in the same order, on the current
-stream, with only the data pointers and the fresh outputs its own.
-Every other call walks the plan.
+An eager call (``compute_forward`` / ``compute_inverse``) on a
+contiguous, 16-byte aligned input on a card whose every launch is the
+radix-2 register kernel (a one-modulus butterfly plan, the plan "auto"
+builds there) or the tensor-core kernel's limb launch (a multi-modular
+configuration) walks the planner once for each direction, shape and
+strides, and records the walk as a launch program
+(``planner.build_program``); each later call of that key replays it: the
+same launches, in the same order, on the current stream, with only the
+data pointers and the fresh outputs its own.  Every other call walks the
+plan.
 
 ``tune=True`` resolves the config's knobs through the autotuner
 (``plan/autotune.py``) on the NTT's device before anything else, as in the
@@ -45,8 +47,10 @@ mid / K6 lane on the register kernel), its automatic plan cut at leaves of
 up to ``AUTO_MAX_FUSED`` = 512 points, so it has the matrix plan's levels
 and launches (2^17 = 256 x 512, 2^24 = (256 x 256) x 256); a
 multi-modular configuration runs the matrix engine ("mxu"), its only
-engine; on the CPU "auto" is "mxu".  On an H100 the autotuner's race picks
-the butterfly family at 2^17 and 2^24, 3.3-4.0x the matrix engine as
+engine, its plan cut at leaves of up to ``RNS_MAX_FUSED`` = 128 points on
+every device (2^17 = (32 x 64) x 64); on the CPU "auto" is "mxu".  On an
+H100 the autotuner's race picks the butterfly family at 2^17 and 2^24,
+3.3-4.0x the matrix engine as
 CUDA-graph replays (``autotune_cache.json``: 0.728 against 2.905 ms at
 2^24), and the benchmark's 2^24 cells spend nearly all their device time
 in K1-K3, which run at 22-28% of their int8 bound and take about 2.9 ms a
@@ -61,8 +65,9 @@ order scaled by 1/n mod q_l -- the contract above, limb by limb.  Every
 limb's tables are stacked and each plan level is one kernel launch for all
 limbs.  ``fc`` is then the limbs' ``LimbConsts`` and ``mod`` None; every
 limb must resolve to one ``lazy`` and one ``modmul``.  A 1-tuple
-configuration is the single-modulus transform on (1, n, ...) data: the
-same tables, launches and results.
+configuration is the single-modulus transform on (1, n, ...) data, cut
+as "auto" cuts an RNS plan: the same tables, launches and results as the
+int configuration with ``max_fused=RNS_MAX_FUSED``.
 """
 
 from __future__ import annotations
@@ -112,10 +117,33 @@ def _resolve_engine(config: NttConfig, device) -> str:
     return "mxu"
 
 
+#: Largest leaf of the matrix plan that ``engine="auto"`` builds for a
+#: multi-modular configuration (``max_fused`` unset), on every device: each
+#: matrix level costs 64·m int8 multiply-adds a point, so 2^17 cut into
+#: (32 x 64) x 64 does 10,240 a point where the engine's own 256 x 512
+#: does 49,152, for one more pass over the data.  The cap changes the
+#: engine's plan at 2^8-2^9, 2^15-2^18, 2^22-2^27 and above 2^28, and
+#: leaves it as it is at 2^7 and below, 2^10-2^14, 2^19-2^21 and 2^28.
+#: On an H100, a forward as CUDA-graph replays (``tools/rns_plan_race.py``),
+#: the cap against the engine's own plan, 32 limbs: 2^8 0.0107 / 0.0192
+#: ms, 2^9 0.0116 / 0.0832, 2^15 0.087 / 0.135, 2^16 0.179 / 0.281, 2^17
+#: 0.366 / 0.889, 2^18 0.733 / 2.360, 2^22 14.44 / 17.44, 2^23 28.89 /
+#: 39.62; 8 limbs at 2^24 14.79 / 22.69.  Where it leaves the plan, 128
+#: against 64: 5-20% faster at 2^13, 2^14 and 2^19 (64 takes 16-point
+#: leaves there), even at 2^20, 4-8% slower at 2^21.
+RNS_MAX_FUSED = 128
+
+
 def _auto_max_fused(config: NttConfig, engine: str) -> int | None:
     """The leaf cap that "auto" sets: ``AUTO_MAX_FUSED`` where it resolved
-    to the butterfly engine, else None (the engine's own default)."""
-    return AUTO_MAX_FUSED if config.engine == "auto" and engine == "pallas" else None
+    to the butterfly engine, ``RNS_MAX_FUSED`` for a multi-modular
+    configuration (which "auto" always resolves to the matrix engine),
+    else None (the engine's own default)."""
+    if config.engine != "auto":
+        return None
+    if engine == "pallas":
+        return AUTO_MAX_FUSED
+    return RNS_MAX_FUSED if config.rns else None
 
 
 def build_config_plan(config: NttConfig, engine: str):
@@ -289,11 +317,14 @@ class NTT:
 
     def _call(self, run, x: torch.Tensor, tables, donated=None) -> torch.Tensor:
         """An eager call: the launch program of its key, built on the key's
-        first call where every launch of the walk is the radix-2 register
-        kernel on contiguous card data, else ``_run``'s walk."""
+        first call where the walk is ``planner.replayable`` on contiguous,
+        16-byte aligned card data (a lane form of the tensor-core kernel
+        reads 16 bytes at a time), else ``_run``'s walk."""
+        if x.data_ptr() % 16:
+            return self._run(run, x, tables, donated)
         key = (tables.inverse, x.shape, x.stride())
         if key not in self._programs:
-            if x.is_cuda and x.is_contiguous() and planner.radix2_only(
+            if x.is_cuda and x.is_contiguous() and planner.replayable(
                 self.plan, tables, x.dim() > 1
             ):
                 out, self._programs[key] = planner.build_program(

@@ -1,5 +1,6 @@
-"""The launch program of an eager butterfly call (``planner.build_program``,
-``ntt_pallas.LaunchProgram``) against the planner's walk.
+"""The launch program of an eager butterfly or multi-modular call
+(``planner.build_program``, ``ntt_pallas.LaunchProgram``) against the
+planner's walk.
 
 The tests need no card: they make one up. Every tensor reads as a
 CUDA tensor, the kernel library is a recorder that keeps each C call's
@@ -132,6 +133,24 @@ CASES = [
 ]
 
 
+#: Two limbs of 63 and 62 bits.
+RNS2 = NttConfig((TEST_MODULUS, 0x3FFF_C000_0000_0001), (TEST_GENERATOR, 11), 1 << 10)
+
+#: (id, an RNS config, the input's shape): the "auto" cut (32 x 64) x 64
+#: at 2^17 (lead, mid, lane), batched, lazy (the inverse's lane epilogue
+#: unstaged), the matrix engine's own 256 x 512 and a one-leaf plan.
+RNS_CASES = [
+    ("rns-auto-2^17", NttConfig(RNS2.modulus, RNS2.generator, 1 << 17), (2, 1 << 17)),
+    ("rns-auto-2^17-batched", NttConfig(RNS2.modulus, RNS2.generator, 1 << 17),
+     (2, 1 << 17, 3)),
+    ("rns-lazy-2^17", NttConfig(RNS2.modulus, RNS2.generator, 1 << 17, lazy=True),
+     (2, 1 << 17)),
+    ("rns-mxu-2^17", NttConfig(RNS2.modulus, RNS2.generator, 1 << 17, engine="mxu"),
+     (2, 1 << 17)),
+    ("rns-leaf-2^6", NttConfig(RNS2.modulus, RNS2.generator, 1 << 6), (2, 1 << 6)),
+]
+
+
 def make(cfg: NttConfig | None, inverse: bool) -> NTT:
     if cfg is None:
         return auto_2p24(inverse)
@@ -172,6 +191,40 @@ def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
     assert {launch.modmul for launch in program.launches} == {ntt.fc.modmul}
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("cfg,shape", [c[1:] for c in RNS_CASES], ids=[c[0] for c in RNS_CASES])
+def test_an_rns_replay_makes_the_walks_launches(card, cfg, shape, inverse):
+    """A multi-modular call: the walk, the call that builds the program
+    and two replays make the same tensor-core limb launches, arguments
+    and counts (one launch a level, every limb in each); a replay's result
+    is its last launch's output in the walk's shape."""
+    ntt = make(cfg, inverse)
+    ntt_mxu.reset_counts()
+    step, tables = ntt.inverse_step() if inverse else ntt.forward_step()
+    call = ntt.compute_inverse if inverse else ntt.compute_forward
+    x = torch.empty(shape, dtype=torch.int64)
+    want_out = step(x, *tables)
+    want = roles(card.take(), x.data_ptr())
+    walk_counts = (dict(ntt_mxu.LAUNCHES), dict(ntt_mxu.KERNEL_LAUNCHES), dict(ntt_mxu.LIMBS))
+    levels = str(ntt.plan).count("Leaf(")
+    assert [name for name, *_ in want] == ["sventt_mxu_ntt_tc_limbs"] * levels
+    assert walk_counts[1] == {"tensor_core": levels}
+    assert walk_counts[2] == {"tensor_core": 2 * levels}
+    for i in range(3):
+        ntt_mxu.reset_counts()
+        ntt_pallas.reset_counts()
+        y = torch.empty(shape, dtype=torch.int64)
+        out = call(y)
+        calls = card.take()
+        assert roles(calls, y.data_ptr()) == want, i
+        assert (dict(ntt_mxu.LAUNCHES), dict(ntt_mxu.KERNEL_LAUNCHES),
+                dict(ntt_mxu.LIMBS)) == walk_counts
+        assert ntt_pallas.PROGRAMS == {"built": int(i == 0), "replayed": int(i > 0)}
+        assert out.shape == want_out.shape and out.is_contiguous()
+        assert out.data_ptr() == calls[-1][1][1]
+    ntt_mxu.reset_counts()
+
+
 def test_one_program_a_direction_shape_and_strides(card):
     """A program is built on the first call of each (direction, shape,
     strides) and replayed by every later one, whatever tensor it gets."""
@@ -194,34 +247,43 @@ def test_one_program_a_direction_shape_and_strides(card):
     assert ntt_pallas.PROGRAMS["replayed"] == len(calls) - 3 + 2
 
 
-@pytest.mark.parametrize("case", ["non-contiguous", "grouped", "mxu", "jnp", "rns", "row-subtree"])
+@pytest.mark.parametrize("case", ["non-contiguous", "grouped", "mxu", "jnp", "rns", "row-subtree",
+                                  "rns-misaligned"])
 def test_other_calls_build_no_program(card, case):
-    """Calls that are not a chain of radix-2 register launches on
-    contiguous data walk the plan every time: a non-contiguous input, the
-    grouped, matrix and jnp engines, an RNS configuration, a row subtree
-    (the transpose fallback)."""
+    """Calls that are not a chain of radix-2 register or tensor-core limb
+    launches on contiguous, 16-byte aligned data walk the plan every time:
+    a non-contiguous input (of one modulus, and of an RNS configuration),
+    the grouped, matrix and jnp engines of one modulus, a row subtree (the
+    transpose fallback), an RNS input at an 8-byte offset."""
     n = 1 << 10
     cfg = {
         "non-contiguous": NttConfig(F, G, n),
         "grouped": NttConfig(F, G, n, engine="pallas", max_r=2),
         "mxu": NttConfig(F, G, n, engine="mxu"),
         "jnp": NttConfig(F, G, 1 << 14, engine="jnp"),
-        "rns": NttConfig((TEST_MODULUS, 0x3FFF_C000_0000_0001), (TEST_GENERATOR, 11), n),
+        "rns": RNS2,
         "row-subtree": NttConfig(F, G, 1 << 12, engine="pallas", strategy="six_step",
                                  n0=16, n1=256, max_fused=16),
+        "rns-misaligned": RNS2,
     }[case]
     ntt = NTT(cfg, device="cpu")
     if case == "row-subtree":
         assert isinstance(ntt.plan.row, planner.Split)
-    shape = (2, cfg.n) if case == "rns" else (cfg.n,)
+    shape = (2, cfg.n) if cfg.rns else (cfg.n,)
     for _ in range(3):
         for call in (ntt.compute_forward, ntt.compute_inverse):
-            x = torch.empty(shape + (2,), dtype=torch.int64)
-            call(x[..., 0] if case == "non-contiguous" else x[..., 0].contiguous())
+            if case == "rns-misaligned":
+                x = torch.empty(2 * cfg.n + 1, dtype=torch.int64)[1:].view(shape)
+                assert x.is_contiguous() and x.data_ptr() % 16 == 8
+            else:
+                x = torch.empty(shape + (2,), dtype=torch.int64)
+                x = x[..., 0] if case in ("non-contiguous", "rns") else x[..., 0].contiguous()
+            call(x)
             assert card.take()
     assert ntt_pallas.PROGRAMS == {"built": 0, "replayed": 0}
     for tables in (ntt._fwd_tables, ntt._inv_tables):
-        assert planner.radix2_only(ntt.plan, tables, False) == (case == "non-contiguous")
+        assert planner.replayable(ntt.plan, tables, False) == (
+            case in ("non-contiguous", "rns", "rns-misaligned"))
 
 
 def test_a_cpu_call_builds_no_program():

@@ -187,21 +187,23 @@ def _card_rule(monkeypatch):
     monkeypatch.setattr(wrapper, "_resolve_engine", lambda config, device: rule(config, "cuda"))
 
 
+def plan(cfg, device):
+    """The plan ``NTT`` builds for ``cfg`` on ``device`` ("cpu" or "cuda")."""
+    return wrapper.build_config_plan(cfg, wrapper._resolve_engine(cfg, device))
+
+
 def test_auto_plan_on_a_card():
     """engine="auto" on a card: the butterfly plan with leaves of up to 512
     points -- 256 x 512 at 2^17, (256 x 256) x 256 at 2^24 -- in the
     shapes, so with the levels and launches, of the matrix plan that "auto"
-    gives on the CPU (and "mxu" anywhere), at 2^10 .. 2^26; an explicit
-    "pallas" keeps the JAX package's plan (leaves of up to 256), and a
-    ``max_fused`` the caller sets is kept."""
+    gives on the CPU (and "mxu" anywhere: the JAX package's), at 2^10 ..
+    2^26; an explicit "pallas" keeps the JAX package's plan (leaves of up
+    to 256), and a ``max_fused`` the caller sets is kept."""
     F, G = FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR
-
-    def plan(cfg, device):
-        return wrapper.build_config_plan(cfg, wrapper._resolve_engine(cfg, device))
-
     for log2n in range(10, 27):
         cfg = NttConfig(F, G, 1 << log2n)
         mxu = plan(cfg, "cpu")
+        assert repr(mxu) == repr(jplanner.build_plan(1 << log2n, "mxu")), log2n
         assert mxu == plan(cfg.with_(engine="mxu"), "cuda")
         assert repr(plan(cfg, "cuda")) == repr(mxu).replace("'mxu'", "'pallas'"), log2n
     L = planner.Leaf
@@ -215,6 +217,36 @@ def test_auto_plan_on_a_card():
         assert repr(plan(cfg, "cuda")) == repr(jplanner.build_plan(1 << log2n, "pallas"))
     assert plan(NttConfig(F, G, 1 << 17, max_fused=64), "cuda") == plan(
         NttConfig(F, G, 1 << 17, engine="pallas", max_fused=64), "cuda")
+
+
+#: two limbs of 2-adicity 57 and 40: RNS configurations up to 2^26
+RNS = ((TEST_MODULUS, 0x3FFF_C000_0000_0001), (TEST_GENERATOR, 11))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_auto_rns_plan_is_cut_at_128(device):
+    """engine="auto" on an RNS configuration, on the CPU as on a card: the
+    matrix plan cut at leaves of up to ``RNS_MAX_FUSED`` = 128 points --
+    (32 x 64) x 64 at 2^17, (64 x 128) x 128 at 2^20 -- where an explicit
+    "mxu" keeps the engine's own plan (leaves of up to 512: 256 x 512 at
+    2^17, the JAX package's) and an explicit ``max_fused`` its own cut, at
+    2^10 .. 2^26."""
+    L = planner.Leaf
+    assert wrapper.RNS_MAX_FUSED == 128
+    assert plan(NttConfig(*RNS, 1 << 17), device) == planner.Split(
+        1 << 17, 2048, 64,
+        planner.Split(2048, 32, 64, L(32, "mxu"), L(64, "mxu")), L(64, "mxu"))
+    assert plan(NttConfig(*RNS, 1 << 20), device) == planner.Split(
+        1 << 20, 8192, 128,
+        planner.Split(8192, 64, 128, L(64, "mxu"), L(128, "mxu")), L(128, "mxu"))
+    for log2n in range(10, 27):
+        n = 1 << log2n
+        assert plan(NttConfig(*RNS, n), device) == planner.build_plan(n, "mxu", 128), log2n
+        assert repr(plan(NttConfig(*RNS, n, engine="mxu"), device)) == repr(
+            jplanner.build_plan(n, "mxu")), log2n
+        for cap in (32, 64, 512):
+            assert plan(NttConfig(*RNS, n, max_fused=cap), device) == planner.build_plan(
+                n, "mxu", cap), (log2n, cap)
 
 
 @pytest.mark.parametrize("log2n", [10, 12])

@@ -26,7 +26,7 @@ from sventt_tpu_torch.field.modulus import FLAGSHIP_MODULUS, Modulus
 from sventt_tpu_torch.ops import ntt_mxu, pointwise
 from sventt_tpu_torch.ops.twiddle import sixstep_row_twiddles_limbs
 from sventt_tpu_torch.parallel import DistributedNTT, make_ntt_mesh
-from sventt_tpu_torch.plan import planner
+from sventt_tpu_torch.plan import planner, wrapper
 from sventt_tpu_torch.utils.profiling import span
 
 from bench_port.reference.rns import ReferenceRNS
@@ -61,12 +61,17 @@ def test_forward_inverse_and_product_equal_the_reference(L, n):
     assert torch.equal(cyclic_convolve(ntt, x, y), ref.polymul(x, y))
 
 
-@pytest.mark.parametrize("n,batch", [(1024, ()), (1024, (3,)), (64, (2, 2))])
+@pytest.mark.parametrize("n,batch", [(1024, ()), (1024, (3,)), (64, (2, 2)), (1 << 17, ())])
 def test_each_limb_is_its_single_modulus_transform(n, batch):
+    """Each limb of an "auto" RNS transform -- at 2^17 the plan (32 x 64) x
+    64 -- is its single-modulus ``NTT`` (the matrix engine's own plan, 256
+    x 512 at 2^17), and the whole is the RNS ``engine="mxu"`` plan's."""
     L = 3
-    ntt = rns(L, n)
+    ntt, own = rns(L, n), rns(L, n, engine="mxu")
     x, y = data((L, n) + batch, 3), data((L, n) + batch, 4)
     fx, ix, c = ntt.compute_forward(x), ntt.compute_inverse(x), cyclic_convolve(ntt, x, y)
+    assert torch.equal(fx, own.compute_forward(x)) and torch.equal(ix, own.compute_inverse(x))
+    assert torch.equal(c, cyclic_convolve(own, x, y))
     for i in range(L):
         one = NTT(NttConfig(PRIMES[i], GENS[i], n), device="cpu")
         assert torch.equal(fx[i], one.compute_forward(x[i]))
@@ -107,8 +112,10 @@ def routed(ntt, x, y):
 
 @pytest.mark.parametrize("n", [512, 1 << 12])
 def test_a_one_tuple_config_is_the_int_config(n):
+    """A 1-tuple configuration is the int one cut as "auto" cuts an RNS
+    plan (``RNS_MAX_FUSED``): the same plan, outputs and counts."""
     one = NTT(NttConfig(PRIMES[:1], GENS[:1], n), device="cpu")
-    ref = NTT(NttConfig(PRIMES[0], GENS[0], n), device="cpu")
+    ref = NTT(NttConfig(PRIMES[0], GENS[0], n, max_fused=wrapper.RNS_MAX_FUSED), device="cpu")
     assert one.limbs == 1 and ref.limbs is None
     assert one.fc == ref.fc and one.mod == ref.mod and one.describe() == ref.describe()
     x, y = data((n,), 6), data((n,), 7)
@@ -121,6 +128,10 @@ def test_a_one_tuple_config_is_the_int_config(n):
     assert torch.equal(step(x[None], *tables), a[0])
 
 
+#: mid calls of an "auto" RNS forward: 2^12 = 64 x 64, 2^17 = (32 x 64) x 64
+MIDS = {1 << 12: 0, 1 << 17: 1}
+
+
 @pytest.mark.parametrize("n", [1 << 12, 1 << 17])
 def test_a_limb_call_is_one_call_a_level(n):
     """Every plan level is one kernel call for all limbs: a 4-limb forward
@@ -130,7 +141,7 @@ def test_a_limb_call_is_one_call_a_level(n):
     _, seen1 = routed(rns(1, n), x1, x1)
     _, seen4 = routed(rns(4, n), x4, x4)
     assert seen1 == seen4
-    assert seen4[0][1]["lead"] == 1 and seen4[0][1]["lane"] == 1
+    assert seen4[0][1] == {"lead": 1, "mid": MIDS[n], "lane": 1}
     assert seen4[2][5] == {"pointwise": 1}
 
 
@@ -192,14 +203,18 @@ def test_the_limb_twiddles_are_each_limbs_bit_for_bit(n0, n1, inverse):
 
 
 def test_the_plan_tables_hold_every_limb():
+    """The tables of the "auto" plan at 2^17, (32 x 64) x 64, hold all 3
+    limbs: both leaves, and the twiddles of both splits."""
     ntt = rns(3, 1 << 17)
     for tables, inverse in ((ntt._fwd_tables, False), (ntt._inv_tables, True)):
         assert tables.limbs == 3
-        assert isinstance(tables.leaf[(256, "mxu")], ntt_mxu.MxuLimbs)
-        assert tables.split_tw[(256, 512)].w.shape == (3, 256, 512)
-        mxu = tables.leaf[(512, "mxu")]
+        assert tables.leaf.keys() == {(32, "mxu"), (64, "mxu")}
+        assert isinstance(tables.leaf[(32, "mxu")], ntt_mxu.MxuLimbs)
+        assert tables.split_tw[(32, 64)].w.shape == (3, 32, 64)
+        assert tables.split_tw[(2048, 64)].w.shape == (3, 2048, 64)
+        mxu = tables.leaf[(64, "mxu")]
         assert torch.equal(mxu.planes[2], ntt_mxu.make_mxu_tables(
-            MODS[2], 512, inverse=inverse, device="cpu").planes)
+            MODS[2], 64, inverse=inverse, device="cpu").planes)
 
 
 def test_the_geometry_of_a_limb_call():
