@@ -67,8 +67,12 @@ Phases, each printing its own lines:
    a single-modulus forward at 2^17 and 2^24 on the butterfly engine, 2 and
    3 launches of the radix-2 register kernel and none of the matrix
    kernel, and a two-limb RNS forward at 2^17 on the tensor cores, 3
-   launches, each against the native oracle; the mxu paths must run every root on
-   K3 (``mxu_ntt_lane``) and no transpose (the planner's ``transpose01``
+   launches, each against the native oracle; the benchmark's
+   ``flagship-2p28`` configuration (``flagship_2p28``): the four-level plan
+   ((128 x 128) x 128) x 128, forward and inverse against the benchmark's
+   plain reference on the card and the roundtrip, 4 launches a call, the
+   K6 root's on its companion-free table (``ntt_pallas.TWIDDLE``); the mxu
+   paths must run every root on K3 (``mxu_ntt_lane``) and no transpose (the planner's ``transpose01``
    is counted); then K3 with the fused twiddle on the 2^24 root shape
    against JAX's root step on the card (a transpose, K1 with the transposed
    table, a transpose back), and ``transpose01_u64(x, "pallas")`` /
@@ -129,7 +133,8 @@ Phases, each printing its own lines:
    graph replays), with each race's seconds and peak allocation; and
    ``NTT(tune=True)`` at 2^24 from the shipped cache against the oracle.
    ``donate_input``: the default and the mxu forward at 2^26 (against the
-   oracle) and 2^28 (donated bitwise against kept) with and without it, the peak
+   oracle) and 2^28 (donated bitwise against kept) with and without it, the
+   default's 2^28 inverse of that output too (against the input), the peak
    allocation of each (the saving must be one n-word buffer within 5%).
    ``phase_breakdown`` of the 2^24 mxu and pallas plans, and ``trace``
    writing its Chrome trace.  The partial collective axis: the (2, 4)
@@ -1485,6 +1490,101 @@ def auto_route(device, oracles: dict) -> None:
           and no_plain(c), "auto RNS: not 3 tensor-core launches carrying 2 limbs each")
 
 
+def flagship_2p28(device, smi: str) -> None:
+    """The benchmark's ``flagship-2p28`` configuration: the flagship at n =
+    2^28 under "auto", every knob at its default -- the four-level plan
+    ((128 x 128) x 128) x 128 on the butterfly engine, the root's
+    inter-step table companion-free (``planner.W_ONLY_THRESHOLD``) and the
+    inner levels' pairs.  Forward and inverse of the cell's own kind of
+    input (uniform residues below N, ``bench_port.traffic.residues``), the
+    call that builds the launch program and its replay, word for word
+    against the plain reference (``bench_port/reference/ntt.py``) on the
+    card, and the forward's inverse against the input; each call 4
+    launches of the radix-2 register kernel, one of them reading the
+    companion-free table (``TWIDDLE`` "w": K6's ``tw_mode`` 2), two a pair
+    (K5), one none (K4).  Then the ms of a forward and an inverse by CUDA
+    events, and the build's seconds and the tables' bytes."""
+    import torch
+
+    from bench_port.reference.ntt import ReferenceNTT
+    from bench_port.traffic import residues
+    from sventt_tpu_torch.ops import ntt_pallas as P
+    from sventt_tpu_torch.plan import NTT, NttConfig, planner
+
+    flag, _ = moduli()
+    F, G = flag.modulus, flag.generator
+    n, m = 1 << 28, 128
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ntt = NTT(NttConfig(F, G, n), device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    L = planner.Leaf
+    plan = planner.Split(n, n // m, m, planner.Split(
+        n // m, n // m**2, m, planner.Split(m * m, m, m, L(m, "pallas"), L(m, "pallas")),
+        L(m, "pallas")), L(m, "pallas"))
+    tables = (ntt._fwd_tables, ntt._inv_tables)
+    companions = [{k: tw.wp is not None for k, tw in t.split_tw.items()} for t in tables]
+    table_bytes = torch.cuda.memory_allocated()
+    log(f"  engine {ntt.engine}, modmul {ntt.fc.modmul}; tables built in {build_s:.2f} s, "
+        f"{table_bytes} bytes allocated; inter-step tables with a companion (forward, "
+        f"inverse): {companions}; plan:")
+    for line in ntt.describe().splitlines():
+        log(f"    {line}")
+    check(ntt.engine == "pallas" and ntt.fc.modmul == "montgomery" and ntt.plan == plan,
+          "flagship 2^28: not the four-level butterfly plan of 128-point leaves")
+    check(companions == [{(n // m, m): False, (n // m**2, m): True, (m, m): True}] * 2,
+          "flagship 2^28: not the root alone companion-free")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2**31 + 2028)
+    x = residues((n,), F, gen, device)
+    ref = ReferenceNTT(F, G, n, device)
+    forms = {"none": 1, "pair": 2, "w": 1, "solinas": 0}
+    y = None
+    for inverse in (False, True):
+        name = "inverse" if inverse else "forward"
+        call = ntt.compute_inverse if inverse else ntt.compute_forward
+        outs, seen = [], []
+        for _ in range(2):  # the call that builds the program, then a replay
+            reset_counts()
+            outs.append(call(x))
+            sync(device)
+            seen.append((dict(P.KERNEL_LAUNCHES), dict(P.TWIDDLE), dict(P.PROGRAMS),
+                         no_plain(counts())))
+        same = torch.equal(outs[0], outs[1])
+        got = outs[0]
+        del outs
+        t0 = time.perf_counter()
+        want = ref.inverse(x) if inverse else ref.forward(x)
+        sync(device)
+        ref_s = time.perf_counter() - t0
+        bad = int((got != want).sum().item())
+        del want
+        log(f"  {name}: build == replay bitwise: {same}; {bad} words differ from the plain "
+            f"reference (its {name} {ref_s:.1f} s); (radix-2 launches, by twiddle form, "
+            f"programs, no plain call) build {seen[0]}, replay {seen[1]}")
+        check(same and bad == 0, f"flagship 2^28 {name}: differs from the plain reference")
+        for (kernels, twiddle, programs, plain_free), built in zip(seen, (1, 0)):
+            check(kernels == {"radix2_registers": 4, "registers": 0} and twiddle == forms
+                  and programs == {"built": built, "replayed": 1 - built} and plain_free,
+                  f"flagship 2^28 {name}: not 4 register-kernel launches, one of them on the "
+                  f"companion-free root table")
+        if not inverse:
+            y = got
+        del got
+    back = ntt.compute_inverse(y)
+    bad = int((back != x).sum().item())
+    del back, ref
+    check(bad == 0, f"flagship 2^28: the inverse of the forward differs from the input in {bad}")
+    fwd_ms = timed(lambda: ntt.compute_forward(x), 1, 5)
+    inv_ms = timed(lambda: ntt.compute_inverse(y), 1, 5)
+    log(f"  the inverse of the forward equals the input; forward {fwd_ms:.4f} ms, inverse "
+        f"{inv_ms:.4f} ms by CUDA events (median of 5; four passes of 16 bytes a point at "
+        f"the HBM peak: {4 * 16 * n / HBM_BPS * 1e3:.4f} ms); {smi}")
+    del ntt, x, y
+    torch.cuda.empty_cache()
+
+
 def lane_path(device, rng):
     """``mxu_ntt_lane`` with the fused twiddle, the mxu root step: the
     (65536, 256) rows of the 2^24 root, both directions, with a pair table
@@ -2081,7 +2181,9 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
     against the native oracle) and 2^28 (donated bitwise against the
     kept-input output): the call's peak allocation above the tables (the
     input included), by ``max_memory_allocated``, and the time of one
-    forward of a fresh copy of the input by CUDA events."""
+    forward of a fresh copy of the input by CUDA events.  The default
+    engine's 2^28 runs the inverse of that output the same way, each
+    direction's output against the input (the roundtrip) as well."""
     import torch
 
     from sventt_tpu_torch.field.limb import to_numpy
@@ -2092,10 +2194,12 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
     F, G = flag.modulus, flag.generator
     for engine, log2n in ((e, k) for e in ("auto", "mxu") for k in (26, 28)):
         n = 1 << log2n
+        inverse = engine == "auto" and log2n == 28
         outs, peaks, times_ms = {}, {}, {}
+        backs, ipeaks, itimes_ms = {}, {}, {}
         for donate in (False, True):
             torch.cuda.empty_cache()
-            ntt = NTT(NttConfig(F, G, n, engine=engine), enable_inverse=False,
+            ntt = NTT(NttConfig(F, G, n, engine=engine), enable_inverse=inverse,
                       donate_input=donate, device=device)
             sync(device)
             before = torch.cuda.memory_allocated()
@@ -2109,9 +2213,25 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
                   f"{engine} 2^{log2n}: the input was {'kept' if donate else 'released'}")
             del x
             outs[donate] = ntt.normalize(y) if log2n == 28 else to_numpy(ntt.normalize(y))
+            if inverse:  # of a copy: outs holds y itself (normalize is the identity)
+                spec = y.clone()
+                sync(device)
+                before = torch.cuda.memory_allocated() - 8 * n  # the copy is the input
+                torch.cuda.reset_peak_memory_stats()
+                z = ntt.compute_inverse(spec)
+                sync(device)
+                ipeaks[donate] = torch.cuda.max_memory_allocated() - before
+                check(spec.untyped_storage().nbytes() == (0 if donate else 8 * n),
+                      f"{engine} 2^{log2n} inverse: the input was "
+                      f"{'kept' if donate else 'released'}")
+                backs[donate] = torch.equal(z, device_fill(n, F, device))
+                del z, spec
             del y
             src = device_fill(n, F, device)
             times_ms[donate] = timed(lambda: ntt.compute_forward(src.clone()), 1, 5)
+            if inverse:
+                spec = outs[donate]
+                itimes_ms[donate] = timed(lambda: ntt.compute_inverse(spec.clone()), 1, 5)
             del src, ntt
         saving = peaks[False] - peaks[True]
         if log2n == 26:
@@ -2128,6 +2248,18 @@ def donate_phase(device, smi: str, oracles: dict) -> None:
         check(ok, f"{engine} 2^{log2n}: the donated forward differs")
         check(abs(saving - 8 * n) <= 0.05 * 8 * n,
               f"{engine} 2^{log2n}: donation saved {saving} bytes, not one n-word buffer")
+        if inverse:
+            saving = ipeaks[False] - ipeaks[True]
+            log(f"  {engine} 2^{log2n} inverse of the forward: equals the input (kept, donated) "
+                f"{backs[False]}, {backs[True]}; peak above the tables kept {ipeaks[False]} / "
+                f"donated {ipeaks[True]} bytes: saving {saving} bytes = "
+                f"{saving / (8 * n):.4f} n-word buffers; inverse of a copy kept "
+                f"{itimes_ms[False]:.4f} / donated {itimes_ms[True]:.4f} ms ({smi})")
+            check(backs[False] and backs[True],
+                  f"{engine} 2^{log2n}: the inverse of the forward is not the input")
+            check(abs(saving - 8 * n) <= 0.05 * 8 * n,
+                  f"{engine} 2^{log2n} inverse: donation saved {saving} bytes, not one n-word "
+                  "buffer")
         del outs
     torch.cuda.empty_cache()
 
@@ -2989,6 +3121,9 @@ def main() -> int:
     log("[launch program] eager butterfly calls: walk, building call and replay bitwise, vs "
         "the native oracle, launches and programs counted; host time walk against replay")
     program_phase(device, smi, oracles)
+    log("[flagship 2^28] the benchmark's flagship-2p28 configuration under 'auto': the "
+        "four-level plan, forward and inverse vs the plain reference on the card")
+    flagship_2p28(device, smi)
     log("[slice pallas max_r=3] NTT(engine='pallas', max_r=3) vs the native oracle, "
         "elementwise")
     grp = dict(engine="pallas", max_r=3)

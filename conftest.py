@@ -116,6 +116,7 @@ FILE_SECONDS = {
     "tests/test_transpose.py": 5.6,
     "tests/test_truetime.py": 2.4,
     "tests/test_modulus.py": 2.4,
+    "tests/test_torch_flagship_2p28.py": 2.3,
     "tests/test_torch_mxu_fused.py": 2.1,
     "tests/test_torch_goldilocks.py": 2.0,
     "tests/test_torch_budget.py": 1.8,

@@ -62,8 +62,9 @@ point by its (then unit) table entry.
 On a CPU tensor the wrappers run the plain PyTorch version (``*_plain``);
 on a CUDA tensor they launch the kernel or raise.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` plain-version calls per orientation;
-``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran, and
-``MODMUL`` the radix-2 launches by their stage multiply.
+``KERNEL_LAUNCHES`` which radix-2 and which grouped kernel ran,
+``MODMUL`` the radix-2 launches by their stage multiply and ``TWIDDLE``
+by the form of the inter-step twiddle they are given.
 
 A radix-2 launch is two steps: ``prepare_regs`` works out everything but
 the data -- geometry, table and twiddle pointers, dims, strides, modes --
@@ -134,6 +135,14 @@ PROGRAMS = {"built": 0, "replayed": 0}
 #: Radix-2 register-kernel launches (K4 / K5 / K6, walked or replayed) by
 #: their stage multiply: the keys of ``_MODMUL``.
 MODMUL = {"montgomery": 0, "shoup": 0, "solinas": 0}
+#: Radix-2 register-kernel launches (walked or replayed) by the form of the
+#: inter-step twiddle they are given: the values of ``_TWIDDLE`` -- "none",
+#: a Montgomery "pair" (16 bytes an entry), a companion-free Montgomery "w"
+#: (8 bytes, the companion computed in flight: the root's table from
+#: ``planner.W_ONLY_THRESHOLD`` on) or a plain "solinas" one.  (With
+#: ``spc`` only the range that starts a forward or ends an inverse
+#: multiplies it.)
+TWIDDLE = {"none": 0, "pair": 0, "w": 0, "solinas": 0}
 
 #: The register kernel's largest block (its ``__launch_bounds__``).
 GROUPED_THREADS = 256
@@ -942,6 +951,10 @@ def _tw_args(tw3: MontPair | None, fc: FieldConsts) -> tuple:
     return tw3.w.data_ptr(), wp, mode
 
 
+#: The ``TWIDDLE`` key of each inter-step multiply mode of ``_tw_args``.
+_TWIDDLE = ("none", "pair", "w", "solinas")
+
+
 @dataclass(frozen=True)
 class RegsLaunch:
     """One launch of the radix-2 register kernel, everything but its data
@@ -951,12 +964,14 @@ class RegsLaunch:
     (A, m, B) shape of its input and output; ``orientation``: the
     ``LAUNCHES`` key it counts under (None: none, a direct launch);
     ``modmul``: the ``MODMUL`` key it counts under, its stage multiply;
+    ``twiddle``: the ``TWIDDLE`` key, its inter-step twiddle's form;
     ``tensors``: what ``args`` points into, held while the launch is."""
 
     args: tuple
     shape: tuple[int, ...]
     orientation: str | None
     modmul: str
+    twiddle: str
     tensors: tuple = field(repr=False, compare=False)
 
     #: The span a launch runs in.
@@ -992,7 +1007,7 @@ def prepare_regs(
         _MODMUL[fc.modmul], int(fc.lazy), mode, fc.modulus, fc.montgomery_inverse, s, sp or 0,
     )
     tensors = (t.w, t.wp) + (() if tw3 is None else tuple(tw3))
-    return RegsLaunch(args, tuple(x3.shape), orientation, fc.modmul, tensors)
+    return RegsLaunch(args, tuple(x3.shape), orientation, fc.modmul, _TWIDDLE[mode], tensors)
 
 
 def current_stream(device: torch.device) -> int:
@@ -1013,6 +1028,7 @@ def call_regs(launch: RegsLaunch, src: int, out: int, stream: int) -> None:
         raise RuntimeError(f"radix-2 register kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES["radix2_registers"] += 1
     MODMUL[launch.modmul] += 1
+    TWIDDLE[launch.twiddle] += 1
     if launch.orientation is not None:
         LAUNCHES[launch.orientation] += 1
 
@@ -1223,8 +1239,9 @@ def fused_ntt_lane(
 
 
 def reset_counts() -> None:
-    """Set every launch, plain-call, multiply and program count to zero."""
-    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, PROGRAMS, MODMUL):
+    """Set every launch, plain-call, multiply, twiddle and program count to
+    zero."""
+    for d in (LAUNCHES, PLAIN_CALLS, KERNEL_LAUNCHES, PROGRAMS, MODMUL, TWIDDLE):
         for k in d:
             d[k] = 0
 

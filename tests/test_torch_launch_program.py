@@ -162,8 +162,9 @@ def make(cfg: NttConfig | None, inverse: bool) -> NTT:
 def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
     """The walk, the call that builds the program and two replays make
     the same launches, arguments and counts, every launch counted under
-    the configuration's stage multiply (``MODMUL``); a replay's result is
-    its last launch's output in the walk's shape."""
+    the configuration's stage multiply (``MODMUL``) and once by its
+    inter-step twiddle's form (``TWIDDLE``); a replay's result is its last
+    launch's output in the walk's shape."""
     ntt = make(cfg, inverse)
     step, tables = ntt.inverse_step() if inverse else ntt.forward_step()
     call = ntt.compute_inverse if inverse else ntt.compute_forward
@@ -171,10 +172,11 @@ def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
     want_out = step(x, *tables)
     want = roles(card.take(), x.data_ptr())
     walk_counts = (dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES),
-                   dict(ntt_pallas.MODMUL))
+                   dict(ntt_pallas.MODMUL), dict(ntt_pallas.TWIDDLE))
     assert want and {name for name, *_ in want} == {"sventt_radix2_ntt"}
     assert sum(walk_counts[0].values()) == walk_counts[1]["radix2_registers"] == len(want)
     assert walk_counts[2] == {k: len(want) * (k == ntt.fc.modmul) for k in ntt_pallas.MODMUL}
+    assert sum(walk_counts[3].values()) == len(want)
     assert ntt_pallas.PROGRAMS == {"built": 0, "replayed": 0}
     for i in range(3):
         ntt_pallas.reset_counts()
@@ -183,7 +185,7 @@ def test_a_replay_makes_the_walks_launches(card, cfg, shape, inverse):
         calls = card.take()
         assert roles(calls, y.data_ptr()) == want, i
         assert (dict(ntt_pallas.LAUNCHES), dict(ntt_pallas.KERNEL_LAUNCHES),
-                dict(ntt_pallas.MODMUL)) == walk_counts
+                dict(ntt_pallas.MODMUL), dict(ntt_pallas.TWIDDLE)) == walk_counts
         assert ntt_pallas.PROGRAMS == {"built": int(i == 0), "replayed": int(i > 0)}
         assert out.shape == want_out.shape and out.is_contiguous()
         assert out.data_ptr() == calls[-1][1][1]
